@@ -1,0 +1,280 @@
+"""The port's modules against the JAX package's, at small sizes on the CPU.
+
+Inputs are made with numpy from a seed and fed to both.  Single ops round
+at the same points in both frameworks, so a bf16 output differs only where
+a float32 summation-order difference straddles a rounding boundary: one
+ulp, rarely.  Whole blocks are held to a few ulps of the output's scale
+instead: XLA fuses a jitted block and then keeps some intermediates in
+float32 where the op-by-op reference rounds them (JAX's own fused and
+op-by-op results for one TAR block differ in ~25% of the outputs by an
+ulp).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from umgen_tpu.config import ModelConfig
+from umgen_tpu.models import modules as jnn
+from umgen_tpu.models.umgen import UMGen as JUMGen
+from umgen_tpu.models.umgen import build_buffers as j_build_buffers
+from umgen_tpu.ops import collision as jcol
+from umgen_tpu.ops import warp as jwarp
+from umgen_tpu.runtime.quantize import quantize_params_int8 as j_quantize
+from umgen_tpu_torch import params as tparams
+from umgen_tpu_torch.models import modules as tnn
+from umgen_tpu_torch.models import sampling as tsamp
+from umgen_tpu_torch.models.umgen import NotPortedError, build_buffers
+from umgen_tpu_torch.ops import collision as tcol
+from umgen_tpu_torch.ops import warp as twarp
+from umgen_tpu_torch.runtime.quantize import (pack_decode_weights,
+                                              quantize_params_int8)
+from umgen_tpu_torch.tools import evaluate
+
+D, H = 64, 4
+# bf16 outputs: at most one ulp apart, and only rarely
+MAX_MISMATCH = 0.01
+
+
+def _t(a, dtype=None):
+    t = torch.tensor(np.asarray(jnp.asarray(a, jnp.float32)))
+    return t.to(dtype) if dtype is not None else t
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+def _bf16_close(port, ref, what):
+    """One bf16 ulp per element (values far below the tensor's scale may
+    differ by one ulp of scale/1024: they come out of cancellations), in
+    at most MAX_MISMATCH of the elements."""
+    a, b = _f32(ref), _f32(port)
+    floor = np.abs(a).max() / 1024
+    ulp = 2.0 ** -7 * np.maximum(np.abs(a), floor)
+    assert (np.abs(a - b) <= ulp).all(), what
+    assert np.mean(a != b) <= MAX_MISMATCH, (what, np.mean(a != b))
+
+
+def _block_close(port, ref, what, ulps=4):
+    """Within `ulps` bf16 ulps (2^-8 each) of the output's scale."""
+    a, b = _f32(ref), _f32(port)
+    assert np.abs(a - b).max() <= ulps * 2.0 ** -8 * np.abs(a).max(), what
+
+
+def _tree_map2(f, a, b, path=""):
+    if isinstance(a, dict):
+        assert set(a) == set(b), (path, set(a) ^ set(b))
+        for k in a:
+            _tree_map2(f, a[k], b[k], f"{path}/{k}")
+    else:
+        f(a, b, path)
+
+
+@pytest.fixture(scope="module")
+def block():
+    p = jnn.init_block_tar(jax.random.PRNGKey(0), D, False, jnp.bfloat16)
+    rng = np.random.default_rng(0)
+    # non-trivial norms and biases
+    p = jax.tree.map(lambda a: jnp.asarray(
+        np.asarray(a, np.float32) + 0.05 * rng.normal(size=a.shape),
+        a.dtype), p)
+    return p, tparams.from_jax(p)
+
+
+def test_primitives_match_jax(block):
+    jp, tp = block
+    rng = np.random.default_rng(1)
+    x = jnp.asarray(rng.normal(0, 1, (3, 50, D)), jnp.bfloat16)
+    xt = _t(x, torch.bfloat16)
+    _bf16_close(tnn.layer_norm(tp["ln1"], xt),
+                jax.jit(jnn.layer_norm)(jp["ln1"], x), "layer_norm")
+    _bf16_close(tnn.linear(tp["sa1"]["qkv"], xt),
+                jax.jit(jnn.linear)(jp["sa1"]["qkv"], x), "linear + bias")
+    jq = j_quantize({"head_x": jp["sa1"]["qkv"]}, keys=("head_x",))
+    tq = quantize_params_int8({"head_x": tp["sa1"]["qkv"]}, keys=("head_x",))
+    _bf16_close(tnn.linear(tq["head_x"], xt),
+                jax.jit(jnn.linear)(jq["head_x"], x), "int8 linear")
+    h = jax.jit(jnn.linear)(jp["mlp1"]["fc"], x)
+    _bf16_close(tnn.gelu(_t(h, torch.bfloat16)), jax.jit(jnn.gelu)(h),
+                "gelu")
+    _bf16_close(tnn.mlp(tp["mlp1"], xt), jax.jit(jnn.mlp)(jp["mlp1"], x),
+                "mlp")
+
+
+@pytest.mark.parametrize("causal,Sq,Sk", [(False, 7, 7), (True, 7, 7),
+                                          (True, 3, 9)])
+def test_sdpa_matches_jax(causal, Sq, Sk):
+    # float32: summation order only
+    rng = np.random.default_rng(2)
+    q, k, v = (rng.normal(0, 1, (2, S, H, 16)).astype(np.float32)
+               for S in (Sq, Sk, Sk))
+    ref = jnn.sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal)
+    out = tnn.sdpa(torch.tensor(q), torch.tensor(k), torch.tensor(v), causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-6)
+
+
+def test_block_tar_collect_kv_matches_jax(block):
+    jp, tp = block
+    rng = np.random.default_rng(3)
+    x = jnp.asarray(rng.normal(0, 1, (2, 3, 10, D)), jnp.bfloat16)
+    y_j, (k_j, v_j) = jax.jit(lambda p, x: jnn.block_tar_collect_kv(
+        p, x, H))(jp, x)
+    y_t, (k_t, v_t) = tnn.block_tar_collect_kv(tp, _t(x, torch.bfloat16), H)
+    for port, ref, what in ((y_t, y_j, "y"), (k_t, k_j, "k"),
+                            (v_t, v_j, "v")):
+        _block_close(port, ref, what)
+
+
+def test_block_tar_decode_deferred_bf16_matches_jax(block):
+    jp, tp = block
+    rng = np.random.default_rng(4)
+    B, S, T = 2, 10, 5
+    x = jnp.asarray(rng.normal(0, 1, (B, S, D)), jnp.bfloat16)
+    rk, rv = (jnp.asarray(rng.normal(0, 0.5, (B * S, T, H, D // H)),
+                          jnp.bfloat16) for _ in range(2))
+    for slot, n_valid in ((2, 3), (4, 5), (0, 5)):
+        y_j, k_j, v_j = jax.jit(lambda p, x, a, b: jnn.
+                                block_tar_decode_deferred(
+                                    p, x, H, a, b, slot, n_valid))(
+            jp, x, rk, rv)
+        y_t, k_t, v_t = tnn.block_tar_decode_deferred(
+            tp, _t(x, torch.bfloat16), H, _t(rk, torch.bfloat16),
+            _t(rv, torch.bfloat16), slot, n_valid)
+        for port, ref, what in ((y_t, y_j, "y"), (k_t, k_j, "k"),
+                                (v_t, v_j, "v")):
+            _block_close(port, ref, (what, slot))
+
+
+def test_param_bridge_and_init_match_jax_tree():
+    """from_jax keeps names, shapes, dtypes and values; init_params builds
+    the JAX initializer's names, shapes and dtypes; build_buffers equals
+    the JAX tables."""
+    cfg = ModelConfig().scaled("tiny")
+    jp = JUMGen(cfg).init_params(jax.random.PRNGKey(0))
+    tp = tparams.from_jax(jp)
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "int8": torch.int8}
+
+    def same(a, b, path):
+        assert tuple(a.shape) == tuple(b.shape), path
+        assert dt[jnp.asarray(a).dtype.name] == b.dtype, path
+        np.testing.assert_array_equal(_f32(a), _f32(b), err_msg=path)
+
+    _tree_map2(same, jp, tp)
+    g = torch.Generator().manual_seed(0)
+    ip = tparams.init_params(cfg, g, "cpu")
+
+    def shaped(a, b, path):
+        assert tuple(a.shape) == tuple(b.shape), path
+        assert dt[jnp.asarray(a).dtype.name] == b.dtype, path
+
+    _tree_map2(shaped, jp, ip)
+    _tree_map2(same, jax.tree.map(np.asarray, j_build_buffers(cfg)),
+               build_buffers(cfg))
+    q = tparams.from_jax(j_quantize(jp))
+    _tree_map2(same, j_quantize(jp)["oar"], q["oar"])
+
+
+def test_quantize_and_pack_match_jax():
+    from umgen_tpu.ops.decode_kernel import pack_fused_oar
+    cfg = ModelConfig().scaled("tiny").replace(n_oar_layer=2)
+    jp = {"oar": jnn.init_stack(jax.random.PRNGKey(2), 2, jnn.init_block_oar,
+                                cfg.n_embd, False, jnp.bfloat16)}
+    jq = j_quantize(jp)
+    tq = quantize_params_int8(tparams.from_jax(jp))
+    _tree_map2(lambda a, b, p: np.testing.assert_array_equal(
+        _f32(a), _f32(b), err_msg=p), jq, tq)
+    jpk = pack_fused_oar(jq["oar"])
+    tpk = pack_decode_weights(tq["oar"])
+    np.testing.assert_array_equal(np.asarray(jpk["vec"])[:, 0],
+                                  tpk["vec"].numpy())
+    d = cfg.n_embd
+    wqp = np.asarray(jpk["wqp"])
+    np.testing.assert_array_equal(wqp[..., :3 * d],
+                                  tpk["wqkv"].transpose(1, 2).numpy())
+    np.testing.assert_array_equal(wqp[..., 3 * d:],
+                                  tpk["wproj"].transpose(1, 2).numpy())
+    np.testing.assert_array_equal(np.asarray(jpk["wfc"]),
+                                  tpk["wfc"].transpose(1, 2).numpy())
+    np.testing.assert_array_equal(np.asarray(jpk["wpj"]),
+                                  tpk["wpj"].transpose(1, 2).numpy())
+
+
+def test_warp_matches_jax():
+    rng = np.random.default_rng(5)
+    feat = jnp.asarray(rng.normal(0, 1, (2, 3, 32 * 32, 8)), jnp.bfloat16)
+    pose = rng.uniform(-3, 3, (2, 3, 3)).astype(np.float32)
+    pose[..., 2] *= 0.1
+    ref = jax.jit(jwarp.affine_warp_map)(feat, jnp.asarray(pose))
+    out = twarp.affine_warp_map(_t(feat, torch.bfloat16), torch.tensor(pose))
+    _bf16_close(out, ref, "warp")
+
+
+def test_collision_matches_jax():
+    rng = np.random.default_rng(6)
+    B, N = 64, 12
+    buf = np.zeros((B, N, 10), np.float32)
+    buf[..., 0:2] = rng.uniform(-20, 20, (B, N, 2))
+    buf[..., 3:5] = rng.uniform(1, 8, (B, N, 2))
+    buf[..., 6] = rng.uniform(-3, 3, (B, N))
+    buf[:, -1, 0] = 64.0                       # a decoded <pad> row
+    cand = buf[:, 0].copy()
+    cand[:, 0:2] += rng.uniform(-6, 6, (B, 2))
+    valid = rng.uniform(size=(B, N)) < 0.8
+    ref = np.asarray(jcol.candidate_collides(jnp.asarray(cand),
+                                             jnp.asarray(buf),
+                                             jnp.asarray(valid)))
+    out = tcol.candidate_collides(torch.tensor(cand), torch.tensor(buf),
+                                  torch.tensor(valid)).numpy()
+    np.testing.assert_array_equal(out, ref)
+    assert 0 < ref.sum() < B                  # both outcomes exercised
+
+
+def test_samplers():
+    logits = torch.tensor([[0.1, 0.5, 0.5, -1.0], [2.0, 0.0, 1.9, 1.8]])
+    assert tsamp.greedy_sample(None, logits).tolist() == [1, 0]
+    g = torch.Generator().manual_seed(0)
+    draws = torch.stack([tsamp.top_k_sample(g, logits, k=2)
+                         for _ in range(200)])
+    assert set(draws[:, 0].tolist()) == {1, 2}
+    assert set(draws[:, 1].tolist()) == {0, 2}
+    # top-p keeps entries while the mass BEFORE them is <= p: the top token
+    # always survives, p = 0 leaves only it
+    draws = torch.stack([tsamp.top_p_sample(g, logits, p=0.0)
+                         for _ in range(50)])
+    assert (draws == tsamp.greedy_sample(None, logits)).all()
+    probs = torch.softmax(logits[1], -1)
+    sp, order = torch.sort(probs, descending=True)
+    keep = ((torch.cumsum(sp, 0) - sp) <= 0.6)
+    allowed = set(order[keep].tolist())
+    draws = {int(tsamp.top_p_sample(g, logits[1:], p=0.6)[0])
+             for _ in range(200)}
+    assert draws == allowed
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--tar_mode", "recompute"], "Recompute mode"),
+    (["--kv_dtype", "float8_e4m3fn"], "TAR rings"),
+    (["--kv_dtype", "int4"], "TAR rings"),
+    (["--kv_dtype", "int2"], "TAR rings"),
+    (["--speculative_k", "4"], "Speculative decoding"),
+    (["--dp", "2"], "Multi-GPU"),
+    (["--tar_w4"], "W4 weights"),
+    (["--chunked_prefill"], "Chunked prefill"),
+    (["--tar_cache_refresh", "2"], "Chunked prefill"),
+    (["--temporal_pe", "relative"], "Relative temporal PE"),
+    (["--int8", "all"], "int8 everywhere"),
+    (["--batch_size", "3"], "Larger scene batches"),
+    (["--infer_task", "control"], "Control mode"),
+])
+def test_cli_rejects_flags_outside_the_port(flags, item):
+    base = ["--fused_oar", "--kv_dtype", "bfloat16", "--debug"]
+    args = evaluate.build_parser().parse_args(base + flags)
+    with pytest.raises(NotPortedError, match=item):
+        evaluate.check_args(args)
+    evaluate.check_args(evaluate.build_parser().parse_args(base))
