@@ -7,18 +7,29 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
 
   (a) build the port's CUDA kernels from umgen_tpu_torch/csrc/ (nvcc);
   (b) hold each kernel against its plain PyTorch version on the card, at
-      the shapes the cached rollout gives it, and time both;
+      the shapes the two served configurations give it (B = 1, 2 and 10
+      scenes), and time both;
   (c) run the UMGen_Large cached video rollout (36-layer stacks, d = 768,
-      seeded random weights on the card, one synthetic scene, B = 1)
-      through the CLI's code path (umgen_tpu_torch.tools.evaluate), with
-      every kernel's launch count reset just before: the prefill frame
-      plus two cached frames.  Tokens must lie in their modalities'
-      ranges, logits and priors must be finite, and every kernel must have
-      launched;
-  (d) run one prefill frame of the model at full width with one-layer
-      stacks on the card and, from the same weights, on the CPU (the plain
-      versions), the CPU replaying the card's greedy decisions: tokens
-      equal, ego logits, TAR priors and every decision's logits close.
+      seeded random weights on the card, one synthetic scene, B = 1, bf16
+      rings, int8 decode weights) through the CLI's code path
+      (umgen_tpu_torch.tools.evaluate), with every kernel's launch count
+      reset just before: the prefill frame plus two cached frames.  Tokens
+      must lie in their modalities' ranges, logits and priors must be
+      finite, and flash, v5 and v5mq must have launched;
+  (d) run one prefill frame of that configuration at full width with
+      one-layer stacks on the card and, from the same weights, on the CPU
+      (the plain versions), the CPU replaying the card's greedy decisions:
+      tokens equal, ego logits, TAR priors and every decision's logits
+      close;
+  (e) the JAX bench's serving configuration end to end: UMGen_Large, B = 10
+      synthetic scenes, a 20-frame window ingested frame by frame (chunked
+      prefill) into 8-frame int4 TAR rings, int8 weights on every stack,
+      W4A8 OAR weights (runtime.quantize.pack_fused_w4), top-k, rule
+      constraint on, through Generator / SceneRunner; two generated frames.
+      Flash, w4 and w4mq must launch, v5 and v5mq must not;
+  (f) that configuration at debug scale (one layer a stack, full width),
+      B = 2, a 2-frame ring under a 3-frame window, chunked prefill, on the
+      card and on the CPU as in (d).
 
 Prints each phase's results, the card's name and power limit, a JSON line
 describing the kernels, and as its last line
@@ -66,6 +77,11 @@ FLASH_RTOL_MEAN = 2.0 ** -8
 #   to itself, and the kernel (built with --fmad=false) rounds where the
 #   plain version does: h and every layer's new K/V rows must be equal bit
 #   for bit, which pins each layer's weight, vector and cache offsets.
+#   W4A8 (w4, w4mq) is held to the same bounds: its integer products are
+#   exact too, and its group scales are applied in float32 in the plain
+#   version's order.  The plain step sums its layer norms and the chunk's
+#   own attention in the kernel's order, so every step at cache_len 0 (any
+#   B, any Q) must be bit for bit.
 DECODE_RTOL_1 = 2e-2
 DECODE_RTOL_36 = 0.15
 KV_LAYER0_ATOL = 1
@@ -77,6 +93,15 @@ KV_LAYER0_ATOL = 1
 #   its scale, above) and a bf16 head.  Relative to each tensor's max |.|.
 REF_RTOL_PRIORS = 2e-2
 REF_RTOL_LOGITS = 5e-2
+# phase f, the serving configuration at debug scale, card against CPU: as
+#   phase d, plus int4 rings.  A ring value is quantized per (scene, frame,
+#   head) to a grid of 1/7 of the group's max |.|; a K/V value that differs
+#   by a bf16 ulp between the two devices lands one grid step apart in
+#   ~1% of the ring, which moves that frame's logits and values by up to
+#   a step — so the bounds are wider than phase d's.  W4A8 adds no error
+#   beyond W8A8's between the two devices (exact integer products).
+SERVE_RTOL_PRIORS = 5e-2
+SERVE_RTOL_LOGITS = 1e-1
 
 
 def _time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -203,10 +228,13 @@ def phase_flash(dev):
 
 
 def _decode_params(dev):
+    """One random 36-layer OAR stack at the model's width, packed both
+    ways: {"v5": int8 (pack_decode_weights), "w4": W4A8 (pack_fused_w4)}."""
     import torch
     from umgen_tpu.config import ModelConfig
     from umgen_tpu_torch.params import _Init
     from umgen_tpu_torch.runtime.quantize import (pack_decode_weights,
+                                                  pack_fused_w4,
                                                   quantize_params_int8)
     cfg = ModelConfig()
     g = torch.Generator(device=dev)
@@ -224,30 +252,41 @@ def _decode_params(dev):
         oar["attn"][lin]["b"] = (0.02 * torch.randn(b.shape, generator=g,
                                                     device=dev)).to(b.dtype)
     q = quantize_params_int8({"oar": oar})
-    return cfg, pack_decode_weights(q["oar"])
+    return cfg, {"v5": pack_decode_weights(q["oar"]),
+                 "w4": pack_fused_w4({}, oar)["oar_packed"]}
+
+
+# (kernel, B, Q, cache_len): the bf16-ring slice's shapes (B = 1, 2), the
+# serving configuration's (B = 10: Q = 6 pose prefill, Q = 2 segment
+# pushes, Q = 1 steps), at an empty, a half-full and a full cache; v5 at
+# B = 10 also half-full, beside w4 at the serving shape
+DECODE_CASES = (
+    [("v5", B, 1, cl) for B in (1, 2) for cl in (0, 1100, 2206)]
+    + [("v5", 10, 1, 0), ("v5", 10, 1, 1100)]
+    + [("v5mq", 1, 6, 0), ("v5mq", 2, 6, 0), ("v5mq", 1, 2, 1030),
+       ("v5mq", 2, 2, 2205), ("v5mq", 10, 6, 0)]
+    + [("w4", B, 1, cl) for B in (1, 10) for cl in (0, 1100, 2207)]
+    + [("w4mq", B, Q, cl) for B in (1, 10) for Q in (2, 6)
+       for cl in (0, 1100, 2208 - Q)])
 
 
 def phase_decode(dev):
     import torch
     from umgen_tpu_torch.ops import decode_kernel as dk
-    cfg, packed = _decode_params(dev)
+    cfg, packs = _decode_params(dev)
     L, d, H = cfg.n_oar_layer, cfg.n_embd, cfg.n_head
     S = 2208
     g = torch.Generator(device=dev)
     g.manual_seed(2)
-    cases = [("v5", 1, 1, 0), ("v5", 1, 1, 1100), ("v5", 1, 1, 2206),
-             ("v5", 2, 1, 0), ("v5", 2, 1, 1100), ("v5", 2, 1, 2206),
-             ("v5mq", 1, 6, 0), ("v5mq", 2, 6, 0), ("v5mq", 1, 2, 1030),
-             ("v5mq", 2, 2, 2205)]
-    rows = {"v5": [], "v5mq": []}
-    for name, B, Q, cl in cases:
+    rows = {"v5": [], "v5mq": [], "w4": [], "w4mq": []}
+    for name, B, Q, cl in DECODE_CASES:
+        packed = packs["w4" if name.startswith("w4") else "v5"]
         kv = torch.randint(-100, 101, (2, L, B, S, d), generator=g,
                            device=dev, dtype=torch.int8)
         x = torch.randn(B, Q, d, generator=g, device=dev).to(torch.bfloat16)
         kk, vk = kv[0].clone(), kv[1].clone()
         kp, vp = kv[0].clone(), kv[1].clone()
-        fn = (dk.fused_decode_step_v5 if name == "v5"
-              else dk.fused_decode_step_v5mq)
+        fn = getattr(dk, f"fused_decode_step_{name}")
         one = {k: v[:1] for k, v in packed.items()}
         h1, _, _ = fn(one, x, kk[:1].clone(), vk[:1].clone(), cl, n_head=H)
         h1ref = dk.decode_step_plain(one, x, kp[:1].clone(), vp[:1].clone(),
@@ -266,7 +305,7 @@ def phase_decode(dev):
         untouched = all(torch.equal(a[:, :, :cl], b[:, :, :cl])
                         and torch.equal(a[:, :, cl + Q:], b[:, :, cl + Q:])
                         for a, b in ((kk, kp), (vk, vp)))
-        exact = name == "v5" and cl == 0
+        exact = cl == 0
         if not (math.isfinite(rel) and rel1 <= DECODE_RTOL_1
                 and rel <= DECODE_RTOL_36 and dkv0 <= KV_LAYER0_ATOL
                 and untouched
@@ -293,36 +332,25 @@ def phase_decode(dev):
     return rows
 
 
-def phase_reference(dev, scale="debug"):
-    """One prefill frame of the cached rollout, B = 1, a 2-frame window,
-    greedy, with every stack one layer deep at the scale's full width: once
-    on `dev` and once on the CPU (the plain versions) from the same
-    weights.  The CPU run replays the device run's sampler decisions, so
-    both decode one token stream; the tokens must be equal, and the ego
-    logits, TAR priors and every decision's logits must agree."""
+def _card_vs_cpu(dev, cfg, params, drive, B, T, tag, rtol_priors,
+                 rtol_logits):
+    """Run `drive(rollout, params, inputs, device)` → FrameOutputs once on
+    `dev` and once on the CPU (the plain versions) from the same weights,
+    the CPU replaying the device's sampler decisions, so both decode one
+    token stream; the tokens must be equal, and the ego logits, TAR priors
+    and every decision's logits must agree within the bounds."""
     import torch
-    from umgen_tpu.config import ModelConfig
     from umgen_tpu.data.synthetic import make_token_batch
     from umgen_tpu_torch.models.rollout import Rollout
     from umgen_tpu_torch.models.sampling import greedy_sample
     from umgen_tpu_torch.models.umgen import UMGen
-    from umgen_tpu_torch.params import init_params
-    from umgen_tpu_torch.runtime.quantize import (pack_fused,
-                                                  quantize_params_int8)
-    cfg = ModelConfig(sample_method="greedy", tar_mode="temporal_cache",
-                      tar_cache_dtype="bfloat16",
-                      oar_cache_dtype="int8", fused_oar_kernel=True,
-                      tar_cache_window=20).scaled(scale)
     model = UMGen(cfg)
-    g = torch.Generator(device=dev)
-    g.manual_seed(3)
-    params = pack_fused(quantize_params_int8(init_params(cfg, g, dev)))
 
     def to_cpu(t):
         return ({k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict)
                 else t.cpu())
 
-    cond = make_token_batch(model.layout, T=2, B=1, seed=0, config=cfg)
+    cond = make_token_batch(model.layout, T=T, B=B, seed=0, config=cfg)
     decisions = {"dev": [], "cpu": []}
     runs = {}
     for side, device, p in (("dev", dev, params), ("cpu", "cpu",
@@ -343,7 +371,7 @@ def phase_reference(dev, scale="debug"):
         inputs = {m: torch.as_tensor(v, dtype=torch.long, device=device)
                   for m, v in cond.items()}
         t0 = time.perf_counter()
-        out, _ = ro.frame_step_prefill(p, inputs, torch.Generator(device))
+        out = drive(ro, p, inputs, device)
         runs[side] = {k: getattr(out, k).cpu() for k in
                       ("tokens", "ego_logits", "prior_seq")}
         runs[side]["seconds"] = time.perf_counter() - t0
@@ -367,27 +395,117 @@ def phase_reference(dev, scale="debug"):
                                            decisions["dev"])]
     worst = max(range(n), key=errs.__getitem__)
     same = torch.equal(runs["cpu"]["tokens"], runs["dev"]["tokens"])
-    res = {"scale": scale, "decisions": n, "ego_logits_rel_err": err_ego,
+    res = {"decisions": n, "ego_logits_rel_err": err_ego,
            "priors_rel_err": err_pri, "logits_rel_err_max": errs[worst],
            "logits_rel_err_mean": sum(errs) / n, "tokens_equal": same,
            "device_s": runs["dev"]["seconds"], "cpu_s": runs["cpu"]["seconds"]}
-    print(f"(d) {scale} scale, one prefill frame on {dev} vs the CPU: ego "
-          f"logits rel err {err_ego:.3g}, priors {err_pri:.3g}, logits of "
-          f"{n} decisions max {errs[worst]:.3g} (decision {worst}) mean "
-          f"{res['logits_rel_err_mean']:.3g}; tokens equal: {same}")
-    if not (same and err_ego <= REF_RTOL_PRIORS
-            and err_pri <= REF_RTOL_PRIORS
-            and errs[worst] <= REF_RTOL_LOGITS):
+    print(f"({tag}) {cfg.n_tar_layer}-layer stacks, B={B}, on {dev} vs the "
+          f"CPU: ego logits rel err {err_ego:.3g}, priors {err_pri:.3g}, "
+          f"logits of {n} decisions max {errs[worst]:.3g} (decision {worst})"
+          f" mean {res['logits_rel_err_mean']:.3g}; tokens equal: {same}; "
+          f"{res['device_s']:.1f} s on the card, {res['cpu_s']:.1f} s on the "
+          "CPU")
+    if not (same and err_ego <= rtol_priors and err_pri <= rtol_priors
+            and errs[worst] <= rtol_logits):
         raise AssertionError(f"the model on {dev} disagrees with the plain "
                              f"versions on the CPU: {res}")
     return res
 
 
-def phase_rollout(dev, out_dir):
-    import numpy as np
-    from umgen_tpu.layout import CONTENT_LEN
+def phase_reference(dev, scale="debug"):
+    """One prefill frame of the bf16-ring slice, B = 1, a 2-frame window,
+    greedy, every stack one layer deep at the scale's full width, card
+    against CPU."""
+    import torch
+    from umgen_tpu.config import ModelConfig
+    from umgen_tpu_torch.params import init_params
+    from umgen_tpu_torch.runtime.quantize import (pack_fused,
+                                                  quantize_params_int8)
+    cfg = ModelConfig(sample_method="greedy", tar_mode="temporal_cache",
+                      tar_cache_dtype="bfloat16",
+                      oar_cache_dtype="int8", fused_oar_kernel=True,
+                      tar_cache_window=20).scaled(scale)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    params = pack_fused(quantize_params_int8(init_params(cfg, g, dev)))
+
+    def drive(ro, p, inputs, device):
+        return ro.frame_step_prefill(p, inputs, torch.Generator(device))[0]
+
+    res = _card_vs_cpu(dev, cfg, params, drive, B=1, T=2, tag="d",
+                       rtol_priors=REF_RTOL_PRIORS,
+                       rtol_logits=REF_RTOL_LOGITS)
+    return dict(res, scale=scale)
+
+
+def phase_serving_reference(dev):
+    """The serving configuration at debug scale, B = 2, a 3-frame window
+    into 2-frame int4 rings by chunked prefill (frames 0-1 ingested, frame
+    2 through a cached step, as Generator does), card against CPU."""
+    import torch
+    from umgen_tpu.config import ModelConfig
+    from umgen_tpu_torch.tools.evaluate import serving_params
+    cfg = ModelConfig(sample_method="greedy", tar_mode="temporal_cache",
+                      tar_cache_dtype="int4", oar_cache_dtype="int8",
+                      fused_oar_kernel=True, chunked_prefill=True,
+                      tar_cache_window=2).scaled("debug")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    params = serving_params(cfg, g, dev)
+    if "wqp4" not in params["oar_packed"]:
+        raise AssertionError("phase f needs W4A8 OAR weights")
+
+    def drive(ro, p, inputs, device):
+        return ro.frame_step_chunked(p, inputs, torch.Generator(device))[0]
+
+    return _card_vs_cpu(dev, cfg, params, drive, B=2, T=3, tag="f",
+                        rtol_priors=SERVE_RTOL_PRIORS,
+                        rtol_logits=SERVE_RTOL_LOGITS)
+
+
+VOCAB = {"pose": 1024, "map": 8192, "bbox3d": 1028, "image": 8192}
+
+
+def _reset_launches():
     from umgen_tpu_torch.ops import decode_kernel as dk
     from umgen_tpu_torch.ops import flash_attention as fa
+    for counts in (fa.LAUNCHES, dk.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _launches(must, must_not=()):
+    """The kernels' launch counts since the reset; each of `must` has to
+    have launched, none of `must_not`."""
+    from umgen_tpu_torch.ops import decode_kernel as dk
+    from umgen_tpu_torch.ops import flash_attention as fa
+    launches = {**fa.LAUNCHES, **dk.LAUNCHES}
+    for k in must:
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} never launched on the main path")
+    for k in must_not:
+        if launches[k]:
+            raise AssertionError(f"{k} launched {launches[k]} times on a "
+                                 "path that must not run it")
+    return launches
+
+
+def _check_tokens(out_dir, scenes, frames):
+    import numpy as np
+    from umgen_tpu.layout import CONTENT_LEN
+    outs = _load_tokens(out_dir)
+    if len(outs) != scenes:
+        raise AssertionError(f"{len(outs)} token files, {scenes} scenes")
+    for out in outs:
+        for mod, n in VOCAB.items():
+            toks = np.asarray(out[mod])
+            if toks.shape[-1] != CONTENT_LEN[mod] or toks.shape[1] != frames:
+                raise AssertionError(f"{mod}: token shape {toks.shape}")
+            if toks.min() < 0 or toks.max() >= n:
+                raise AssertionError(f"{mod}: tokens outside [0, {n})")
+
+
+def phase_rollout(dev, out_dir):
     from umgen_tpu_torch.tools import evaluate
     args = evaluate.build_parser().parse_args([
         "--infer_task", "video", "--model_scale", "larger", "--fused_oar",
@@ -396,24 +514,14 @@ def phase_rollout(dev, out_dir):
         "--set_num_new_frames", "3", "--batch_size", "1",
         "--sample_method", "topk", "--output_path", out_dir,
         "--device", str(dev)])
-    for counts in (fa.LAUNCHES, dk.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    _reset_launches()
     t0 = time.perf_counter()
     runner, gen = evaluate.run(args)
     secs = time.perf_counter() - t0
-    launches = {**fa.LAUNCHES, **dk.LAUNCHES}
-    vocab = {"pose": 1024, "map": 8192, "bbox3d": 1028, "image": 8192}
-    out = _load_tokens(out_dir)
-    for mod, n in vocab.items():
-        toks = np.asarray(out[mod])
-        if toks.shape[-1] != CONTENT_LEN[mod] or toks.shape[1] != 23:
-            raise AssertionError(f"{mod}: token shape {toks.shape}")
-        if toks.min() < 0 or toks.max() >= n:
-            raise AssertionError(f"{mod}: tokens outside [0, {n})")
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{k} never launched on the main path")
+    launches = _launches(("flash_attention", "fused_decode_step_v5",
+                          "fused_decode_step_v5mq"),
+                         ("fused_decode_step_w4", "fused_decode_step_w4mq"))
+    _check_tokens(out_dir, scenes=1, frames=23)
     frame_s = list(gen.frame_seconds)
     print(f"(c) UMGen_Large cached rollout B=1: per-frame seconds "
           f"{', '.join(f'{s:.2f}' for s in frame_s)} (first = prefill + "
@@ -422,12 +530,80 @@ def phase_rollout(dev, out_dir):
             "seconds": secs}
 
 
+SERVING_FLAGS = [
+    "--infer_task", "video", "--model_scale", "larger", "--fused_oar",
+    "--kv_dtype", "int4", "--int8", "all", "--chunked_prefill",
+    "--tar_cache_window", "8", "--debug", "--synthetic_data", "10",
+    "--max_scenes", "10", "--set_num_new_frames", "2", "--batch_size", "10",
+    "--sample_method", "topk"]
+
+
+def phase_serving(dev, out_dir):
+    """The JAX bench's serving configuration (bench.py:150-190, 254-360)
+    at UMGen_Large width, B = 10, through Generator / SceneRunner."""
+    import torch
+    from umgen_tpu.config import InferConfig
+    from umgen_tpu.data.pipeline import ScenePipeline
+    from umgen_tpu_torch.models.generate import Generator
+    from umgen_tpu_torch.models.umgen import UMGen, build_buffers
+    from umgen_tpu_torch.tools import evaluate
+    from umgen_tpu_torch.tools.harness import SceneRunner
+    args = evaluate.build_parser().parse_args(
+        SERVING_FLAGS + ["--output_path", out_dir, "--device", str(dev)])
+    evaluate.check_args(args)
+    cfg = evaluate.config_from_args(args)
+    want = {"tar_cache_dtype": "int4", "oar_cache_dtype": "int8",
+            "fused_oar_kernel": True, "chunked_prefill": True,
+            "tar_cache_window": 8, "n_oar_layer": 36, "n_embd": 768}
+    got = {k: getattr(cfg, k) for k in want}
+    if got != want:
+        raise AssertionError(f"serving configuration {got}, expected {want}")
+    pipeline = ScenePipeline()
+    infer_cfg = InferConfig.for_task(args.infer_task, args.set_num_new_frames,
+                                     batch_size=args.batch_size,
+                                     seed=args.seed)
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed)
+    t0 = time.perf_counter()
+    params = evaluate.serving_params(
+        cfg, g, dev, buffers=build_buffers(cfg, pipeline, device=dev))
+    setup_s = time.perf_counter() - t0
+    gen = Generator(UMGen(cfg), params, seed=args.seed, device=dev)
+    runner = SceneRunner(gen, infer_cfg, output_path=out_dir)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    evaluate.run_dataset(args, runner, infer_cfg, pipeline)
+    secs = time.perf_counter() - t0
+    launches = _launches(("flash_attention", "fused_decode_step_w4",
+                          "fused_decode_step_w4mq"),
+                         ("fused_decode_step_v5", "fused_decode_step_v5mq"))
+    peak = torch.cuda.max_memory_allocated()
+    _check_tokens(out_dir, scenes=10, frames=22)
+    [timing] = runner.timings
+    frame_s = list(gen.frame_seconds)
+    print(f"(e) serving configuration, UMGen_Large, B=10, 8-frame int4 "
+          f"rings, chunked prefill of 20 frames, W4A8 OAR: per-frame seconds "
+          f"{', '.join(f'{s:.2f}' for s in frame_s)} (first = chunked "
+          f"prefill + decode); {timing['frames_per_sec']:.4f} frames/s over "
+          f"{timing['scenes']} scenes x {timing['frames']} frames; peak "
+          f"device memory {peak / 2**30:.2f} GiB; launches {launches}; "
+          f"weights {setup_s:.1f} s, rollout {secs:.1f} s")
+    return {"frame_seconds": frame_s, "launches": launches,
+            "frames_per_sec": timing["frames_per_sec"],
+            "max_memory_allocated": peak, "setup_s": setup_s,
+            "seconds": secs}
+
+
 def _load_tokens(out_dir):
     import pickle
     tok_dir = os.path.join(out_dir, "saved_token")
-    [name] = os.listdir(tok_dir)
-    with open(os.path.join(tok_dir, name), "rb") as f:
-        return pickle.load(f)
+    outs = []
+    for name in sorted(os.listdir(tok_dir)):
+        with open(os.path.join(tok_dir, name), "rb") as f:
+            outs.append(pickle.load(f))
+    return outs
 
 
 def main() -> int:
@@ -444,6 +620,7 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip()
     report = {"nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda}
+    t_start = time.perf_counter()
     report["build"] = phase_build()
     report["flash"], flash_err, report["flash_planted"] = phase_flash(dev)
     report["decode"] = phase_decode(dev)
@@ -452,36 +629,48 @@ def main() -> int:
         report["rollout"] = phase_rollout(dev, out_dir)
     torch.cuda.empty_cache()
     report["reference"] = phase_reference(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+        report["serving"] = phase_serving(dev, out_dir)
+    torch.cuda.empty_cache()
+    report["serving_reference"] = phase_serving_reference(dev)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
+    report["seconds"] = time.perf_counter() - t_start
+    print(f"all phases {report['seconds']:.1f} s")
 
     def pick(rows, **kw):
         return next(r for r in rows if all(r[k] == v for k, v in kw.items()))
 
+    def entry(name, source, replaces, launches, rows, at):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": at["ms"], "plain_ms": at["plain_ms"]}
+
+    dec = report["decode"]
+    slice1 = report["rollout"]["launches"]      # the bf16-ring slice (c)
+    serve = report["serving"]["launches"]       # the serving path (e)
     f1 = pick(report["flash"], B=1, Sq=2207, causal=False)
-    v5 = pick(report["decode"]["v5"], B=1, cache_len=1100)
-    mq = pick(report["decode"]["v5mq"], B=1, Q=6)
-    launches = report["rollout"]["launches"]
+    src = "umgen_tpu_torch/csrc/decode_step.cu"
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "umgen_tpu_torch/csrc/flash_attention.cu",
          "replaces": "umgen_tpu/ops/flash_attention.py:79",
-         "launches": launches["flash_attention"], "max_abs_err": flash_err,
+         "launches": serve["flash_attention"], "max_abs_err": flash_err,
          "ms": f1["ms"], "plain_ms": f1["plain_ms"]},
-        {"name": "fused_decode_step_v5", "route": "cuda",
-         "source": "umgen_tpu_torch/csrc/decode_step.cu",
-         "replaces": "umgen_tpu/ops/decode_kernel.py:1363",
-         "launches": launches["fused_decode_step_v5"],
-         "max_abs_err": max(r["max_abs_err"]
-                            for r in report["decode"]["v5"]),
-         "ms": v5["ms"], "plain_ms": v5["plain_ms"]},
-        {"name": "fused_decode_step_v5mq", "route": "cuda",
-         "source": "umgen_tpu_torch/csrc/decode_step.cu",
-         "replaces": "umgen_tpu/ops/decode_kernel.py:3411",
-         "launches": launches["fused_decode_step_v5mq"],
-         "max_abs_err": max(r["max_abs_err"]
-                            for r in report["decode"]["v5mq"]),
-         "ms": mq["ms"], "plain_ms": mq["plain_ms"]},
+        entry("fused_decode_step_v5", src,
+              "umgen_tpu/ops/decode_kernel.py:1363", slice1, dec["v5"],
+              pick(dec["v5"], B=1, cache_len=1100)),
+        entry("fused_decode_step_v5mq", src,
+              "umgen_tpu/ops/decode_kernel.py:3411", slice1, dec["v5mq"],
+              pick(dec["v5mq"], B=1, Q=6)),
+        entry("fused_decode_step_w4", src,
+              "umgen_tpu/ops/decode_kernel.py:2034", serve, dec["w4"],
+              pick(dec["w4"], B=10, cache_len=1100)),
+        entry("fused_decode_step_w4mq", src,
+              "umgen_tpu/ops/decode_kernel.py:3488", serve, dec["w4mq"],
+              pick(dec["w4mq"], B=10, Q=6, cache_len=0)),
     ]
     report["kernels"] = kernels
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -157,8 +157,8 @@ def test_decode_plain_matches_jax(interpret, Q, cache_len):
         diff = np.abs(np.asarray(ref, np.int32) - got.numpy().astype(np.int32))
         assert diff.max() <= 1
         assert (diff == 0).mean() > 0.999
-    assert tdk.LAUNCHES == {"fused_decode_step_v5": 0,
-                            "fused_decode_step_v5mq": 0}
+    assert tdk.LAUNCHES == {f"fused_decode_step_{v}": 0
+                            for v in ("v5", "v5mq", "w4", "w4mq")}
 
 
 def test_decode_plain_blocking_matches_reference():
@@ -224,3 +224,13 @@ def test_oar_step_routes_and_eager_body_matches_jax():
     assert np.abs(a - b).max() <= 2.0 ** -7 * np.abs(a).max()
     diff = np.abs(np.asarray(kk_ref, np.int32) - kk.numpy().astype(np.int32))
     assert diff.max() <= 1
+
+
+def test_plain_division_is_correctly_rounded():
+    """The plain decode step divides by constants as the kernel does, by
+    an IEEE division (tests/test_torch_cuda.py holds the same on a card,
+    where PyTorch would otherwise multiply by a rounded reciprocal)."""
+    x = torch.randn(4096, generator=torch.Generator().manual_seed(0)) * 8
+    for c in (768.0, 127.0, 1.41421353816986083984375):
+        np.testing.assert_array_equal(tdk._div(x, c).numpy(),
+                                      (x.double() / c).float().numpy())

@@ -260,16 +260,16 @@ def test_samplers():
 @pytest.mark.parametrize("flags,item", [
     (["--tar_mode", "recompute"], "Recompute mode"),
     (["--kv_dtype", "float8_e4m3fn"], "TAR rings"),
-    (["--kv_dtype", "int4"], "TAR rings"),
+    (["--oar_kv_dtype", "int4"], "int4 OAR KV cache"),
     (["--kv_dtype", "int2"], "TAR rings"),
     (["--speculative_k", "4"], "Speculative decoding"),
     (["--dp", "2"], "Multi-GPU"),
-    (["--tar_w4"], "W4 weights"),
-    (["--chunked_prefill"], "Chunked prefill"),
-    (["--tar_cache_refresh", "2"], "Chunked prefill"),
+    (["--tar_w4"], "W4 TAR weights"),
+    (["--int8", "off"], "bf16 OAR weights"),
+    (["--tar_cache_refresh", "2"], "Ring refresh"),
     (["--temporal_pe", "relative"], "Relative temporal PE"),
-    (["--int8", "all"], "int8 everywhere"),
-    (["--batch_size", "3"], "Larger scene batches"),
+    (["--oar_batch_block", "5"], "VMEM-driven blockings"),
+    (["--oar_kernel", "7"], "Superseded decode variants"),
     (["--infer_task", "control"], "Control mode"),
 ])
 def test_cli_rejects_flags_outside_the_port(flags, item):
@@ -278,3 +278,29 @@ def test_cli_rejects_flags_outside_the_port(flags, item):
     with pytest.raises(NotPortedError, match=item):
         evaluate.check_args(args)
     evaluate.check_args(evaluate.build_parser().parse_args(base))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--kv_dtype", "bfloat16", "--int8", "decode"],
+    ["--kv_dtype", "int4"],
+    ["--kv_dtype", "int4", "--int8", "all", "--chunked_prefill",
+     "--tar_cache_window", "8", "--batch_size", "10"],
+    ["--kv_dtype", "bfloat16", "--int8", "all", "--batch_size", "3",
+     "--sample_method", "greedy", "--model_scale", "tiny"],
+    ["--kv_dtype", "int4", "--oar_kv_dtype", "int8", "--chunked_prefill",
+     "--tar_cache_window", "2", "--model_scale", "debug"],
+])
+def test_cli_serves_flag_sets_as_jax_maps_them(flags):
+    """The served flag sets (int4 rings, int8 on every stack, chunked
+    prefill, a ring window, any batch) pass check_args and give the
+    ModelConfig the JAX CLI gives them, field for field (with --kv_dtype
+    int4 its OAR cache stays int8)."""
+    from umgen_tpu.tools import evaluate as jevaluate
+    argv = ["--fused_oar", "--debug"] + flags
+    args = evaluate.build_parser().parse_args(argv)
+    evaluate.check_args(args)
+    got = evaluate.config_from_args(args)
+    want = jevaluate.config_from_args(jevaluate.build_parser().parse_args(
+        argv))
+    assert got == want
+    assert got.oar_cache_dtype == "int8"

@@ -1,30 +1,47 @@
-// Fused int8 OAR decode step: Q new rows per scene through all L layers.
+// Fused OAR decode step: Q new rows per scene through all L layers, with
+// int8 (W8A8) or group-int4 (W4A8) weights.
 //
-// Replaces the TPU kernels `fused_decode_step_v5` (Q = 1) and
-// `fused_decode_step_v5mq` / `_mq_call` (1 < Q <= 128/H) of
-// umgen_tpu/ops/decode_kernel.py.  Per layer: LN1 → QKV → attention over the
-// int8 KV prefix plus the chunk's own rows (causal within the chunk) → proj
-// + residual → LN2 → fc → GELU (Abramowitz & Stegun erf) → proj + residual.
-// Matmuls are W8A8: activations quantized per row (absmax/127), weights int8
-// per output channel, int32 accumulation with __dp4a.  The residual stream
-// rounds to bf16 after every add.  The chunk's K/V rows are written into the
-// caches at `cache_len` on the fixed 1/16 int8 grid — in place (the JAX
-// package writes the cache back functionally).
+// Replaces the TPU kernels of umgen_tpu/ops/decode_kernel.py:
+//   * `fused_decode_step_v5` (Q = 1) and `fused_decode_step_v5mq` /
+//     `_mq_call` (1 < Q <= 128/H): int8 weights, entry `umgen_decode_step`;
+//   * `fused_decode_step_w4` (Q = 1, `_kernel_w4`) and
+//     `fused_decode_step_w4mq` (`_mq_call` with w4=True): W4A8 weights,
+//     entry `umgen_decode_step_w4`.
+// Per layer: LN1 → QKV → attention over the int8 KV prefix plus the chunk's
+// own rows (causal within the chunk) → proj + residual → LN2 → fc → GELU
+// (Abramowitz & Stegun erf) → proj + residual.  Activations are quantized
+// per row (absmax/127) to int8.  W8A8: weights int8 per output channel,
+// y = acc·sa·ws (+ b).  W4A8: weights symmetric int4 in [-7, 7] with one
+// scale per (128-row input group, output column); the two groups of a pair
+// (2j, 2j+1) share a byte (low / high nibble).  The GEMV unpacks four bytes
+// at a time in registers into the two groups' sign-extended int8 values,
+// takes __dp4a against the activations of group 2j and 2j+1 into two int32
+// sums, reduces them over the warp, and applies the group scales in float32
+// in the reference's order: y = y + acc_lo·s_lo + acc_hi·s_hi over the
+// pairs, then y·sa (+ b).  The integer part is exact, and built with
+// --fmad=false the epilogues round where the plain versions do.  The
+// residual stream rounds to bf16 after every add.  The chunk's K/V rows are
+// written into the caches at `cache_len` on the fixed 1/16 int8 grid — in
+// place (the JAX package writes the cache back functionally).
 //
-// What bounds it on the H100: a step reads every layer's int8 weights
-// (7.1 MB/layer at d = 768, 255 MB for 36 layers) and the KV prefix (2 x
-// 768 B per cached row per layer per scene, up to 122 MB at a full 2208-row
-// cache); the arithmetic is ~2 ops/byte, so it is memory bound — 0.1-0.12
-// ms at 3.35 TB/s.  The TPU kernel ran the 36 layers as one sequential grid
-// with the hidden state carried in VMEM.  Hopper blocks carry nothing from
-// one grid step to the next, so this version issues the layer sequence from
+// What bounds it on the H100: a step reads every layer's weights — int8
+// 7.1 MB a layer at d = 768 (255 MB for 36 layers); W4A8 (768·3072 +
+// 768·3072 + 3072·768) / 2 bytes = 3.5 MB plus 0.2 MB of group scales a
+// layer (about 135 MB for 36) — and the KV prefix (2 x 768 B per cached row
+// per layer per scene, up to 122 MB per scene at a full 2208-row cache);
+// the arithmetic is a few ops/byte, so the stream floor is 0.05-0.12 ms at
+// 3.35 TB/s.  The TPU kernel ran the 36 layers as one sequential grid with
+// the hidden state carried in VMEM.  Hopper blocks carry nothing from one
+// grid step to the next, so this version issues the layer sequence from
 // the host (one C call per step, ten small kernels per layer on one
 // stream): the hidden state lives in a global workspace between kernels,
 // and the prefix attention is split over 32-row blocks of the cache whose
 // partial (max, sum, weighted values) are merged by a second pass.  The
-// design is simple and right first; it is launch-bound (~360 launches a
-// step).  Graph capture or a persistent kernel, and wider weight streams,
-// are the next steps for speed.
+// int8 GEMV tiles the rows 16 at a time (grid y); the W4 GEMV keeps a
+// column's packed weights in registers and loops over all rows, so neither
+// bounds B·Q.  The design is simple and right first; it is launch-bound
+// (~360 launches a step).  Graph capture or a persistent kernel, wgmma/TMA
+// weight streams and wider attention splits are the next steps for speed.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -32,7 +49,8 @@
 
 namespace {
 
-constexpr int MAX_ROWS = 16;      // B * Q rows per step
+constexpr int TILE_ROWS = 16;     // rows of one int8 GEMV block (grid y)
+constexpr int W4_MAX_PAIRS = 12;  // W4 GEMV input groups / 2 (K <= 3072)
 constexpr int SPLIT_ROWS = 32;    // cache rows per split-attention block
 constexpr int ATT_THREADS = 128;  // >= Q * H pairs (Q * H <= 128)
 
@@ -137,8 +155,20 @@ __global__ void ln_quant_kernel(const float* __restrict__ h,
 
 enum Epilogue { EPI_STORE = 0, EPI_GELU = 1, EPI_RESID = 2 };
 
-// y[r, n] = (Σ_k aq[r, k]·wt[n, k]) · sa[r] · ws[n] (+ b[n]) for all R rows;
-// one warp per output column, lanes stride over K in 16-byte chunks (dp4a)
+__device__ __forceinline__ void store_epi(float* dst, float y, int epi) {
+  if (epi == EPI_GELU) {
+    *dst = gelu_as(y);
+  } else if (epi == EPI_RESID) {
+    // residual in bf16: h = bf16(bf16(h) + bf16(y))
+    *dst = bf16r(bf16r(*dst) + bf16r(y));
+  } else {
+    *dst = y;
+  }
+}
+
+// y[r, n] = (Σ_k aq[r, k]·wt[n, k]) · sa[r] · ws[n] (+ b[n]) for rows
+// [blockIdx.y·16, +16) of R; one warp per output column, lanes stride over
+// K in 16-byte chunks (dp4a)
 __global__ void gemv_i8_kernel(const int8_t* __restrict__ aq,
                                const float* __restrict__ sa, int R,
                                const int8_t* __restrict__ wt, int K, int N,
@@ -148,16 +178,19 @@ __global__ void gemv_i8_kernel(const int8_t* __restrict__ aq,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n = blockIdx.x * (blockDim.x >> 5) + warp;
   if (n >= N) return;
-  int acc[MAX_ROWS];
+  const int r0 = blockIdx.y * TILE_ROWS;
+  const int RT = min(TILE_ROWS, R - r0);
+  aq += (long long)r0 * K;
+  int acc[TILE_ROWS];
 #pragma unroll
-  for (int r = 0; r < MAX_ROWS; ++r) acc[r] = 0;
+  for (int r = 0; r < TILE_ROWS; ++r) acc[r] = 0;
   const int nchunk = K / 16;
   const int4* wrow = reinterpret_cast<const int4*>(wt + (long long)n * K);
   for (int c = lane; c < nchunk; c += 32) {
     const int4 wv = __ldg(wrow + c);
 #pragma unroll
-    for (int r = 0; r < MAX_ROWS; ++r) {
-      if (r < R) {
+    for (int r = 0; r < TILE_ROWS; ++r) {
+      if (r < RT) {
         const int4 av =
             __ldg(reinterpret_cast<const int4*>(aq + (long long)r * K) + c);
         int a = acc[r];
@@ -170,25 +203,81 @@ __global__ void gemv_i8_kernel(const int8_t* __restrict__ aq,
     }
   }
 #pragma unroll
-  for (int r = 0; r < MAX_ROWS; ++r) {
-    if (r < R) {
+  for (int r = 0; r < TILE_ROWS; ++r) {
+    if (r < RT) {
       int a = acc[r];
       for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
       acc[r] = a;
     }
   }
   if (lane != 0) return;
-  for (int r = 0; r < R; ++r) {
-    float y = (float)acc[r] * sa[r] * ws[n];
+  for (int r = 0; r < RT; ++r) {
+    float y = (float)acc[r] * sa[r0 + r] * ws[n];
     if (bias != nullptr) y = y + bias[n];
-    float* dst = out + (long long)r * N + n;
-    if (epi == EPI_GELU) {
-      *dst = gelu_as(y);
-    } else if (epi == EPI_RESID) {
-      // residual in bf16: h = bf16(bf16(h) + bf16(y))
-      *dst = bf16r(bf16r(*dst) + bf16r(y));
-    } else {
-      *dst = y;
+    store_epi(out + (long long)(r0 + r) * N + n, y, epi);
+  }
+}
+
+// The four nibbles of one half of a packed word, sign-extended into the
+// four int8 lanes of an int: per byte, ((x ^ 8) - 8) of the nibble x is
+// (x << 4) >> 4 in 8 bits (__vsub4 keeps the bytes apart).
+__device__ __forceinline__ int nibbles_lo(int w) {
+  return __vsub4((w & 0x0F0F0F0F) ^ 0x08080808, 0x08080808);
+}
+
+__device__ __forceinline__ int nibbles_hi(int w) {
+  return __vsub4(((w >> 4) & 0x0F0F0F0F) ^ 0x08080808, 0x08080808);
+}
+
+// W4A8 GEMV over all R rows.  wt [N, K/2] output-major: column n's byte
+// j·128 + i holds input row (2j)·128 + i in its low nibble and (2j+1)·128 + i
+// in its high nibble; sc [N, K/128] its group scales.  One warp per output
+// column; lane l holds word l of every 128-byte pair block in registers
+// (bytes i = 4l .. 4l+3), so one row's group is one dp4a per lane.  A row's
+// 2·NP group sums are taken and reduced over the warp side by side (NP =
+// K/256 is a template constant), so their 2·NP shuffle chains overlap —
+// feeding the float sum pair by pair would make the row one dependent
+// chain.  Lane 0 then applies y = Σ_j (acc_lo·s_lo + acc_hi·s_hi) in pair
+// order, y·sa (+ b), and the epilogue.
+template <int NP>
+__global__ void gemv_w4_kernel(const int8_t* __restrict__ aq,
+                               const float* __restrict__ sa, int R,
+                               const int8_t* __restrict__ wt, int K, int N,
+                               const float* __restrict__ sc,
+                               const float* __restrict__ bias, int epi,
+                               float* __restrict__ out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (n >= N) return;
+  const int* wrow = reinterpret_cast<const int*>(wt + (long long)n * (K / 2));
+  const float* s = sc + (long long)n * 2 * NP;
+  int w[NP];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) w[j] = __ldg(wrow + j * 32 + lane);
+  for (int r = 0; r < R; ++r) {
+    const int* arow = reinterpret_cast<const int*>(aq + (long long)r * K);
+    int acc[2 * NP];
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      acc[2 * j] = __dp4a(nibbles_lo(w[j]), __ldg(arow + 2 * j * 32 + lane), 0);
+      acc[2 * j + 1] =
+          __dp4a(nibbles_hi(w[j]), __ldg(arow + (2 * j + 1) * 32 + lane), 0);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int g = 0; g < 2 * NP; ++g)
+        acc[g] += __shfl_xor_sync(0xffffffffu, acc[g], o);
+    }
+    if (lane == 0) {
+      float y = 0.f;
+#pragma unroll
+      for (int j = 0; j < NP; ++j)
+        y = y + (float)acc[2 * j] * s[2 * j] +
+            (float)acc[2 * j + 1] * s[2 * j + 1];
+      y = y * sa[r];
+      if (bias != nullptr) y = y + bias[n];
+      store_epi(out + (long long)r * N + n, y, epi);
     }
   }
 }
@@ -427,12 +516,98 @@ cudaError_t attention(const Workspace& w, int B, int Q, int H, int8_t* kc,
   return cudaGetLastError();
 }
 
-void gemv(const Workspace& w, int R, const int8_t* wt, int K, int N,
-          const float* ws, const float* bias, int epi, float* out,
-          cudaStream_t st) {
+// The four products of a layer, in order qkv, proj, fc, pj: int8 (w4 ==
+// false: w[i] [N, K] output-major, per-column scales in the vector block)
+// or W4A8 (w4 == true: w[i] [N, K/2] packed, s[i] [N, K/128] group scales).
+// Layer l's matrix i starts at w[i] + l·w_stride[i] (s likewise).
+struct Products {
+  bool w4;
+  const int8_t* w[4];
+  long long w_stride[4];
+  const float* s[4];
+  long long s_stride[4];
+};
+
+cudaError_t gemv(const Workspace& w, bool w4, int R, const int8_t* wt,
+                 const float* scales, int K, int N, const float* bias,
+                 int epi, float* out, cudaStream_t st) {
   constexpr int WARPS = 8;
-  gemv_i8_kernel<<<(N + WARPS - 1) / WARPS, WARPS * 32, 0, st>>>(
-      w.aq, w.sa, R, wt, K, N, ws, bias, epi, out);
+  const int nb = (N + WARPS - 1) / WARPS;
+  if (w4) {
+#define W4_CASE(NP)                                                         \
+  case NP:                                                                  \
+    gemv_w4_kernel<NP><<<nb, WARPS * 32, 0, st>>>(w.aq, w.sa, R, wt, K, N,  \
+                                                  scales, bias, epi, out);  \
+    break;
+    switch (K / 256) {   // K = d or 4d, d in {256, 512, 768} (run_step)
+      W4_CASE(1) W4_CASE(2) W4_CASE(3) W4_CASE(4) W4_CASE(8) W4_CASE(12)
+      default:
+        return cudaErrorInvalidValue;
+    }
+#undef W4_CASE
+  } else {
+    gemv_i8_kernel<<<dim3(nb, (R + TILE_ROWS - 1) / TILE_ROWS), WARPS * 32, 0,
+                     st>>>(w.aq, w.sa, R, wt, K, N, scales, bias, epi, out);
+  }
+  return cudaSuccess;
+}
+
+int run_step(const void* x, void* out, int B, int Q, int d, int H, int L,
+             const float* vec, const Products& P, void* kc, void* vc,
+             long long layer_stride, long long batch_stride, int S, int cl,
+             float scale, float c16, void* workspace, cudaStream_t st) {
+  const int R = B * Q, Dh = d / H;
+  if (Q > 8 || Q * H > ATT_THREADS || cl + Q > S)
+    return (int)cudaErrorInvalidValue;
+  if (Dh != 16 && Dh != 48) return (int)cudaErrorInvalidValue;
+  if (P.w4 && (d % 256 || 4 * d > 256 * W4_MAX_PAIRS))
+    return (int)cudaErrorInvalidValue;
+  Workspace w;
+  workspace_layout(B, Q, d, H, S, (char*)workspace, &w);
+  const int V = 15 * d;
+  const int nthr = 256;
+  init_h_kernel<<<(R * d + nthr - 1) / nthr, nthr, 0, st>>>(
+      (const __nv_bfloat16*)x, w.h, R * d);
+  for (int l = 0; l < L; ++l) {
+    const float* vl = vec + (long long)l * V;
+    int8_t* kl = (int8_t*)kc + l * layer_stride;
+    int8_t* vlc = (int8_t*)vc + l * layer_stride;
+    const int8_t* wt[4];
+    const float* sc[4];
+    // int8: per-column scales qkv_ws, proj_ws, fc_ws, pj_ws of the vector
+    // block; W4A8: the group scales
+    const int vec_ws[4] = {2 * d, 8 * d, 10 * d, 14 * d};
+    for (int i = 0; i < 4; ++i) {
+      wt[i] = P.w[i] + l * P.w_stride[i];
+      sc[i] = P.w4 ? P.s[i] + l * P.s_stride[i] : vl + vec_ws[i];
+    }
+    ln_quant_kernel<<<R, nthr, d * sizeof(float), st>>>(w.h, vl, w.aq, w.sa,
+                                                        d);
+    cudaError_t e = gemv(w, P.w4, R, wt[0], sc[0], d, 3 * d, vl + 5 * d,
+                         EPI_STORE, w.qkv, st);
+    if (e != cudaSuccess) return (int)e;
+    e = Dh == 48 ? attention<48>(w, B, Q, H, kl, vlc, batch_stride, cl,
+                                 scale, c16, st)
+                 : attention<16>(w, B, Q, H, kl, vlc, batch_stride, cl,
+                                 scale, c16, st);
+    if (e != cudaSuccess) return (int)e;
+    e = gemv(w, P.w4, R, wt[1], sc[1], d, d, vl + 9 * d, EPI_RESID, w.h, st);
+    if (e != cudaSuccess) return (int)e;
+    ln_quant_kernel<<<R, nthr, d * sizeof(float), st>>>(w.h, vl + d, w.aq,
+                                                        w.sa, d);
+    e = gemv(w, P.w4, R, wt[2], sc[2], d, 4 * d, nullptr, EPI_GELU, w.hid,
+             st);
+    if (e != cudaSuccess) return (int)e;
+    ln_quant_kernel<<<R, nthr, 4 * d * sizeof(float), st>>>(
+        w.hid, nullptr, w.aq, w.sa, 4 * d);
+    e = gemv(w, P.w4, R, wt[3], sc[3], 4 * d, d, nullptr, EPI_RESID, w.h, st);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  out_bf16_kernel<<<(R * d + nthr - 1) / nthr, nthr, 0, st>>>(
+      w.h, (__nv_bfloat16*)out, R * d);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -448,12 +623,12 @@ extern "C" long long umgen_decode_workspace_bytes(int B, int Q, int d, int H,
 }
 
 // One decode step for x [B, Q, d] bf16 → out [B, Q, d] bf16 (before the
-// final layer norm).  Packed per-layer weights (runtime/quantize.py
-// pack_decode_weights): vec [L, 15d] f32 (ln1, ln2, qkv_ws, qkv_b, proj_ws,
-// proj_b, fc_ws, pj_ws), wqkv [L, 3d, d], wproj [L, d, d], wfc [L, 4d, d],
-// wpj [L, d, 4d] int8, each stored output-major (input dim contiguous).
-// Caches kc/vc: int8 rows of d bytes; layer l, scene b, row s at
-// l·layer_stride + b·batch_stride + s·d.
+// final layer norm), int8 weights.  Packed per-layer weights
+// (runtime/quantize.py pack_decode_weights): vec [L, 15d] f32 (ln1, ln2,
+// qkv_ws, qkv_b, proj_ws, proj_b, fc_ws, pj_ws), wqkv [L, 3d, d], wproj
+// [L, d, d], wfc [L, 4d, d], wpj [L, d, 4d] int8, each stored output-major
+// (input dim contiguous).  Caches kc/vc: int8 rows of d bytes; layer l,
+// scene b, row s at l·layer_stride + b·batch_stride + s·d.
 extern "C" int umgen_decode_step(const void* x, void* out, int B, int Q,
                                  int d, int H, int L, const void* vec,
                                  const void* wqkv, const void* wproj,
@@ -462,44 +637,40 @@ extern "C" int umgen_decode_step(const void* x, void* out, int B, int Q,
                                  long long batch_stride, int S, int cl,
                                  float scale, float c16, void* workspace,
                                  void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int R = B * Q, Dh = d / H;
-  if (R > MAX_ROWS || Q > 8 || Q * H > ATT_THREADS || cl + Q > S)
-    return (int)cudaErrorInvalidValue;
-  if (Dh != 16 && Dh != 48) return (int)cudaErrorInvalidValue;
-  Workspace w;
-  workspace_layout(B, Q, d, H, S, (char*)workspace, &w);
-  const int V = 15 * d;
-  const int nthr = 256;
-  init_h_kernel<<<(R * d + nthr - 1) / nthr, nthr, 0, st>>>(
-      (const __nv_bfloat16*)x, w.h, R * d);
-  for (int l = 0; l < L; ++l) {
-    const float* vl = (const float*)vec + (long long)l * V;
-    int8_t* kl = (int8_t*)kc + l * layer_stride;
-    int8_t* vlc = (int8_t*)vc + l * layer_stride;
-    const int8_t* wq = (const int8_t*)wqkv + (long long)l * 3 * d * d;
-    const int8_t* wp = (const int8_t*)wproj + (long long)l * d * d;
-    const int8_t* wf = (const int8_t*)wfc + (long long)l * 4 * d * d;
-    const int8_t* wj = (const int8_t*)wpj + (long long)l * 4 * d * d;
-    ln_quant_kernel<<<R, nthr, d * sizeof(float), st>>>(w.h, vl, w.aq, w.sa,
-                                                        d);
-    gemv(w, R, wq, d, 3 * d, vl + 2 * d, vl + 5 * d, EPI_STORE, w.qkv, st);
-    cudaError_t e = Dh == 48 ? attention<48>(w, B, Q, H, kl, vlc,
-                                             batch_stride, cl, scale, c16, st)
-                             : attention<16>(w, B, Q, H, kl, vlc,
-                                             batch_stride, cl, scale, c16, st);
-    if (e != cudaSuccess) return (int)e;
-    gemv(w, R, wp, d, d, vl + 8 * d, vl + 9 * d, EPI_RESID, w.h, st);
-    ln_quant_kernel<<<R, nthr, d * sizeof(float), st>>>(w.h, vl + d, w.aq,
-                                                        w.sa, d);
-    gemv(w, R, wf, d, 4 * d, vl + 10 * d, nullptr, EPI_GELU, w.hid, st);
-    ln_quant_kernel<<<R, nthr, 4 * d * sizeof(float), st>>>(
-        w.hid, nullptr, w.aq, w.sa, 4 * d);
-    gemv(w, R, wj, 4 * d, d, vl + 14 * d, nullptr, EPI_RESID, w.h, st);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  out_bf16_kernel<<<(R * d + nthr - 1) / nthr, nthr, 0, st>>>(
-      w.h, (__nv_bfloat16*)out, R * d);
-  return (int)cudaGetLastError();
+  const long long dd = (long long)d * d;
+  const Products P{false,
+                   {(const int8_t*)wqkv, (const int8_t*)wproj,
+                    (const int8_t*)wfc, (const int8_t*)wpj},
+                   {3 * dd, dd, 4 * dd, 4 * dd},
+                   {nullptr, nullptr, nullptr, nullptr},
+                   {0, 0, 0, 0}};
+  return run_step(x, out, B, Q, d, H, L, (const float*)vec, P, kc, vc,
+                  layer_stride, batch_stride, S, cl, scale, c16, workspace,
+                  (cudaStream_t)stream);
+}
+
+// The same step with W4A8 weights (runtime/quantize.py w4_kernel_layout):
+// vec [L, 15d] f32 as above (its ws slots unused); w4k [L, 6d²] int8 holds
+// per layer the packed qkv [3d, d/2], proj [d, d/2], fc [4d, d/2] and pj
+// [d, 2d] blocks, each output-major; s4k [L, 12·d·G] f32 (G = d/128) their
+// group scales qkv [3d, G], proj [d, G], fc [4d, G], pj [d, 4G].
+extern "C" int umgen_decode_step_w4(const void* x, void* out, int B, int Q,
+                                    int d, int H, int L, const void* vec,
+                                    const void* w4k, const void* s4k,
+                                    void* kc, void* vc,
+                                    long long layer_stride,
+                                    long long batch_stride, int S, int cl,
+                                    float scale, float c16, void* workspace,
+                                    void* stream) {
+  const long long dd = (long long)d * d, G = d / 128;
+  const int8_t* wb = (const int8_t*)w4k;
+  const float* sb = (const float*)s4k;
+  const Products P{true,
+                   {wb, wb + 3 * dd / 2, wb + 2 * dd, wb + 4 * dd},
+                   {6 * dd, 6 * dd, 6 * dd, 6 * dd},
+                   {sb, sb + 3 * d * G, sb + 4 * d * G, sb + 8 * d * G},
+                   {12 * d * G, 12 * d * G, 12 * d * G, 12 * d * G}};
+  return run_step(x, out, B, Q, d, H, L, (const float*)vec, P, kc, vc,
+                  layer_stride, batch_stride, S, cl, scale, c16, workspace,
+                  (cudaStream_t)stream);
 }

@@ -1,9 +1,11 @@
 """Multi-frame scene rollout on the cached path (port of
-umgen_tpu/models/generate.py, `Generator._generate_cached` without a mesh,
-ring refresh or chunked prefill).
+umgen_tpu/models/generate.py, `Generator._generate_cached` without a mesh
+or ring refresh).
 
-The conditioning window is ingested once (`frame_step_prefill`), then each
-generated frame becomes the next step's ingested frame
+The conditioning window is ingested once — in one full-window pass
+(`frame_step_prefill`), or with `chunked_prefill` frame by frame
+(`frame_step_chunked`) — then each generated frame becomes the next step's
+ingested frame
 (`frame_step_cached`).  Trajectory replay and agent control (the
 reference's `--infer_task control` and `--init_token_mod`) are not driven
 from here yet; the frame steps take their overrides.
@@ -57,9 +59,12 @@ class Generator:
         for idx in range(new_frames):
             t0 = time.perf_counter()
             if idx == 0:
-                res, cache = self.rollout.frame_step_prefill(
-                    self.params, {m: self._dev(out[m]) for m in mods},
-                    self.generator)
+                inputs = {m: self._dev(out[m]) for m in mods}
+                first = self.rollout.frame_step_prefill
+                if self.model.config.chunked_prefill and \
+                        inputs["pose"].shape[1] > 1:
+                    first = self.rollout.frame_step_chunked
+                res, cache = first(self.params, inputs, self.generator)
             else:
                 res, cache = self.rollout.frame_step_cached(
                     self.params, {m: self._dev(out[m][:, -1:]) for m in mods},

@@ -18,7 +18,7 @@ softmax run in float32, and elementwise bf16 ops round after every op.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -197,16 +197,41 @@ def block_tar_collect_kv(p: Params, x: torch.Tensor, n_head: int,
     return xs.reshape(B, T, S, D), (kh, vh)
 
 
+def q4_pack(q: torch.Tensor) -> torch.Tensor:
+    """Pack int4 values (int8 storage, range [-7, 7]) pairwise along the
+    last dim: byte d holds dims (2d | low nibble, 2d+1 | high nibble)."""
+    return ((q[..., 1::2] << 4) | (q[..., 0::2] & 0x0F)).to(torch.int8)
+
+
+def q4_unpack_even(packed: torch.Tensor) -> torch.Tensor:
+    """Sign-extended low nibble (the original even dims)."""
+    return (packed << 4) >> 4
+
+
+def q4_unpack_odd(packed: torch.Tensor) -> torch.Tensor:
+    """Sign-extended high nibble (the original odd dims)."""
+    return packed >> 4
+
+
 def block_tar_decode_deferred(p: Params, x: torch.Tensor, n_head: int,
                               ring_k: torch.Tensor, ring_v: torch.Tensor,
                               slot: int, n_valid: int,
-                              attn_impl: Callable = sdpa):
+                              attn_impl: Callable = sdpa,
+                              ring_scale_k: Optional[torch.Tensor] = None,
+                              ring_scale_v: Optional[torch.Tensor] = None):
     """One new frame [B, S, D] through a factorized block whose temporal
-    attention reads bf16 rings [B·S, T_max, H, Dh] without writing them.
+    attention reads the rings [B·S, T_max, H, Dh] without writing them.
 
     The ring slot this frame will overwrite is masked out and the frame
     attends itself through a separate rank-1 term.  Returns (y, k_new,
-    v_new) with k_new/v_new [B·S, H, Dh] for the caller to store."""
+    v_new) with k_new/v_new [B·S, H, Dh] for the caller to store.
+
+    int4 rings: with ring_scale_k/v ([B, T_max, H] dequantization
+    multipliers) given, ring_k/v are nibble-packed int8 [B·S, T_max, H,
+    Dh/2] (q4_pack).  The contraction is over Dh only, so the per-(scene,
+    frame, head) scales fold into the logits (k) and into the softmax
+    weights (v, rounded to bf16 with them); no dequantized ring is
+    materialized."""
     B, S, D = x.shape
     xs = x + attention(p["sa1"], layer_norm(p["ln1"], x), n_head,
                        causal=False, attn_impl=attn_impl)
@@ -223,7 +248,24 @@ def block_tar_decode_deferred(p: Params, x: torch.Tensor, n_head: int,
     T_max = ring_k.shape[1]
     scale = 1.0 / math.sqrt(Dh)
 
-    lp = torch.einsum("nqhd,nkhd->nhqk", q.float(), ring_k.float()) * scale
+    packed = ring_scale_k is not None
+
+    def fold(t, s_bth):
+        """[N, H, 1, T] times per-(B, T, H) factors."""
+        t5 = t.reshape(B, S, H, 1, T_max)
+        return (t5 * s_bth.permute(0, 2, 1)[:, None, :, None, :]).reshape(
+            N, H, 1, T_max)
+
+    if packed:
+        qf = q.float()
+        lp = (torch.einsum("nqhd,nkhd->nhqk", qf[..., 0::2],
+                           q4_unpack_even(ring_k).float())
+              + torch.einsum("nqhd,nkhd->nhqk", qf[..., 1::2],
+                             q4_unpack_odd(ring_k).float())) * scale
+        lp = fold(lp, ring_scale_k.float())
+    else:
+        lp = torch.einsum("nqhd,nkhd->nhqk", q.float(),
+                          ring_k.float()) * scale
     tpos = torch.arange(T_max, device=x.device)
     valid = (tpos < n_valid) & (tpos != slot)
     lp = lp.masked_fill(~valid, float("-inf"))
@@ -237,8 +279,16 @@ def block_tar_decode_deferred(p: Params, x: torch.Tensor, n_head: int,
     denom = ep.sum(-1, keepdim=True) + es
     wp = ep / denom
     wself = (es / denom).to(q.dtype)
-    y = torch.einsum("nhqk,nkhd->nqhd", wp.to(q.dtype).float(),
-                     ring_v.float()).to(q.dtype)
+    if packed:
+        wps = fold(wp, ring_scale_v.float()).to(q.dtype).float()
+        y_e = torch.einsum("nhqk,nkhd->nqhd", wps,
+                           q4_unpack_even(ring_v).float()).to(q.dtype)
+        y_o = torch.einsum("nhqk,nkhd->nqhd", wps,
+                           q4_unpack_odd(ring_v).float()).to(q.dtype)
+        y = torch.stack([y_e, y_o], dim=-1).reshape(N, 1, H, Dh)
+    else:
+        y = torch.einsum("nhqk,nkhd->nqhd", wp.to(q.dtype).float(),
+                         ring_v.float()).to(q.dtype)
     y = y + wself.transpose(1, 2) * v_new[:, None]
     xt = xt + linear(p["ta"]["proj"], y.reshape(N, 1, D))
     xt = xt + mlp(p["mlp2"], layer_norm(p["ln4"], xt))

@@ -100,14 +100,19 @@ class Rollout:
                  kv_v: torch.Tensor, cache_len: int):
         """Push Q new inputs x [B, Q, D] through the OAR stack; their K/V
         land in the caches at cache_len.  Q = 1 goes to the fused v5
-        kernel, 1 < Q·H <= 128 to v5mq; anything else runs the eager body.
-        Returns (ln_oar(h) [B, Q, D], kv_k, kv_v)."""
+        kernel, 1 < Q·H <= 128 to v5mq — or to w4 / w4mq when the packed
+        weights are W4A8 (rollout.py:213-266); anything else runs the
+        eager body.  Returns (ln_oar(h) [B, Q, D], kv_k, kv_v)."""
         cfg = self.config
         Q, H = x.shape[1], cfg.n_head
         if (cfg.fused_oar_kernel and "oar_packed" in params
                 and kv_k.dtype == torch.int8 and Q * H <= 128):
-            fused = (dk.fused_decode_step_v5 if Q == 1
-                     else dk.fused_decode_step_v5mq)
+            if "wqp4" in params["oar_packed"]:     # W4A8 packing
+                fused = (dk.fused_decode_step_w4 if Q == 1
+                         else dk.fused_decode_step_w4mq)
+            else:
+                fused = (dk.fused_decode_step_v5 if Q == 1
+                         else dk.fused_decode_step_v5mq)
             h, kv_k, kv_v = fused(params["oar_packed"], x, kv_k, kv_v,
                                   cache_len, n_head=H)
             return nn.layer_norm(params["ln_oar"], h), kv_k, kv_v
@@ -440,6 +445,45 @@ class Rollout:
                                  forced_tokens=forced_tokens)
         return out._replace(ego_logits=ego_logits,
                             prior_seq=pri["prior_seq"]), cache
+
+    def ingest_frame(self, params: Params, raw_frame: Dict[str, torch.Tensor],
+                     next_pose: torch.Tensor, cache: Dict) -> Dict:
+        """Chunked prefill: push ONE conditioning frame {mod: [B, 1, len]}
+        into the ego and TAR rings without decoding.  next_pose [B, 3]: the
+        raw pose tokens of the next frame (the TAR rings see each frame with
+        the action that leads out of it, as the full-window prefill's
+        shifted window does).  The rings are updated in place."""
+        model = self.model
+        abs_frame = int(cache["frames"])
+        _, cache = model.ego_logits_cached(params, raw_frame, cache,
+                                           abs_frame)
+        shifted = dict(raw_frame, pose=next_pose[:, None, :])
+        cache = model.tar_priors_cached(params, shifted, cache,
+                                        abs_frame)["cache"]
+        cache["frames"] = abs_frame + 1
+        return cache
+
+    def frame_step_chunked(self, params: Params,
+                           inputs: Dict[str, torch.Tensor], generator,
+                           pose_override=None, control_bbox=None,
+                           forced_tokens=None):
+        """First cached step under `chunked_prefill`: the raw window {mod:
+        [B, T, len]} (T > 1, starting at absolute frame 0) is ingested frame
+        by frame — frames 0..T-2 with the next frame's pose, then one
+        `frame_step_cached` on frame T-1, which decodes the next frame (as
+        the reference's `_generate_cached` does).  Peak memory is one
+        frame's activations, not the [B, T, S, D] window.  Returns
+        (FrameOutputs, cache)."""
+        B, T = inputs["pose"].shape[:2]
+        cache = self.model.init_tar_cache(B, inputs["pose"].device)
+        for t in range(T - 1):
+            cache = self.ingest_frame(
+                params, {m: v[:, t:t + 1] for m, v in inputs.items()},
+                inputs["pose"][:, t + 1], cache)
+        return self.frame_step_cached(
+            params, {m: v[:, T - 1:] for m, v in inputs.items()}, cache,
+            generator, pose_override=pose_override, control_bbox=control_bbox,
+            forced_tokens=forced_tokens)
 
     def frame_step_cached(self, params: Params,
                           newest_frame: Dict[str, torch.Tensor], cache: Dict,

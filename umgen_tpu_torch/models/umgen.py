@@ -4,16 +4,18 @@ Embeddings, the TAR cascade (trunk, map and box stacks) and the ego network
 against per-layer temporal KV rings: `prefill_ego_cache` /
 `prefill_tar_caches` ingest the conditioning window and create the rings,
 `ego_logits_cached` / `tar_priors_cached` push one new frame through every
-stack against them.  Rings are bf16 [L, B·S, T_max, H, Dh] pairs; a new
-frame's K/V is written into its ring slot in place, layer by layer (the
-JAX package scatters all layers at once after its layer scan — the slot
-being written is masked out of the frame's own temporal attention, so the
-two orders agree).
+stack against them.  Rings are bf16 [L, B·S, T_max, H, Dh] pairs, or int4
+(`tar_cache_dtype="int4"`): nibble-packed int8 [L, B·S, T_max, H, Dh/2]
+pairs plus float32 [L, B, T_max, H] dequantization scales, one per (layer,
+scene, frame, head).  A new frame's K/V is written into its ring slot in
+place, layer by layer (the JAX package scatters all layers at once after
+its layer scan — the slot being written is masked out of the frame's own
+temporal attention, so the two orders agree).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,21 +93,20 @@ def check_served(cfg: ModelConfig) -> None:
     if cfg.tar_mode != "temporal_cache":
         raise NotPortedError("tar_mode=recompute is not ported yet "
                              "(ROADMAP.md: 'Recompute mode')")
-    if cfg.tar_cache_dtype != "bfloat16":
+    if cfg.tar_cache_dtype not in ("bfloat16", "int4"):
         raise NotPortedError(
             f"TAR ring dtype {cfg.tar_cache_dtype!r} is not ported yet; the "
-            "port serves bfloat16 rings (ROADMAP.md: 'fp8 / int4 / int2 TAR "
-            "rings')")
+            "port serves bfloat16 and int4 rings (ROADMAP.md: 'fp8 / int2 "
+            "TAR rings')")
     if cfg.temporal_pe_mode != "absolute":
         raise NotPortedError("temporal_pe_mode=relative is not ported yet "
                              "(ROADMAP.md: 'Relative temporal PE')")
     if cfg.speculative_k > 0:
         raise NotPortedError("speculative decoding is not ported yet "
                              "(ROADMAP.md: 'Speculative decoding')")
-    if cfg.chunked_prefill or cfg.tar_cache_refresh > 0:
-        raise NotPortedError("chunked prefill and ring refresh are not "
-                             "ported yet (ROADMAP.md: 'Chunked prefill and "
-                             "ring refresh')")
+    if cfg.tar_cache_refresh > 0:
+        raise NotPortedError("ring refresh is not ported yet (ROADMAP.md: "
+                             "'Ring refresh')")
     if cfg.n_step != 1 or cfg.bias:
         raise NotPortedError("the port serves the published heads "
                              "(n_step=1, bias=False)")
@@ -240,26 +241,67 @@ class UMGen:
         """TAR ring length (tar_cache_window, default cond_frame)."""
         return self.config.tar_cache_window or self.config.cond_frame
 
+    @property
+    def ring_q4(self) -> bool:
+        """int4 rings: nibble-packed int8 + per-(L, B, T, H) scales."""
+        return self.config.tar_cache_dtype == "int4"
+
+    def _ring_zeros(self, L: int, N: int, B: int, device) -> tuple:
+        """Empty rings of one stack: (k, v) bf16, or int4 (k, v, scale_k,
+        scale_v)."""
+        cfg = self.config
+        if self.ring_q4 and cfg.head_dim % 2:
+            raise ValueError(f"tar_cache_dtype='int4' packs two head dims "
+                             f"a byte: head_dim {cfg.head_dim} must be even")
+        shape = (L, N, self.t_max, cfg.n_head, cfg.head_dim)
+        if not self.ring_q4:
+            dt = torch_dtype(cfg.tar_cache_dtype)
+            return (torch.zeros(shape, dtype=dt, device=device),
+                    torch.zeros(shape, dtype=dt, device=device))
+        packed = shape[:-1] + (cfg.head_dim // 2,)
+        sshape = (L, B, self.t_max, cfg.n_head)
+        return (torch.zeros(packed, dtype=torch.int8, device=device),
+                torch.zeros(packed, dtype=torch.int8, device=device),
+                torch.zeros(sshape, dtype=torch.float32, device=device),
+                torch.zeros(sshape, dtype=torch.float32, device=device))
+
     def init_tar_cache(self, B: int, device=None) -> Dict[str, Any]:
         cfg = self.config
         counts = {"tar": cfg.n_tar_layer, "ego_tar": cfg.n_ego_tar_layer,
                   "map_tar": cfg.n_map_tar_layer,
                   "box_tar": cfg.n_box_tar_layer}
-        dt = torch_dtype(cfg.tar_cache_dtype)
         cache: Dict[str, Any] = {"frames": 0}
         for name, _, S in self._stack_names():
-            shape = (counts[name], B * S, self.t_max, cfg.n_head,
-                     cfg.head_dim)
-            cache[name] = (torch.zeros(shape, dtype=dt, device=device),
-                           torch.zeros(shape, dtype=dt, device=device))
+            cache[name] = self._ring_zeros(counts[name], B * S, B, device)
         return cache
+
+    @staticmethod
+    def _ring_q4_quantize(x: torch.Tensor, B: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x [L, N, H, Dh] new K or V rows (N = B·S) → (packed [L, N, H,
+        Dh/2] int8, dequantization scales [L, B, H] f32): amax over the
+        frame's positions and head dims per (layer, scene, head), / 7."""
+        L, N, H, Dh = x.shape
+        xf = x.float().reshape(L, B, N // B, H, Dh)
+        s = torch.clamp(xf.abs().amax(dim=(2, 4)), min=1e-6) * (1.0 / 7.0)
+        q = torch.clamp(torch.round(xf / s[:, :, None, :, None]), -7, 7)
+        return nn.q4_pack(q.to(torch.int8).reshape(L, N, H, Dh)), s
+
+    @staticmethod
+    def _ring_q4_quantize_layer(x: torch.Tensor, B: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One layer of `_ring_q4_quantize`: x [N, H, Dh] → (packed [N, H,
+        Dh/2] int8, scales [B, H] f32)."""
+        packed, s = UMGen._ring_q4_quantize(x[None], B)
+        return packed[0], s[0]
 
     def _run_tar_stack_prefill(self, params, stack_name, ln_name, emb,
                                T_max):
         """Full-window pass that also creates the stack's rings: emb [B, T,
-        S, D] → (ln(out) [B, T, S, D], (ring_k, ring_v) [L, B·S, T_max, H,
-        Dh]).  With T > T_max only the last T_max frames are kept, each at
-        its absolute ring slot."""
+        S, D] → (ln(out) [B, T, S, D], rings [L, B·S, T_max, ...]).  With
+        T > T_max only the last T_max frames are kept, each at its absolute
+        ring slot.  int4 rings quantize each window frame per (scene,
+        head)."""
         cfg = self.config
         B, T, S, _ = emb.shape
         keep = min(T, T_max)
@@ -267,33 +309,42 @@ class UMGen:
                                 device=emb.device)
         stack = params[stack_name]
         L = nn.n_layers(stack)
-        dt = torch_dtype(cfg.tar_cache_dtype)
-        shape = (L, B * S, T_max, cfg.n_head, cfg.head_dim)
-        ring_k = torch.zeros(shape, dtype=dt, device=emb.device)
-        ring_v = torch.zeros(shape, dtype=dt, device=emb.device)
+        rings = self._ring_zeros(L, B * S, B, emb.device)
         h = emb
         for l in range(L):
-            h, (k, v) = nn.block_tar_collect_kv(nn.layer(stack, l), h,
-                                                cfg.n_head,
-                                                attn_impl=self.attn)
-            ring_k[l][:, slots] = k[:, -keep:].to(dt)
-            ring_v[l][:, slots] = v[:, -keep:].to(dt)
-        return nn.layer_norm(params[ln_name], h), (ring_k, ring_v)
+            h, kv = nn.block_tar_collect_kv(nn.layer(stack, l), h,
+                                            cfg.n_head, attn_impl=self.attn)
+            for i, a in enumerate(kv):                 # [B·S, T, H, Dh]
+                if self.ring_q4:
+                    # each kept frame quantized as one new frame would be
+                    packed, sc = self._ring_q4_quantize(
+                        a[:, -keep:].transpose(0, 1), B)
+                    rings[i][l][:, slots] = packed.transpose(0, 1)
+                    rings[2 + i][l][:, slots] = sc.transpose(0, 1)
+                else:
+                    rings[i][l][:, slots] = a[:, -keep:].to(rings[i].dtype)
+        return nn.layer_norm(params[ln_name], h), rings
 
     def _run_tar_stack_cached(self, params, stack_name, ln_name, x, kv,
                               slot: int, n_valid: int):
         """x [B, S, D] new frame → (ln(out) [B, S, D], kv) with the frame's
         K/V written into ring slot `slot` in place."""
         cfg = self.config
-        ring_k, ring_v = kv
+        B = x.shape[0]
         stack = params[stack_name]
         h = x
         for l in range(nn.n_layers(stack)):
+            scales = ({"ring_scale_k": kv[2][l], "ring_scale_v": kv[3][l]}
+                      if self.ring_q4 else {})
             h, k_new, v_new = nn.block_tar_decode_deferred(
-                nn.layer(stack, l), h, cfg.n_head, ring_k[l], ring_v[l],
-                slot, n_valid, attn_impl=self.attn)
-            ring_k[l][:, slot] = k_new.to(ring_k.dtype)
-            ring_v[l][:, slot] = v_new.to(ring_v.dtype)
+                nn.layer(stack, l), h, cfg.n_head, kv[0][l], kv[1][l],
+                slot, n_valid, attn_impl=self.attn, **scales)
+            for i, new in enumerate((k_new, v_new)):
+                if self.ring_q4:
+                    kv[i][l][:, slot], kv[2 + i][l][:, slot] = \
+                        self._ring_q4_quantize_layer(new, B)
+                else:
+                    kv[i][l][:, slot] = new.to(kv[i].dtype)
         return nn.layer_norm(params[ln_name], h), kv
 
     def _priors(self, params, frame_emb, run_stack):

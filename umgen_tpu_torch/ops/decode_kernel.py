@@ -1,31 +1,39 @@
-"""Fused int8 OAR decode step (port of umgen_tpu/ops/decode_kernel.py, the
-v5 family on the flat int8 cache).
+"""Fused OAR decode step (port of umgen_tpu/ops/decode_kernel.py, the v5 and
+W4A8 families on the flat int8 cache).
 
-Replaces two TPU kernels with one CUDA kernel family,
-csrc/decode_step.cu (its header says what bounds it on the H100 and how the
-design answers that):
+Replaces four TPU kernels with one CUDA kernel family, csrc/decode_step.cu
+(its header says what bounds it on the H100 and how the design answers
+that):
 
   * `fused_decode_step_v5` (decode_kernel.py:1363, pallas_call :1457) —
-    one token per scene (Q = 1), every Q = 1 OAR step of the rollout;
+    int8 weights, one token per scene (Q = 1), every Q = 1 OAR step of the
+    rollout;
   * `fused_decode_step_v5mq` (decode_kernel.py:3411, through `_mq_call`
     :3318, pallas_call :3395) — 1 < Q <= 128 / n_head rows per scene with
     causal attention inside the chunk: the 6-row pose prefill and the
-    2-row pushes at segment boundaries.
+    2-row pushes at segment boundaries;
+  * `fused_decode_step_w4` (decode_kernel.py:2034, pallas_call :2103,
+    body `_kernel_w4`) and `fused_decode_step_w4mq` (:3488, through
+    `_mq_call`) — the same two with W4A8 weights (group-128 int4, packed
+    by runtime/quantize.pack_fused_w4).  Only the four products of a layer
+    differ.
 
-Both wrappers take the packed weights of runtime/quantize.pack_fused
-(`params["oar_packed"]`), x [B, Q, d] bf16 and the flat int8 caches
-[L, B, S, H·Dh] (the JAX layout; views of a longer cache are accepted), and
-return (h [B, Q, d] bf16 before the final layer norm, kv_k, kv_v).  The
-Q new K/V rows are written into the caches at `cache_len` IN PLACE — the
-JAX package writes them back functionally; the returned caches are the
-same tensors that were passed.
+The wrappers take `params["oar_packed"]` (runtime/quantize.pack_fused or
+pack_fused_w4), x [B, Q, d] bf16 and the flat int8 caches [L, B, S, H·Dh]
+(the JAX layout; views of a longer cache are accepted), and return (h
+[B, Q, d] bf16 before the final layer norm, kv_k, kv_v).  The Q new K/V
+rows are written into the caches at `cache_len` IN PLACE — the JAX package
+writes them back functionally; the returned caches are the same tensors
+that were passed.  Any B·Q is taken (the kernel tiles the rows).
 
 For CUDA tensors the kernel launches or the wrapper raises.  For CPU
 tensors the wrappers run `decode_step_plain`: the reference kernel's
 arithmetic in plain PyTorch, including its S-block online softmax
 (`pick_block_s`) and the bf16 rounding of the softmax weights, with the
-int8 × int8 products done exactly in float64 (float32 is not exact at
-K = 3072).
+integer products done exactly in float64 (float32 is not exact at
+K = 3072).  The W4A8 plain version reads JAX's packed layout (wqp4, wfc4,
+wpj4, scales4); the kernel reads the output-major repacking of the same
+values (`w4k`, `s4k`, runtime/quantize.w4_kernel_layout).
 """
 
 from __future__ import annotations
@@ -36,14 +44,14 @@ from typing import Any, Dict, Tuple
 import torch
 
 from umgen_tpu_torch.ops import _cuda
-from umgen_tpu_torch.runtime.quantize import vec_offsets
+from umgen_tpu_torch.runtime.quantize import W4_GROUP, vec_offsets
 
 Params = Dict[str, Any]
 
 KV_INT8_SCALE = 16.0     # fixed-grid int8 KV: step 1/16, range ±7.94
-MAX_ROWS = 16            # B·Q rows the kernel takes per step
 MAX_Q = 8
-LAUNCHES = {"fused_decode_step_v5": 0, "fused_decode_step_v5mq": 0}
+LAUNCHES = {"fused_decode_step_v5": 0, "fused_decode_step_v5mq": 0,
+            "fused_decode_step_w4": 0, "fused_decode_step_w4mq": 0}
 
 
 def pick_block_s(S: int, block_s: int = 0) -> int:
@@ -70,14 +78,45 @@ def kv_store(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # plain PyTorch version
 # ---------------------------------------------------------------------------
+def _block_sum(v: torch.Tensor, threads: int = 256) -> torch.Tensor:
+    """Row sums of v [R, n] in the order of the kernel's `block_sum` over
+    256 threads: thread t adds elements t, t + 256, ... in turn, each warp
+    folds its 32 lanes by the xor butterfly (16, 8, 4, 2, 1), and lane 0's
+    values of the 8 warps are added in order."""
+    R, n = v.shape
+    v = torch.nn.functional.pad(v, (0, -n % threads))
+    t = v.reshape(R, -1, threads)
+    s = t[:, 0]
+    for k in range(1, t.shape[1]):
+        s = s + t[:, k]
+    lanes = s.reshape(R, threads // 32, 32)
+    idx = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., idx ^ o]
+    tot = lanes[:, 0, 0]
+    for w in range(1, threads // 32):
+        tot = tot + lanes[:, w, 0]
+    return tot[:, None]
+
+
+def _div(t: torch.Tensor, c: float) -> torch.Tensor:
+    """t / c as an IEEE division on every device, as the kernel divides
+    (PyTorch's CUDA division by a Python scalar multiplies by its rounded
+    reciprocal instead, one bit off for some t)."""
+    return t / torch.full((), c, dtype=t.dtype, device=t.device)
+
+
 def _ln(v: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    mu = v.mean(-1, keepdim=True)
-    var = (v - mu).square().mean(-1, keepdim=True)
-    return (v - mu) * torch.rsqrt(var + eps) * w
+    """Layer norm as the kernel rounds it: block-ordered sums, 1 / sqrt."""
+    n = v.shape[-1]
+    mu = _div(_block_sum(v), n)
+    c = v - mu
+    var = _div(_block_sum(c * c), n)
+    return c * (1.0 / torch.sqrt(var + eps)) * w
 
 
 def _quant_rows(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    sa = v.abs().amax(-1, keepdim=True) / 127.0 + 1e-12
+    sa = _div(v.abs().amax(-1, keepdim=True), 127.0) + 1e-12
     return torch.clamp(torch.round(v / sa), -127, 127), sa
 
 
@@ -91,11 +130,62 @@ def _qdot(v: torch.Tensor, wt: torch.Tensor, ws: torch.Tensor,
     return y + b if b is not None else y
 
 
+def _qdot4(v: torch.Tensor, w4: torch.Tensor, s: torch.Tensor,
+           b: torch.Tensor = None) -> torch.Tensor:
+    """W4A8 product (`_kernel_w4.qdot4`): per-row activation quant, exact
+    integer dot per 128-row input group (float64), then in float32 over the
+    group pairs y = y + acc_lo·s_lo + acc_hi·s_hi, y·sa, + b.  w4 [K/2, N]
+    int8 in JAX's packing (byte j·128 + i of a column: row (2j)·128 + i in
+    the low nibble, (2j+1)·128 + i in the high one); s [K/128, N]."""
+    aq, sa = _quant_rows(v)
+    R, K = aq.shape
+    P = K // (2 * W4_GROUP)
+    wb = w4.reshape(P, W4_GROUP, -1).int()
+    lo = ((wb << 28) >> 28).double()                # sign-extended nibbles
+    hi = (wb >> 4).double()
+    a = aq.reshape(R, P, 2, W4_GROUP).double()
+    acc_lo = torch.einsum("rpi,pin->rpn", a[:, :, 0], lo).float()
+    acc_hi = torch.einsum("rpi,pin->rpn", a[:, :, 1], hi).float()
+    y = torch.zeros(R, w4.shape[-1], device=v.device)
+    for j in range(P):
+        y = y + acc_lo[:, j] * s[2 * j] + acc_hi[:, j] * s[2 * j + 1]
+    y = y * sa
+    return y + b if b is not None else y
+
+
+def _layer_products(packed: Params, l: int, d: int, vec: torch.Tensor):
+    """Layer l's four products (qkv, proj, fc, pj) as functions of their
+    input, from int8 (pack_decode_weights) or W4A8 (pack_fused_oar_w4)
+    packing."""
+    off = vec_offsets(d)
+
+    def v_(name):
+        a, b = off[name]
+        return vec[a:b]
+
+    if "wqp4" in packed:
+        G = d // W4_GROUP
+        sc = packed["scales4"][l]
+        wqp, wfc, wpj = (packed[k][l] for k in ("wqp4", "wfc4", "wpj4"))
+        s_pj = sc[2 * G:3 * G].reshape(4 * G, d)    # group g: row g//4 ...
+        return (lambda a: _qdot4(a, wqp[:, :3 * d], sc[:G, :3 * d],
+                                 v_("qkv_b")),
+                lambda y: _qdot4(y, wqp[:, 3 * d:], sc[:G, 3 * d:],
+                                 v_("proj_b")),
+                lambda a: _qdot4(a, wfc, sc[G:2 * G]),
+                lambda a: _qdot4(a, wpj, s_pj))
+    return (lambda a: _qdot(a, packed["wqkv"][l], v_("qkv_ws"), v_("qkv_b")),
+            lambda y: _qdot(y, packed["wproj"][l], v_("proj_ws"),
+                            v_("proj_b")),
+            lambda a: _qdot(a, packed["wfc"][l], v_("fc_ws")),
+            lambda a: _qdot(a, packed["wpj"][l], v_("pj_ws")))
+
+
 def _gelu_as(x: torch.Tensor) -> torch.Tensor:
     """x·0.5·(1 + erf(x/√2)) with the reference kernel's A&S erf."""
     a1, a2, a3 = 0.254829592, -0.284496736, 1.421413741
     a4, a5, p = -1.453152027, 1.061405429, 0.3275911
-    z = x / 1.41421353816986083984375
+    z = _div(x, 1.41421353816986083984375)
     ax = z.abs()
     t = 1.0 / (1.0 + p * ax)
     y = 1.0 - (((((a5 * t + a4) * t) + a3) * t + a2) * t + a1) * t \
@@ -121,33 +211,43 @@ def decode_step_plain(packed: Params, x: torch.Tensor, kv_k: torch.Tensor,
     c16 = scale / KV_INT8_SCALE
     bs = pick_block_s(S)
     off = vec_offsets(d)
+    vecs = packed["vec"].reshape(L, -1)     # JAX's W4 packing: [L, 1, V]
     h = x.reshape(B * Q, d).float()
     causal = torch.tril(torch.ones(Q, Q, dtype=torch.bool,
                                    device=x.device))
     for l in range(L):
-        vec = packed["vec"][l]
+        vec = vecs[l]
 
         def v_(name):
             a, b = off[name]
             return vec[a:b]
 
-        qkv = _qdot(_ln(h, v_("ln1")), packed["wqkv"][l], v_("qkv_ws"),
-                    v_("qkv_b"))
+        mm_qkv, mm_proj, mm_fc, mm_pj = _layer_products(packed, l, d, vec)
+        qkv = mm_qkv(_ln(h, v_("ln1")))
         q, k_new, v_new = qkv.split(HD, dim=-1)
         # queries: one int8 scale per scene over its Q rows
         qb = q.reshape(B, Q, HD)
-        sq = qb.abs().amax(dim=(1, 2)) / 127.0 + 1e-12            # [B]
+        sq = _div(qb.abs().amax(dim=(1, 2)), 127.0) + 1e-12       # [B]
         qp = torch.clamp(torch.round(qb / sq[:, None, None]), -127, 127)
         qh = qb.reshape(B, Q, H, Dh)
         kh = k_new.reshape(B, Q, H, Dh)
         vh = v_new.reshape(B, Q, H, Dh)
-        # intra-chunk causal term initializes the flash state
-        lij = torch.einsum("bihd,bjhd->bhij", qh, kh) * scale
-        lij = lij.masked_fill(~causal, float("-inf"))
+        # intra-chunk causal term initializes the flash state; its dot
+        # products over Dh and its sums over the chunk's keys are taken one
+        # term at a time, in the kernel's order (the reference sums over
+        # the keys in that order too)
+        qt, kt, vt = (t.permute(0, 2, 1, 3) for t in (qh, kh, vh))
+        lij = torch.zeros(B, H, Q, Q, device=x.device)
+        for i in range(Dh):
+            lij = lij + qt[..., :, None, i] * kt[..., None, :, i]
+        lij = (lij * scale).masked_fill(~causal, float("-inf"))
         m = lij.amax(-1)                                           # [B,H,Q]
         p0 = torch.exp(lij - m[..., None])
-        den = p0.sum(-1)
-        acc = torch.einsum("bhij,bjhd->bhid", p0, vh)              # [B,H,Q,Dh]
+        den = torch.zeros_like(m)
+        acc = torch.zeros_like(qt)                                 # [B,H,Q,Dh]
+        for j in range(Q):
+            den = den + p0[..., j]
+            acc = acc + p0[..., j, None] * vt[:, :, None, j]
         # S-blocks of the int8 prefix, online softmax as the reference
         fac = (sq * c16)[:, None, None, None]
         qpd = qp.reshape(B, Q, H, Dh).double()
@@ -170,11 +270,9 @@ def decode_step_plain(packed: Params, x: torch.Tensor, kv_k: torch.Tensor,
             m = m_new
         y = (acc / den[..., None]).permute(0, 2, 1, 3).reshape(B * Q, HD)
 
-        h = _bf16_add(h, _qdot(y, packed["wproj"][l], v_("proj_ws"),
-                               v_("proj_b")))
-        hid = _gelu_as(_qdot(_ln(h, v_("ln2")), packed["wfc"][l],
-                             v_("fc_ws")))
-        h = _bf16_add(h, _qdot(hid, packed["wpj"][l], v_("pj_ws")))
+        h = _bf16_add(h, mm_proj(y))
+        hid = _gelu_as(mm_fc(_ln(h, v_("ln2"))))
+        h = _bf16_add(h, mm_pj(hid))
 
         kv_k[l, :, cl:cl + Q] = kv_store(k_new).reshape(B, Q, HD)
         kv_v[l, :, cl:cl + Q] = kv_store(v_new).reshape(B, Q, HD)
@@ -184,26 +282,34 @@ def decode_step_plain(packed: Params, x: torch.Tensor, kv_k: torch.Tensor,
 # ---------------------------------------------------------------------------
 # CUDA kernel
 # ---------------------------------------------------------------------------
-_ARGTYPES = ([_cuda.VOIDP, _cuda.VOIDP] + [_cuda.INT] * 5
-             + [_cuda.VOIDP] * 7 + [_cuda.INT64, _cuda.INT64]
-             + [_cuda.INT, _cuda.INT, _cuda.FLOAT, _cuda.FLOAT]
-             + [_cuda.VOIDP, _cuda.VOIDP])
+_ARGS_HEAD = [_cuda.VOIDP, _cuda.VOIDP] + [_cuda.INT] * 5 + [_cuda.VOIDP]
+_ARGS_TAIL = ([_cuda.VOIDP] * 2 + [_cuda.INT64, _cuda.INT64]
+              + [_cuda.INT, _cuda.INT, _cuda.FLOAT, _cuda.FLOAT]
+              + [_cuda.VOIDP, _cuda.VOIDP])
+_ARGTYPES = {"umgen_decode_step": _ARGS_HEAD + [_cuda.VOIDP] * 4 + _ARGS_TAIL,
+             "umgen_decode_step_w4": _ARGS_HEAD + [_cuda.VOIDP] * 2
+             + _ARGS_TAIL}
 
 
 def decode_step_cuda(packed: Params, x: torch.Tensor, kv_k: torch.Tensor,
                      kv_v: torch.Tensor, cache_len: int, n_head: int
                      ) -> torch.Tensor:
-    """Launch csrc/decode_step.cu; new rows written in place."""
+    """Launch csrc/decode_step.cu (int8 or W4A8 weights, as packed); new
+    rows written in place."""
     L, B, S, HD = kv_k.shape
     _, Q, d = x.shape
     H = n_head
     cl = int(cache_len)
+    w4 = "wqp4" in packed
     if HD != d or d % H or (d // H) not in (16, 48) or d % 16:
         raise ValueError(f"decode kernel: unsupported widths d={d}, "
                          f"H={H}, cache row {HD}")
-    if B * Q > MAX_ROWS or Q > MAX_Q or Q * H > 128:
-        raise ValueError(f"decode kernel takes B*Q <= {MAX_ROWS}, "
-                         f"Q <= {MAX_Q}, Q*H <= 128; got B={B}, Q={Q}")
+    if w4 and (d % (2 * W4_GROUP) or d > 768):
+        raise ValueError(f"W4A8 decode kernel: d={d} must be a multiple of "
+                         f"{2 * W4_GROUP} and at most 768")
+    if Q > MAX_Q or Q * H > 128:
+        raise ValueError(f"decode kernel takes Q <= {MAX_Q}, Q*H <= 128; "
+                         f"got Q={Q}, H={H}")
     if not 0 <= cl <= S - Q:
         raise ValueError(f"cache_len {cl} + Q {Q} exceeds {S} cache rows")
     if kv_v.shape != kv_k.shape or kv_v.stride() != kv_k.stride():
@@ -216,13 +322,27 @@ def decode_step_cuda(packed: Params, x: torch.Tensor, kv_k: torch.Tensor,
             raise ValueError(f"decode kernel: {name} rows must be "
                              "contiguous and 16-byte aligned")
     x = x.contiguous()
+    vec = packed["vec"].reshape(L, -1)
     _cuda.require(x, torch.bfloat16, "decode kernel x", align=4)
-    _cuda.require(packed["vec"], torch.float32, "decode kernel vec", 4)
-    for name in ("wqkv", "wproj", "wfc", "wpj"):
-        _cuda.require(packed[name], torch.int8, f"decode kernel {name}")
-    if packed["wqkv"].shape != (L, 3 * d, d):
-        raise ValueError(f"packed weights {tuple(packed['wqkv'].shape)} do "
-                         f"not match L={L}, d={d}")
+    _cuda.require(vec, torch.float32, "decode kernel vec", 4)
+    if vec.shape[1] != vec_offsets(d)["__total__"]:
+        raise ValueError(f"packed vec {tuple(vec.shape)} does not match d={d}")
+    if w4:
+        if "w4k" not in packed:
+            raise ValueError("W4A8 packing without the kernel layout: add it "
+                             "with runtime.quantize.w4_kernel_layout")
+        weights = (packed["w4k"], packed["s4k"])
+        _cuda.require(weights[0], torch.int8, "decode kernel w4k")
+        _cuda.require(weights[1], torch.float32, "decode kernel s4k", 4)
+        expect = [(L, 6 * d * d), (L, 12 * d * (d // W4_GROUP))]
+    else:
+        weights = tuple(packed[n] for n in ("wqkv", "wproj", "wfc", "wpj"))
+        for name, t in zip(("wqkv", "wproj", "wfc", "wpj"), weights):
+            _cuda.require(t, torch.int8, f"decode kernel {name}")
+        expect = [(L, 3 * d, d), (L, d, d), (L, 4 * d, d), (L, d, 4 * d)]
+    if [tuple(t.shape) for t in weights] != expect:
+        raise ValueError(f"packed weights {[tuple(t.shape) for t in weights]}"
+                         f" do not match L={L}, d={d}")
     lib = _cuda.load()
     lib.umgen_decode_workspace_bytes.argtypes = [_cuda.INT] * 5
     lib.umgen_decode_workspace_bytes.restype = _cuda.INT64
@@ -230,19 +350,29 @@ def decode_step_cuda(packed: Params, x: torch.Tensor, kv_k: torch.Tensor,
     ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     out = torch.empty_like(x)
     scale = 1.0 / math.sqrt(d // H)
-    fn = _cuda.function("umgen_decode_step", _ARGTYPES)
-    err = fn(x.data_ptr(), out.data_ptr(), B, Q, d, H, L,
-             packed["vec"].data_ptr(), packed["wqkv"].data_ptr(),
-             packed["wproj"].data_ptr(), packed["wfc"].data_ptr(),
-             packed["wpj"].data_ptr(), kv_k.data_ptr(), kv_v.data_ptr(),
-             kv_k.stride(0), kv_k.stride(1), S, cl, scale,
+    entry = "umgen_decode_step_w4" if w4 else "umgen_decode_step"
+    fn = _cuda.function(entry, _ARGTYPES[entry])
+    err = fn(x.data_ptr(), out.data_ptr(), B, Q, d, H, L, vec.data_ptr(),
+             *(t.data_ptr() for t in weights), kv_k.data_ptr(),
+             kv_v.data_ptr(), kv_k.stride(0), kv_k.stride(1), S, cl, scale,
              scale / KV_INT8_SCALE, ws.data_ptr(), _cuda.stream_ptr(x))
     _cuda.check(err, "fused decode step")
     return out
 
 
 def _step(name: str, packed: Params, x: torch.Tensor, kv_k: torch.Tensor,
-          kv_v: torch.Tensor, cache_len, n_head: int):
+          kv_v: torch.Tensor, cache_len, n_head: int, multi: bool):
+    Q = x.shape[1]
+    if multi and (Q < 2 or Q * n_head > 128):
+        raise ValueError(f"{name} needs 1 < Q and Q*H <= 128, got Q={Q}, "
+                         f"H={n_head}")
+    if not multi and Q != 1:
+        raise ValueError(f"{name} takes one row per scene, got Q={Q}")
+    w4 = name.startswith("fused_decode_step_w4")
+    if w4 != ("wqp4" in packed):
+        kinds = ("int8 (pack_fused)", "W4A8 (pack_fused_w4)")
+        raise ValueError(f"{name} takes {kinds[w4]} packed weights, got "
+                         f"{kinds[not w4]} ones")
     if x.is_cuda:
         h = decode_step_cuda(packed, x, kv_k, kv_v, cache_len, n_head)
         LAUNCHES[name] += 1
@@ -255,19 +385,29 @@ def fused_decode_step_v5(packed: Params, x: torch.Tensor,
                          kv_k: torch.Tensor, kv_v: torch.Tensor,
                          cache_len, n_head: int):
     """One token per scene: x [B, 1, d] → (h [B, 1, d], kv_k, kv_v)."""
-    if x.shape[1] != 1:
-        raise ValueError(f"v5 takes one row per scene, got Q={x.shape[1]}")
     return _step("fused_decode_step_v5", packed, x, kv_k, kv_v, cache_len,
-                 n_head)
+                 n_head, multi=False)
 
 
 def fused_decode_step_v5mq(packed: Params, x: torch.Tensor,
                            kv_k: torch.Tensor, kv_v: torch.Tensor,
                            cache_len, n_head: int):
     """Q rows per scene, 1 < Q·n_head <= 128, causal within the chunk."""
-    Q = x.shape[1]
-    if not 1 < Q * n_head <= 128 or Q < 2:
-        raise ValueError(f"v5mq needs 1 < Q and Q*H <= 128, got Q={Q}, "
-                         f"H={n_head}")
     return _step("fused_decode_step_v5mq", packed, x, kv_k, kv_v, cache_len,
-                 n_head)
+                 n_head, multi=True)
+
+
+def fused_decode_step_w4(packed: Params, x: torch.Tensor,
+                         kv_k: torch.Tensor, kv_v: torch.Tensor,
+                         cache_len, n_head: int):
+    """`fused_decode_step_v5` with W4A8 weights (pack_fused_w4)."""
+    return _step("fused_decode_step_w4", packed, x, kv_k, kv_v, cache_len,
+                 n_head, multi=False)
+
+
+def fused_decode_step_w4mq(packed: Params, x: torch.Tensor,
+                           kv_k: torch.Tensor, kv_v: torch.Tensor,
+                           cache_len, n_head: int):
+    """`fused_decode_step_v5mq` with W4A8 weights (pack_fused_w4)."""
+    return _step("fused_decode_step_w4mq", packed, x, kv_k, kv_v, cache_len,
+                 n_head, multi=True)

@@ -5,11 +5,15 @@
         --model_scale larger --fused_oar --kv_dtype bfloat16 --int8 decode \\
         --debug --synthetic_data 1 --max_scenes 1 --set_num_new_frames 2
 
-Weights are seeded random (`--debug`, or a missing checkpoint); scenes come
-from the dataset or, with `--synthetic_data N`, from the synthetic
-generator.  Every flag value outside what the port serves raises
-NotPortedError naming the ROADMAP.md item that adds it; none is silently
-ignored.
+Served values: `--kv_dtype bfloat16|int4` (TAR rings; the OAR cache stays
+int8), `--int8 decode|all`, `--chunked_prefill`, `--tar_cache_window N`,
+any `--batch_size`.  Like the JAX CLI it packs int8 (v5) OAR weights; W4A8
+weights are reached as the JAX bench reaches them, through
+`serving_params` and the same Generator (chip_smoke.py phase e).  Weights
+are seeded random (`--debug`, or a missing checkpoint); scenes come from
+the dataset or, with `--synthetic_data N`, from the synthetic generator.
+Every flag value outside what the port serves raises NotPortedError naming
+the ROADMAP.md item that adds it; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -99,27 +103,28 @@ def check_args(args) -> None:
        "Control mode")
     no(args.tar_mode == "recompute", "--tar_mode recompute",
        "Recompute mode")
-    no(args.kv_dtype != "bfloat16", f"--kv_dtype {args.kv_dtype}",
-       "fp8 / int4 / int2 TAR rings")
+    no(args.kv_dtype not in ("bfloat16", "int4"),
+       f"--kv_dtype {args.kv_dtype}", "fp8 / int2 TAR rings")
     no(args.speculative_k > 0 or args.no_spec_bbox,
        "speculative decoding", "Speculative decoding")
     no(args.dp > 1 or args.launcher is not None, "multi-GPU serving",
        "Multi-GPU and runtime")
-    no(args.tar_w4, "--tar_w4", "W4 weights")
-    no(args.chunked_prefill or args.tar_cache_refresh > 0,
-       "chunked prefill / ring refresh", "Chunked prefill and ring refresh")
+    no(args.tar_w4, "--tar_w4", "W4 TAR weights")
+    no(args.tar_cache_refresh > 0, "--tar_cache_refresh", "Ring refresh")
     no(args.temporal_pe != "absolute", "--temporal_pe relative",
        "Relative temporal PE")
     no(not args.fused_oar, "the unfused OAR decode (omit --fused_oar)",
        "Unfused and bf16 OAR caches")
-    no(args.int8 != "decode", f"--int8 {args.int8}",
-       "int8 everywhere / bf16 OAR weights")
+    no(args.int8 == "off", "--int8 off", "bf16 OAR weights")
     no(args.oar_kv_dtype not in (None, "int8"),
        f"--oar_kv_dtype {args.oar_kv_dtype}", "int4 OAR KV cache")
-    no(args.oar_kernel != 5 or args.oar_batch_block,
-       "--oar_kernel 7 / --oar_batch_block", "Superseded decode variants")
-    no(args.batch_size > 2, f"--batch_size {args.batch_size}",
-       "Larger scene batches")
+    no(args.oar_kernel != 5, f"--oar_kernel {args.oar_kernel}",
+       "Superseded decode variants")
+    if args.oar_batch_block:
+        raise NotPortedError(
+            "--oar_batch_block splits the batch to fit the TPU's VMEM; the "
+            "port runs the whole batch in one kernel and does not port it "
+            "(ROADMAP.md: 'VMEM-driven blockings')")
     no(args.profile_dir is not None, "--profile_dir",
        "Multi-GPU and runtime")
     no(bool(args.init_token_mod), "--init_token_mod",
@@ -131,52 +136,69 @@ def check_args(args) -> None:
 
 
 def config_from_args(args):
+    """argparse namespace → scaled ModelConfig, field for field as the JAX
+    CLI's (umgen_tpu/tools/evaluate.py:146-187): `--kv_dtype int4` sets the
+    TAR rings and keeps the OAR cache int8."""
     from umgen_tpu.config import ModelConfig
     return ModelConfig(task=args.pred_task,
                        rule_constrain=args.rule_constrain,
                        sample_method=args.sample_method,
-                       tar_mode="temporal_cache",
+                       tar_mode=args.tar_mode or "temporal_cache",
                        tar_cache_dtype=args.kv_dtype,
-                       oar_cache_dtype="int8",
-                       fused_oar_kernel=True,
+                       oar_cache_dtype=(args.oar_kv_dtype or
+                                        ("int8" if args.fused_oar
+                                         or args.kv_dtype in ("int4", "int2")
+                                         else args.kv_dtype)),
+                       speculative_k=args.speculative_k,
+                       speculative_bbox=not args.no_spec_bbox,
+                       fused_oar_kernel=args.fused_oar,
+                       oar_kernel_version=args.oar_kernel,
+                       oar_batch_block=args.oar_batch_block,
+                       chunked_prefill=args.chunked_prefill,
                        tar_cache_window=args.tar_cache_window,
+                       tar_cache_refresh=args.tar_cache_refresh,
+                       temporal_pe_mode=args.temporal_pe,
                        tpe_clamp=args.tpe_clamp).scaled(args.model_scale)
 
 
-def run(args):
-    """Run the evaluation; returns the SceneRunner (timings) and the
-    Generator."""
+def build_params(args, cfg, device, pipeline):
+    """Seeded random params on `device`: int8 over `DECODE_KEYS`
+    (`--int8 decode`) or `ALL_STACK_KEYS` (`--int8 all`), then the v5
+    decode kernel's packing, as the JAX CLI builds them."""
     import torch
 
-    from umgen_tpu.config import DataConfig, InferConfig
-    from umgen_tpu.data.dataset import NuPlanTokenDataset
-    from umgen_tpu.data.pipeline import ScenePipeline
-    from umgen_tpu_torch.models.generate import Generator
-    from umgen_tpu_torch.models.umgen import UMGen, build_buffers
+    from umgen_tpu_torch.models.umgen import build_buffers
     from umgen_tpu_torch.params import init_params
-    from umgen_tpu_torch.runtime.quantize import (pack_fused,
+    from umgen_tpu_torch.runtime.quantize import (ALL_STACK_KEYS, DECODE_KEYS,
+                                                  pack_fused,
                                                   quantize_params_int8)
-    from umgen_tpu_torch.tools.harness import SceneRunner
-
-    check_args(args)
-    cfg = config_from_args(args)
-    device = torch.device(args.device or
-                          ("cuda" if torch.cuda.is_available() else "cpu"))
-    infer_cfg = InferConfig.for_task(args.infer_task,
-                                     args.set_num_new_frames,
-                                     batch_size=args.batch_size,
-                                     seed=args.seed)
-    pipeline = ScenePipeline()
-    model = UMGen(cfg)
-    if not args.debug:
-        print(f"checkpoint {args.ckpt_dir} not found — using random "
-              "weights (debug mode)")
     g = torch.Generator(device=device)
     g.manual_seed(args.seed)
     params = init_params(cfg, g, device,
                          buffers=build_buffers(cfg, pipeline, device=device))
-    params = pack_fused(quantize_params_int8(params))
-    print(NOT_PORTED_OUTPUTS)
+    keys = ALL_STACK_KEYS if args.int8 == "all" else DECODE_KEYS
+    return pack_fused(quantize_params_int8(params, keys))
+
+
+def serving_params(cfg, generator, device, buffers=None):
+    """The JAX bench's serving weights (bench.py:341-352): seeded random
+    params, int8 on every stack, W4A8 OAR weights packed from the raw OAR
+    stack — the fused steps then run w4 / w4mq.  The CLI, like the JAX
+    CLI, never builds these."""
+    from umgen_tpu_torch.params import init_params
+    from umgen_tpu_torch.runtime.quantize import (ALL_STACK_KEYS,
+                                                  pack_fused_w4,
+                                                  quantize_params_int8)
+    raw = init_params(cfg, generator, device, buffers=buffers)
+    return pack_fused_w4(quantize_params_int8(raw, ALL_STACK_KEYS),
+                         raw["oar"])
+
+
+def run_dataset(args, runner, infer_cfg, pipeline) -> None:
+    """The scenes of `--data_root` (or `--synthetic_data N` generated ones)
+    through `runner`, `--batch_size` at a time."""
+    from umgen_tpu.config import DataConfig
+    from umgen_tpu.data.dataset import NuPlanTokenDataset
 
     data_root = args.data_root
     if not os.path.isdir(data_root) and args.synthetic_data > 0:
@@ -192,9 +214,6 @@ def run(args):
     if len(dataset) == 0:
         raise SystemExit(f"no scenes found under {data_root}; use "
                          "--synthetic_data N")
-
-    gen = Generator(model, params, seed=args.seed, device=device)
-    runner = SceneRunner(gen, infer_cfg, output_path=args.output_path)
     n = len(dataset) if args.max_scenes < 0 else min(args.max_scenes,
                                                      len(dataset))
     group = []
@@ -211,7 +230,39 @@ def run(args):
     if runner.timings:
         fps = sum(t["frames_per_sec"] for t in runner.timings) \
             / len(runner.timings)
-        print(f"mean throughput: {fps:.4f} frames/sec on {device}")
+        print(f"mean throughput: {fps:.4f} frames/sec on "
+              f"{runner.gen.device}")
+
+
+def run(args):
+    """Run the evaluation; returns the SceneRunner (timings) and the
+    Generator."""
+    import torch
+
+    from umgen_tpu.config import InferConfig
+    from umgen_tpu.data.pipeline import ScenePipeline
+    from umgen_tpu_torch.models.generate import Generator
+    from umgen_tpu_torch.models.umgen import UMGen
+    from umgen_tpu_torch.tools.harness import SceneRunner
+
+    check_args(args)
+    cfg = config_from_args(args)
+    device = torch.device(args.device or
+                          ("cuda" if torch.cuda.is_available() else "cpu"))
+    infer_cfg = InferConfig.for_task(args.infer_task,
+                                     args.set_num_new_frames,
+                                     batch_size=args.batch_size,
+                                     seed=args.seed)
+    pipeline = ScenePipeline()
+    model = UMGen(cfg)
+    if not args.debug:
+        print(f"checkpoint {args.ckpt_dir} not found — using random "
+              "weights (debug mode)")
+    params = build_params(args, cfg, device, pipeline)
+    print(NOT_PORTED_OUTPUTS)
+    gen = Generator(model, params, seed=args.seed, device=device)
+    runner = SceneRunner(gen, infer_cfg, output_path=args.output_path)
+    run_dataset(args, runner, infer_cfg, pipeline)
     return runner, gen
 
 

@@ -1,16 +1,22 @@
 """Where one cached frame's time goes, on a CUDA card:
 
     python -m umgen_tpu_torch.tools.profile_frame --out chiprun_out/profile
+    python -m umgen_tpu_torch.tools.profile_frame --config serving \
+        --out chiprun_out/profile_serving
 
-Builds the served slice at UMGen_Large width (seeded random weights, int8
-decode weights, bf16 rings, a 20-frame synthetic window), runs the prefill
-frame, then for one cached frame times its three phases on the host clock
-with a synchronize after each: the ego net (`ego_logits_cached`), the TAR
-cascade (`tar_priors_cached`) and the OAR decode (`_finish_frame`).  Then
-`torch.profiler` traces the TAR cascade once and 200 single-token OAR steps
-at cache_len 1000-1199.  Per batch size B it writes the profiler tables
-(`tar_B{B}.txt`, `oar_B{B}.txt`, sorted by device time) and, for all,
-`summary.json`, whose device milliseconds are the traced kernels' self time.
+Builds a served configuration at UMGen_Large width with seeded random
+weights and a 20-frame synthetic window: `slice` (default: int8 decode
+weights, bf16 rings over the whole window, B = 1 and 2) or `serving` (the
+JAX bench's: int8 on every stack, W4A8 OAR weights, 8-frame int4 rings,
+chunked prefill, B = 10).  It runs the first frame (the prefill, or the
+chunked ingest and a cached step), then for one cached frame times its
+three phases on the host clock with a synchronize after each: the ego net
+(`ego_logits_cached`), the TAR cascade (`tar_priors_cached`) and the OAR
+decode (`_finish_frame`).  Then `torch.profiler` traces the TAR cascade
+once and 200 single-token OAR steps at cache_len 1000-1199.  Per batch size
+B it writes the profiler tables (`tar_B{B}.txt`, `oar_B{B}.txt`, sorted by
+device time) and, for all, `summary.json`, whose device milliseconds are
+the traced kernels' self time.
 """
 
 from __future__ import annotations
@@ -49,13 +55,15 @@ def profile_batch(model, ro, params, B: int, generator, out_dir: str,
     from umgen_tpu.data.synthetic import make_token_batch
     cfg, lo = model.config, model.layout
     dev = params["axe"].device
-    cond = make_token_batch(lo, T=cfg.tar_cache_window, B=B, seed=0,
-                            config=cfg)
+    cond = make_token_batch(lo, T=cfg.cond_frame, B=B, seed=0, config=cfg)
     inputs = {m: torch.as_tensor(v, dtype=torch.long, device=dev)
               for m, v in cond.items()}
     res = {}
+
+    first = ro.frame_step_chunked if cfg.chunked_prefill else \
+        ro.frame_step_prefill
     (out, cache), res["prefill_frame_s"] = _synced(
-        lambda: ro.frame_step_prefill(params, inputs, generator))
+        lambda: first(params, inputs, generator))
     sl = lo.slices()
     frame = {m: out.tokens[:, sl[m]][:, None] for m in lo.mod_order}
     abs_frame = cache["frames"]
@@ -94,6 +102,15 @@ def profile_batch(model, ro, params, B: int, generator, out_dir: str,
     return res
 
 
+# configuration name → (CLI flags, default batch sizes)
+CONFIGS = {
+    "slice": (["--kv_dtype", "bfloat16", "--tar_cache_window", "20"],
+              [1, 2]),
+    "serving": (["--kv_dtype", "int4", "--int8", "all", "--chunked_prefill",
+                 "--tar_cache_window", "8"], [10]),
+}
+
+
 def main(argv: Optional[list] = None) -> int:
     import torch
 
@@ -106,16 +123,18 @@ def main(argv: Optional[list] = None) -> int:
 
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default="chiprun_out/profile")
-    p.add_argument("--batch_sizes", type=int, nargs="+", default=[1, 2])
+    p.add_argument("--config", default="slice", choices=sorted(CONFIGS))
+    p.add_argument("--batch_sizes", type=int, nargs="+", default=None,
+                   help="default: 1 2 (slice), 10 (serving)")
     p.add_argument("--model_scale", default="larger")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: no CUDA device", file=sys.stderr)
         return 1
-    args = evaluate.build_parser().parse_args([
-        "--fused_oar", "--kv_dtype", "bfloat16", "--debug",
-        "--model_scale", a.model_scale, "--sample_method", "topk",
-        "--tar_cache_window", "20"])
+    flags, batch_sizes = CONFIGS[a.config]
+    args = evaluate.build_parser().parse_args(
+        ["--fused_oar", "--debug", "--model_scale", a.model_scale,
+         "--sample_method", "topk"] + flags)
     evaluate.check_args(args)
     cfg = evaluate.config_from_args(args)
     dev = torch.device("cuda", 0)
@@ -123,13 +142,17 @@ def main(argv: Optional[list] = None) -> int:
     g.manual_seed(0)
     model = UMGen(cfg)
     ro = Rollout(model)
-    params = pack_fused(quantize_params_int8(init_params(cfg, g, dev)))
+    if a.config == "serving":
+        params = evaluate.serving_params(cfg, g, dev)
+    else:
+        params = pack_fused(quantize_params_int8(init_params(cfg, g, dev)))
     os.makedirs(a.out, exist_ok=True)
     summary = {"nvidia_smi": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip(), "model_scale": a.model_scale}
-    for B in a.batch_sizes:
+        timeout=60).stdout.strip(), "model_scale": a.model_scale,
+        "config": a.config}
+    for B in a.batch_sizes or batch_sizes:
         summary[f"B{B}"] = profile_batch(model, ro, params, B, g, a.out)
         print(f"B={B}: {summary[f'B{B}']}", flush=True)
         torch.cuda.empty_cache()
