@@ -6,9 +6,13 @@ Run from the root of a checkout on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
 
   (a) build the port's CUDA kernels from umgen_tpu_torch/csrc/ (nvcc);
-  (b) hold each kernel against its plain PyTorch version on the card, at
-      the shapes the two served configurations give it (B = 1, 2 and 10
-      scenes), and time both;
+  (b) hold each of the nine kernels against its plain PyTorch version on
+      the card, at the shapes the served configurations give it (B = 1, 2
+      and 10 scenes; the int8 and the int4 OAR cache), and time both; hold
+      the decode steps' prefix attention by itself, through a layer that
+      returns x + the attention output, and check that five wrong int4
+      prefixes fail that; time `scaled_dot_product_attention` beside the
+      flash kernel, for the record only;
   (c) run the UMGen_Large cached video rollout (36-layer stacks, d = 768,
       seeded random weights on the card, one synthetic scene, B = 1, bf16
       rings, int8 decode weights) through the CLI's code path
@@ -29,7 +33,16 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
       Flash, w4 and w4mq must launch, v5 and v5mq must not;
   (f) that configuration at debug scale (one layer a stack, full width),
       B = 2, a 2-frame ring under a 3-frame window, chunked prefill, on the
-      card and on the CPU as in (d).
+      card and on the CPU as in (d);
+  (g) serving-i4, this slice's main path: the serving configuration of (e)
+      with the OAR cache int4 (`--oar_kv_dtype int4`: nibble-packed rows,
+      per-(row, head) scales), at full width and depth, two generated
+      frames.  Flash, w4i4 and w4mqi4 must launch; v5, v5mq, w4, w4mq, v5i4
+      and v5mqi4 must not;
+  (h) slice-i4: the configuration of (c) with the OAR cache int4, B = 1,
+      the prefill frame plus one cached frame.  Flash, v5i4 and v5mqi4 must
+      launch, no other decode kernel;
+  (i) serving-i4 at debug scale on the card and on the CPU, as (f).
 
 Prints each phase's results, the card's name and power limit, a JSON line
 describing the kernels, and as its last line
@@ -82,9 +95,37 @@ FLASH_RTOL_MEAN = 2.0 ** -8
 #   version's order.  The plain step sums its layer norms and the chunk's
 #   own attention in the kernel's order, so every step at cache_len 0 (any
 #   B, any Q) must be bit for bit.
+#   The int4-cache steps (v5i4, w4i4, v5mqi4, w4mqi4) are held to the same h
+#   bounds: only the prefix attention differs (integer logits against the
+#   nibbles, the row scales folded in, in float32 in the plain version's
+#   order), and at cache_len 0 there is no prefix, so they too must be bit
+#   for bit — h, and every layer's new nibbles and scales.  The prep kernel
+#   quantizes a new row exactly as `quantize_kv_int4` does (IEEE 7/s, then
+#   a product), and layer 0's K/V do not depend on the cache: its new
+#   nibbles and scales must be equal at every cache_len (bound 0, where the
+#   int8 grid allows one step at ties).
+#   The prefix attention itself (every kernel, every case with a prefix):
+#   through a layer of random weights the attention is ~0.6% of max |h|, so
+#   the bounds on h above cannot see a wrong prefix attention.  It is read
+#   through layer 0 with the output projection the identity and the MLP's
+#   second product zero, on x scaled by 2^-6: h - x is then the attention
+#   output y (after its int8 quantization for the projection).  Kernel and
+#   plain version round each softmax weight to bf16 under another running
+#   maximum: two roundings of 2^-9 relative per key, which move y by
+#   ~2^-9.3 of its size; that flips the int8 quantization of y (step 1/127
+#   of a row's max) in a few elements, and bf16 rounds y and h.  Bounds: no
+#   element further than one int8 step and two bf16 ulps of the largest,
+#   2e-2 of max |y|, and a mean error within 2^-7 of the mean |y|.  For the
+#   int4 cache the phase also checks that these bounds reject five planted
+#   faults, made through the plain version's inputs at cache_len 1100: the
+#   K and V scale planes swapped, the low nibble read for the heads
+#   >= H/2, a dropped 32-row block, and the V or the K nibbles one grid
+#   step high (an eighth of an omitted -8 bias).
 DECODE_RTOL_1 = 2e-2
 DECODE_RTOL_36 = 0.15
 KV_LAYER0_ATOL = 1
+ATTN_RTOL_MAX = 2e-2
+ATTN_RTOL_MEAN = 2.0 ** -7
 # the model on the card against the plain versions on the CPU (phase d,
 #   one layer per stack at full width): ego logits and TAR priors are bf16
 #   outputs of the same ops, where the flash kernel and cuBLAS round and sum
@@ -100,8 +141,17 @@ REF_RTOL_LOGITS = 5e-2
 #   ~1% of the ring, which moves that frame's logits and values by up to
 #   a step — so the bounds are wider than phase d's.  W4A8 adds no error
 #   beyond W8A8's between the two devices (exact integer products).
+#   Phase i (the int4 OAR cache) keeps these bounds: the OAR cache does not
+#   reach the priors, and a cached OAR row one int4 step apart between the
+#   devices is one key of up to 2200 under the softmax.
 SERVE_RTOL_PRIORS = 5e-2
 SERVE_RTOL_LOGITS = 1e-1
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s,
+# bf16 tensor-core FLOP/s, int8 OP/s — the yardsticks of `bound_ms`
+H100_BYTES_S = 3.35e12
+H100_BF16_FLOPS = 989e12
+H100_INT8_OPS = 1979e12
 
 
 def _time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -117,6 +167,42 @@ def _time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _bound(nbytes: float, ops_s: float) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move (each input read once, each output written once)
+    over the memory rate and `ops_s`, its operations over the peak rate of
+    their type, in seconds."""
+    byte_s = nbytes / H100_BYTES_S
+    return {"bound_ms": 1e3 * max(byte_s, ops_s),
+            "bound_by": "bytes" if byte_s >= ops_s else "operations"}
+
+
+def flash_work(B, Sq, Sk, causal, H=16, Dh=48):
+    """(bytes, seconds of operations at the bf16 peak) of one attention
+    call: q, k, v read and o written in bf16; QKᵀ and PV at 2 FLOPs a
+    multiply-add, over the keys a causal query sees."""
+    nbytes = 2 * B * H * Dh * (2 * Sq + 2 * Sk)
+    pairs = Sq * Sk - (Sq * (Sq - 1) // 2 if causal else 0)
+    return nbytes, 4 * B * H * pairs * Dh / H100_BF16_FLOPS
+
+
+def decode_work(name, L, d, H, B, Q, cl):
+    """(bytes, seconds of operations) of one decode step: every layer's
+    weights and vector block, the cl cached rows of K and V per scene (int8:
+    d bytes a row; int4: d/2 bytes + H float32 scales), the Q new rows
+    written, x read and h written; the four products as int8 operations,
+    the attention's QKᵀ as int8 and its PV as bf16 ones."""
+    w4, i4 = name.startswith("w4"), name.endswith("i4")
+    weights = 6 * d * d + 12 * d * (d // 128) * 4 if w4 else 12 * d * d
+    row = 2 * (d // 2 + 4 * H) if i4 else 2 * d
+    nbytes = L * (weights + 15 * d * 4 + B * (cl + Q) * row) + 4 * B * Q * d
+    keys = cl + (Q + 1) / 2            # prefix + the causal chunk, per query
+    ops_s = L * B * Q * (2 * 12 * d * d / H100_INT8_OPS
+                         + 2 * keys * d / H100_INT8_OPS
+                         + 2 * keys * d / H100_BF16_FLOPS)
+    return nbytes, ops_s
 
 
 def phase_build():
@@ -183,10 +269,10 @@ def phase_flash(dev):
     from umgen_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device=dev)
     g.manual_seed(0)
-    cases = [  # (B, Sq, Sk, causal): prefill window, one frame, batch 2,
-        (20, 2207, 2207, False), (1, 2207, 2207, False),   # map stack,
-        (2, 2207, 2207, False), (1, 1031, 1031, False),    # causal Sq<Sk
-        (1, 1031, 2207, True)]
+    cases = [  # (B, Sq, Sk, causal): prefill window, one frame of 10 scenes
+        (20, 2207, 2207, False), (10, 2207, 2207, False),  # (serving), of
+        (1, 2207, 2207, False), (2, 2207, 2207, False),    # 1 and 2, map
+        (1, 1031, 1031, False), (1, 1031, 2207, True)]     # stack, causal
     rows, worst, planted = [], 0.0, None
     for B, Sq, Sk, causal in cases:
         def rnd(S, n=1):
@@ -214,13 +300,25 @@ def phase_flash(dev):
         ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal), reps)
         pms = _time_ms(lambda: fa.flash_attention_plain(q, k, v, causal),
                        max(1, reps // 4), warmup=1)
+        # the one PyTorch call that computes the same function; timed for
+        # the record, used nowhere in the port ([B, H, S, Dh] views; the
+        # causal mask bottom-right aligned, as the kernel's)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = (torch.ones(Sq, Sk, dtype=torch.bool, device=dev)
+                .tril(Sk - Sq) if causal else None)
+        lib_ms = _time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask), reps)
         rows.append({"B": B, "Sq": Sq, "Sk": Sk, "causal": causal,
                      "max_abs_err": err, "rel_err_max": errs[0],
-                     "rel_err_mean": errs[1], "ms": ms, "plain_ms": pms})
+                     "rel_err_mean": errs[1], "ms": ms, "plain_ms": pms,
+                     "library_ms": lib_ms,
+                     **_bound(*flash_work(B, Sq, Sk, causal))})
         print(f"(b) flash B={B} Sq={Sq} Sk={Sk} causal={causal}: max abs "
               f"err {err:.3g} ({errs[0]:.3g} of max |ref|, mean "
               f"{errs[1]:.3g} of mean |ref|), kernel {ms:.3f} ms, plain "
-              f"{pms:.3f} ms")
+              f"{pms:.3f} ms, scaled_dot_product_attention {lib_ms:.3f} ms, "
+              f"bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})")
     print("(b) flash check against planted faults (max, mean; each must "
           "fail): " + ", ".join(f"{k} {e[0]:.3g} / {e[1]:.3g}"
                                for k, e in planted.items()))
@@ -229,9 +327,12 @@ def phase_flash(dev):
 
 def _decode_params(dev):
     """One random 36-layer OAR stack at the model's width, packed both
-    ways: {"v5": int8 (pack_decode_weights), "w4": W4A8 (pack_fused_w4)}."""
+    ways: {"v5": int8 (pack_decode_weights), "w4": W4A8 (pack_fused_w4)};
+    and its layer 0 made to show its attention, packed the same ways: the
+    output projection the identity without bias, the MLP's second product
+    zero, so that the layer returns x + the attention output."""
     import torch
-    from umgen_tpu.config import ModelConfig
+    from umgen_tpu_torch.config import ModelConfig
     from umgen_tpu_torch.params import _Init
     from umgen_tpu_torch.runtime.quantize import (pack_decode_weights,
                                                   pack_fused_w4,
@@ -251,15 +352,30 @@ def _decode_params(dev):
         b = oar["attn"][lin]["b"]
         oar["attn"][lin]["b"] = (0.02 * torch.randn(b.shape, generator=g,
                                                     device=dev)).to(b.dtype)
-    q = quantize_params_int8({"oar": oar})
-    return cfg, {"v5": pack_decode_weights(q["oar"]),
-                 "w4": pack_fused_w4({}, oar)["oar_packed"]}
+    def first(t):
+        return ({k: first(v) for k, v in t.items()} if isinstance(t, dict)
+                else t[:1].clone())
+
+    vis = first(oar)
+    proj = vis["attn"]["proj"]
+    proj["w"] = torch.eye(cfg.n_embd, device=dev, dtype=proj["w"].dtype)[None]
+    proj["b"] = torch.zeros_like(proj["b"])
+    vis["mlp"]["proj"]["w"] = torch.zeros_like(vis["mlp"]["proj"]["w"])
+
+    def packs(tree):
+        q = quantize_params_int8({"oar": tree})
+        return {"v5": pack_decode_weights(q["oar"]),
+                "w4": pack_fused_w4({}, tree)["oar_packed"]}
+
+    return cfg, packs(oar), packs(vis)
 
 
 # (kernel, B, Q, cache_len): the bf16-ring slice's shapes (B = 1, 2), the
 # serving configuration's (B = 10: Q = 6 pose prefill, Q = 2 segment
 # pushes, Q = 1 steps), at an empty, a half-full and a full cache; v5 at
-# B = 10 also half-full, beside w4 at the serving shape
+# B = 10 also half-full, beside w4 at the serving shape.  The int4-cache
+# kernels at both configurations' shapes, and Q = 8 at B = 1, the widest
+# chunk the entry admits (Q·H = 128).
 DECODE_CASES = (
     [("v5", B, 1, cl) for B in (1, 2) for cl in (0, 1100, 2206)]
     + [("v5", 10, 1, 0), ("v5", 10, 1, 1100)]
@@ -267,68 +383,186 @@ DECODE_CASES = (
        ("v5mq", 2, 2, 2205), ("v5mq", 10, 6, 0)]
     + [("w4", B, 1, cl) for B in (1, 10) for cl in (0, 1100, 2207)]
     + [("w4mq", B, Q, cl) for B in (1, 10) for Q in (2, 6)
-       for cl in (0, 1100, 2208 - Q)])
+       for cl in (0, 1100, 2208 - Q)]
+    + [(f"{k}i4", B, 1, cl) for k in ("v5", "w4") for B in (1, 10)
+       for cl in (0, 1100, 2207)]
+    + [(f"{k}mqi4", B, Q, cl) for k in ("v5", "w4") for B in (1, 10)
+       for Q in (2, 6) for cl in (0, 1100, 2208 - Q)]
+    + [(f"{k}mqi4", 1, 8, 1100) for k in ("v5", "w4")])
+
+
+def _random_cache(g, dev, int4, L, B, S, d, H):
+    """[kv_k, kv_v] int8 in ±100 (±6.25 on the 1/16 grid), or the int4
+    cache [kv_k, kv_v, k_scale, v_scale]: nibbles in ±7 (-8 never occurs),
+    scales in [0.5, 3.5)."""
+    import torch
+    if not int4:
+        return list(torch.randint(-100, 101, (2, L, B, S, d), generator=g,
+                                  device=dev, dtype=torch.int8))
+    packed = []
+    for _ in range(2):
+        lo, hi = torch.randint(-7, 8, (2, L, B, S, d // 2), generator=g,
+                               device=dev, dtype=torch.int8)
+        packed.append((hi << 4) | (lo & 0xF))
+    sc = 0.5 + 3 * torch.rand(2, L, B, S, H, generator=g, device=dev)
+    return packed + [sc[0], sc[1]]
+
+
+def _new_row_err(got, ref, int4, rows):
+    """Largest difference between the rows `rows` of two cache tensors, per
+    layer [L]: int8 values or int4 nibbles in grid steps, scales absolute."""
+    from umgen_tpu_torch.ops.decode_kernel import unpack_kv_int4
+    a, b = got[:, :, rows], ref[:, :, rows]
+    if a.dtype.is_floating_point:
+        d = (a - b).abs()
+    elif int4:
+        d = (unpack_kv_int4(a) - unpack_kv_int4(b)).abs()
+    else:
+        d = (a.int() - b.int()).abs()
+    return d.amax(dim=(1, 2, 3)).float()
+
+
+def attn_ok(errs) -> bool:
+    return (all(math.isfinite(e) for e in errs)
+            and errs[0] <= ATTN_RTOL_MAX and errs[1] <= ATTN_RTOL_MEAN)
+
+
+def planted_i4_faults(cache, cl):
+    """Wrong int4 prefixes for the plain version, as {name: (cache,
+    cache_len)}, from the one-layer cache [kv_k, kv_v, k_scale, v_scale]."""
+    import torch
+    from umgen_tpu_torch.ops.decode_kernel import unpack_kv_int4
+    kp, vp, ks, vs = cache
+
+    def low_twice(t):          # the low nibble in the high nibble's place
+        return (t << 4) | (t & 0xF)
+
+    def step_up(t):
+        q = torch.clamp(unpack_kv_int4(t) + 1, max=7)
+        lo, hi = q.split(q.shape[-1] // 2, dim=-1)
+        return ((hi << 4) | (lo & 0xF)).to(torch.int8)
+
+    def drop(t, a=512, n=32):  # rows [a, a + n) gone, the row count kept
+        return torch.cat([t[:, :, :a], t[:, :, a + n:], t[:, :, :n]], dim=2)
+
+    return {"k_v_scales_swapped": ([kp, vp, vs, ks], cl),
+            "low_nibble_for_high_heads": ([low_twice(kp), low_twice(vp),
+                                           ks, vs], cl),
+            "dropped_32_row_block": ([drop(t) for t in cache], cl - 32),
+            "v_nibbles_one_step_high": ([kp, step_up(vp), ks, vs], cl),
+            "k_nibbles_one_step_high": ([step_up(kp), vp, ks, vs], cl)}
 
 
 def phase_decode(dev):
     import torch
     from umgen_tpu_torch.ops import decode_kernel as dk
-    cfg, packs = _decode_params(dev)
+    cfg, packs, visible = _decode_params(dev)
     L, d, H = cfg.n_oar_layer, cfg.n_embd, cfg.n_head
     S = 2208
     g = torch.Generator(device=dev)
     g.manual_seed(2)
-    rows = {"v5": [], "v5mq": [], "w4": [], "w4mq": []}
+    rows = {}
     for name, B, Q, cl in DECODE_CASES:
-        packed = packs["w4" if name.startswith("w4") else "v5"]
-        kv = torch.randint(-100, 101, (2, L, B, S, d), generator=g,
-                           device=dev, dtype=torch.int8)
+        int4 = name.endswith("i4")
+        packing = "w4" if name.startswith("w4") else "v5"
+        packed, vis = packs[packing], visible[packing]
+        cache = _random_cache(g, dev, int4, L, B, S, d, H)
         x = torch.randn(B, Q, d, generator=g, device=dev).to(torch.bfloat16)
-        kk, vk = kv[0].clone(), kv[1].clone()
-        kp, vp = kv[0].clone(), kv[1].clone()
+        ck = [t.clone() for t in cache]       # the kernel's caches
+        cp = cache                            # the plain version's
         fn = getattr(dk, f"fused_decode_step_{name}")
+
+        def plain(pk, c, xin=x, at=cl):
+            return dk.decode_step_plain(pk, xin, c[0], c[1], at, H, *c[2:])
+
+        def layer0(c):
+            return [t[:1].clone() for t in c]
+
+        # the prefix attention itself: h - x of the layer that shows it
+        attn, faults = (0.0, 0.0), {}
+        if cl:
+            xs = (x.float() * 2.0 ** -6).to(torch.bfloat16)
+
+            def readings(ref):
+                d, r = (y - ref).abs(), ref.abs()
+                return ((d.max() / r.max()).item(),
+                        (d.mean() / r.mean()).item())
+
+            y = fn(vis, xs, *layer0(ck), cl, n_head=H)[0].float() - xs.float()
+            attn = readings(plain(vis, layer0(cp), xs).float() - xs.float())
+            if int4 and cl == 1100:
+                faults = {k: readings(plain(vis, c, xs, at).float()
+                                      - xs.float())
+                          for k, (c, at) in
+                          planted_i4_faults(layer0(cp), cl).items()}
+            passed = [k for k, e in faults.items() if attn_ok(e)]
+            if not attn_ok(attn) or passed:
+                raise AssertionError(
+                    f"{name} B={B} Q={Q} cache_len={cl}: attention output "
+                    f"max err {attn[0]:.3g} of max |y| (bound "
+                    f"{ATTN_RTOL_MAX:.3g}), mean {attn[1]:.3g} of mean |y| "
+                    f"(bound {ATTN_RTOL_MEAN:.3g}); planted faults that "
+                    f"pass: {passed} of {faults}")
+
         one = {k: v[:1] for k, v in packed.items()}
-        h1, _, _ = fn(one, x, kk[:1].clone(), vk[:1].clone(), cl, n_head=H)
-        h1ref = dk.decode_step_plain(one, x, kp[:1].clone(), vp[:1].clone(),
-                                     cl, H)
-        h, _, _ = fn(packed, x, kk, vk, cl, n_head=H)
-        href = dk.decode_step_plain(packed, x, kp, vp, cl, H)
+        h1 = fn(one, x, *(t[:1].clone() for t in ck), cl, n_head=H)[0]
+        h1ref = plain(one, [t[:1].clone() for t in cp])
+        h = fn(packed, x, *ck, cl, n_head=H)[0]
+        href = plain(packed, cp)
         torch.cuda.synchronize()
         rel1 = ((h1.float() - h1ref.float()).abs().max()
                 / h1ref.float().abs().max()).item()
         err = (h.float() - href.float()).abs().max().item()
         rel = err / href.float().abs().max().item()
-        dkv = torch.stack([
-            (kk[:, :, cl:cl + Q].int() - kp[:, :, cl:cl + Q].int()).abs(),
-            (vk[:, :, cl:cl + Q].int() - vp[:, :, cl:cl + Q].int()).abs()])
-        dkv0 = dkv[:, 0].max().item()
+        new = slice(cl, cl + Q)
+        dkv = torch.stack([_new_row_err(a, b, int4, new)
+                           for a, b in zip(ck[:2], cp[:2])])     # [2, L]
+        dsc = (torch.stack([_new_row_err(a, b, int4, new)
+                            for a, b in zip(ck[2:], cp[2:])])
+               if int4 else torch.zeros(2, L, device=dev))
+        dkv0, dsc0 = dkv[:, 0].max().item(), dsc[:, 0].max().item()
         untouched = all(torch.equal(a[:, :, :cl], b[:, :, :cl])
                         and torch.equal(a[:, :, cl + Q:], b[:, :, cl + Q:])
-                        for a, b in ((kk, kp), (vk, vp)))
+                        for a, b in zip(ck, cp))
         exact = cl == 0
+        atol0 = 0 if int4 else KV_LAYER0_ATOL
         if not (math.isfinite(rel) and rel1 <= DECODE_RTOL_1
-                and rel <= DECODE_RTOL_36 and dkv0 <= KV_LAYER0_ATOL
+                and rel <= DECODE_RTOL_36 and dkv0 <= atol0 and dsc0 == 0
                 and untouched
-                and (not exact or (err == 0 and dkv.max().item() == 0))):
+                and (not exact or (err == 0 and dkv.max().item() == 0
+                                   and dsc.max().item() == 0))):
             raise AssertionError(
                 f"{name} B={B} Q={Q} cache_len={cl}: h rel err {rel1} at 1 "
                 f"layer, {rel} at {L} (must be 0 here: {exact}); K/V row err "
-                f"{dkv0} at layer 0, {dkv.max().item()} at any; rest of the "
-                f"caches untouched: {untouched}")
-        ms = _time_ms(lambda: fn(packed, x, kk, vk, cl, n_head=H), 20)
-        pms = _time_ms(lambda: dk.decode_step_plain(packed, x, kp, vp, cl,
-                                                    H), 2, warmup=1)
-        rows[name].append({"B": B, "Q": Q, "cache_len": cl,
-                           "max_abs_err": err, "rel_err": rel,
-                           "rel_err_1_layer": rel1,
-                           "kv_max_err_all_layers": dkv.max().item(),
-                           "ms": ms, "plain_ms": pms})
+                f"{dkv0} at layer 0, {dkv.max().item()} at any, scales "
+                f"{dsc0} / {dsc.max().item()}; rest of the caches "
+                f"untouched: {untouched}")
+        ms = _time_ms(lambda: fn(packed, x, *ck, cl, n_head=H), 20)
+        # the plain step is no yardstick of speed: one run, already warm
+        pms = _time_ms(lambda: plain(packed, cp), 1, warmup=0)
+        rows.setdefault(name, []).append({
+            "B": B, "Q": Q, "cache_len": cl, "max_abs_err": err,
+            "rel_err": rel, "rel_err_1_layer": rel1,
+            "kv_max_err_all_layers": dkv.max().item(),
+            "scale_max_err_all_layers": dsc.max().item(),
+            "attn_rel_err_max": attn[0], "attn_rel_err_mean": attn[1],
+            "attn_planted_faults": faults,
+            "ms": ms, "plain_ms": pms, "library_ms": None,
+            **_bound(*decode_work(name, L, d, H, B, Q, cl))})
         print(f"(b) {name} B={B} Q={Q} cache_len={cl}: h rel err "
               f"{rel1:.3g} (1 layer) / {rel:.3g} ({L} layers, max abs "
               f"{err:.3g}), new K/V rows max err layer 0 {dkv0} / all "
-              f"layers {dkv.max().item()}, kernel {ms:.3f} ms, plain "
-              f"{pms:.1f} ms")
-        del kv, kk, vk, kp, vp
+              f"layers {dkv.max().item()}"
+              + (f", scales {dsc0} / {dsc.max().item():.3g}" if int4 else "")
+              + (f", attention output max {attn[0]:.3g} / mean {attn[1]:.3g}"
+                 if cl else "")
+              + ("; planted faults (max / mean, each must fail): "
+                 + ", ".join(f"{k} {e[0]:.3g} / {e[1]:.3g}"
+                             for k, e in faults.items()) if faults else "")
+              + f", kernel {ms:.3f} ms, plain {pms:.1f} ms, bound "
+              f"{rows[name][-1]['bound_ms']:.4f} ms "
+              f"({rows[name][-1]['bound_by']})")
+        del cache, ck, cp
     return rows
 
 
@@ -340,7 +574,7 @@ def _card_vs_cpu(dev, cfg, params, drive, B, T, tag, rtol_priors,
     token stream; the tokens must be equal, and the ego logits, TAR priors
     and every decision's logits must agree within the bounds."""
     import torch
-    from umgen_tpu.data.synthetic import make_token_batch
+    from umgen_tpu_torch.data.synthetic import make_token_batch
     from umgen_tpu_torch.models.rollout import Rollout
     from umgen_tpu_torch.models.sampling import greedy_sample
     from umgen_tpu_torch.models.umgen import UMGen
@@ -417,7 +651,7 @@ def phase_reference(dev, scale="debug"):
     greedy, every stack one layer deep at the scale's full width, card
     against CPU."""
     import torch
-    from umgen_tpu.config import ModelConfig
+    from umgen_tpu_torch.config import ModelConfig
     from umgen_tpu_torch.params import init_params
     from umgen_tpu_torch.runtime.quantize import (pack_fused,
                                                   quantize_params_int8)
@@ -438,27 +672,29 @@ def phase_reference(dev, scale="debug"):
     return dict(res, scale=scale)
 
 
-def phase_serving_reference(dev):
+def phase_serving_reference(dev, tag="f", oar_cache_dtype="int8"):
     """The serving configuration at debug scale, B = 2, a 3-frame window
     into 2-frame int4 rings by chunked prefill (frames 0-1 ingested, frame
-    2 through a cached step, as Generator does), card against CPU."""
+    2 through a cached step, as Generator does), card against CPU; the OAR
+    cache int8 (phase f) or int4 (phase i)."""
     import torch
-    from umgen_tpu.config import ModelConfig
+    from umgen_tpu_torch.config import ModelConfig
     from umgen_tpu_torch.tools.evaluate import serving_params
     cfg = ModelConfig(sample_method="greedy", tar_mode="temporal_cache",
-                      tar_cache_dtype="int4", oar_cache_dtype="int8",
+                      tar_cache_dtype="int4",
+                      oar_cache_dtype=oar_cache_dtype,
                       fused_oar_kernel=True, chunked_prefill=True,
                       tar_cache_window=2).scaled("debug")
     g = torch.Generator(device=dev)
     g.manual_seed(4)
     params = serving_params(cfg, g, dev)
     if "wqp4" not in params["oar_packed"]:
-        raise AssertionError("phase f needs W4A8 OAR weights")
+        raise AssertionError(f"phase {tag} needs W4A8 OAR weights")
 
     def drive(ro, p, inputs, device):
         return ro.frame_step_chunked(p, inputs, torch.Generator(device))[0]
 
-    return _card_vs_cpu(dev, cfg, params, drive, B=2, T=3, tag="f",
+    return _card_vs_cpu(dev, cfg, params, drive, B=2, T=3, tag=tag,
                         rtol_priors=SERVE_RTOL_PRIORS,
                         rtol_logits=SERVE_RTOL_LOGITS)
 
@@ -474,25 +710,27 @@ def _reset_launches():
             counts[k] = 0
 
 
-def _launches(must, must_not=()):
-    """The kernels' launch counts since the reset; each of `must` has to
-    have launched, none of `must_not`."""
+def _launches(decode):
+    """The kernels' launch counts since the reset.  Flash and the decode
+    kernels named in `decode` (suffixes of fused_decode_step_) have to have
+    launched, and no other decode kernel."""
     from umgen_tpu_torch.ops import decode_kernel as dk
     from umgen_tpu_torch.ops import flash_attention as fa
     launches = {**fa.LAUNCHES, **dk.LAUNCHES}
+    must = ["flash_attention"] + [f"fused_decode_step_{k}" for k in decode]
     for k in must:
         if launches[k] <= 0:
             raise AssertionError(f"{k} never launched on the main path")
-    for k in must_not:
-        if launches[k]:
-            raise AssertionError(f"{k} launched {launches[k]} times on a "
-                                 "path that must not run it")
+    for k, n in launches.items():
+        if k not in must and n:
+            raise AssertionError(f"{k} launched {n} times on a path that "
+                                 "must not run it")
     return launches
 
 
 def _check_tokens(out_dir, scenes, frames):
     import numpy as np
-    from umgen_tpu.layout import CONTENT_LEN
+    from umgen_tpu_torch.layout import CONTENT_LEN
     outs = _load_tokens(out_dir)
     if len(outs) != scenes:
         raise AssertionError(f"{len(outs)} token files, {scenes} scenes")
@@ -505,25 +743,28 @@ def _check_tokens(out_dir, scenes, frames):
                 raise AssertionError(f"{mod}: tokens outside [0, {n})")
 
 
-def phase_rollout(dev, out_dir):
+def phase_rollout(dev, out_dir, tag="c", new_frames=3, oar_int4=False):
+    """The bf16-ring slice at UMGen_Large width, B = 1, through the CLI's
+    code path: the prefill frame and `new_frames` - 1 cached ones; the OAR
+    cache int8 (phase c: v5, v5mq) or int4 (phase h: v5i4, v5mqi4)."""
     from umgen_tpu_torch.tools import evaluate
     args = evaluate.build_parser().parse_args([
         "--infer_task", "video", "--model_scale", "larger", "--fused_oar",
         "--kv_dtype", "bfloat16", "--int8", "decode", "--debug",
         "--synthetic_data", "1", "--max_scenes", "1",
-        "--set_num_new_frames", "3", "--batch_size", "1",
+        "--set_num_new_frames", str(new_frames), "--batch_size", "1",
         "--sample_method", "topk", "--output_path", out_dir,
-        "--device", str(dev)])
+        "--device", str(dev)]
+        + (["--oar_kv_dtype", "int4"] if oar_int4 else []))
     _reset_launches()
     t0 = time.perf_counter()
     runner, gen = evaluate.run(args)
     secs = time.perf_counter() - t0
-    launches = _launches(("flash_attention", "fused_decode_step_v5",
-                          "fused_decode_step_v5mq"),
-                         ("fused_decode_step_w4", "fused_decode_step_w4mq"))
-    _check_tokens(out_dir, scenes=1, frames=23)
+    launches = _launches(("v5i4", "v5mqi4") if oar_int4 else ("v5", "v5mq"))
+    _check_tokens(out_dir, scenes=1, frames=20 + new_frames)
     frame_s = list(gen.frame_seconds)
-    print(f"(c) UMGen_Large cached rollout B=1: per-frame seconds "
+    print(f"({tag}) UMGen_Large cached rollout B=1, "
+          f"{'int4' if oar_int4 else 'int8'} OAR cache: per-frame seconds "
           f"{', '.join(f'{s:.2f}' for s in frame_s)} (first = prefill + "
           f"decode); launches {launches}; whole run {secs:.1f} s")
     return {"frame_seconds": frame_s, "launches": launches,
@@ -538,21 +779,24 @@ SERVING_FLAGS = [
     "--sample_method", "topk"]
 
 
-def phase_serving(dev, out_dir):
+def phase_serving(dev, out_dir, tag="e", oar_int4=False):
     """The JAX bench's serving configuration (bench.py:150-190, 254-360)
-    at UMGen_Large width, B = 10, through Generator / SceneRunner."""
+    at UMGen_Large width, B = 10, through Generator / SceneRunner; the OAR
+    cache int8 (phase e: w4, w4mq) or int4 (phase g: w4i4, w4mqi4)."""
     import torch
-    from umgen_tpu.config import InferConfig
-    from umgen_tpu.data.pipeline import ScenePipeline
+    from umgen_tpu_torch.config import InferConfig
+    from umgen_tpu_torch.data.pipeline import ScenePipeline
     from umgen_tpu_torch.models.generate import Generator
     from umgen_tpu_torch.models.umgen import UMGen, build_buffers
     from umgen_tpu_torch.tools import evaluate
     from umgen_tpu_torch.tools.harness import SceneRunner
     args = evaluate.build_parser().parse_args(
-        SERVING_FLAGS + ["--output_path", out_dir, "--device", str(dev)])
+        SERVING_FLAGS + ["--output_path", out_dir, "--device", str(dev)]
+        + (["--oar_kv_dtype", "int4"] if oar_int4 else []))
     evaluate.check_args(args)
     cfg = evaluate.config_from_args(args)
-    want = {"tar_cache_dtype": "int4", "oar_cache_dtype": "int8",
+    want = {"tar_cache_dtype": "int4",
+            "oar_cache_dtype": "int4" if oar_int4 else "int8",
             "fused_oar_kernel": True, "chunked_prefill": True,
             "tar_cache_window": 8, "n_oar_layer": 36, "n_embd": 768}
     got = {k: getattr(cfg, k) for k in want}
@@ -576,15 +820,14 @@ def phase_serving(dev, out_dir):
     t0 = time.perf_counter()
     evaluate.run_dataset(args, runner, infer_cfg, pipeline)
     secs = time.perf_counter() - t0
-    launches = _launches(("flash_attention", "fused_decode_step_w4",
-                          "fused_decode_step_w4mq"),
-                         ("fused_decode_step_v5", "fused_decode_step_v5mq"))
+    launches = _launches(("w4i4", "w4mqi4") if oar_int4 else ("w4", "w4mq"))
     peak = torch.cuda.max_memory_allocated()
     _check_tokens(out_dir, scenes=10, frames=22)
     [timing] = runner.timings
     frame_s = list(gen.frame_seconds)
-    print(f"(e) serving configuration, UMGen_Large, B=10, 8-frame int4 "
-          f"rings, chunked prefill of 20 frames, W4A8 OAR: per-frame seconds "
+    print(f"({tag}) serving configuration, UMGen_Large, B=10, 8-frame int4 "
+          f"rings, chunked prefill of 20 frames, W4A8 OAR, "
+          f"{'int4' if oar_int4 else 'int8'} OAR cache: per-frame seconds "
           f"{', '.join(f'{s:.2f}' for s in frame_s)} (first = chunked "
           f"prefill + decode); {timing['frames_per_sec']:.4f} frames/s over "
           f"{timing['scenes']} scenes x {timing['frames']} frames; peak "
@@ -606,14 +849,21 @@ def _load_tokens(out_dir):
     return outs
 
 
+def _check_stands_alone():
+    """The port imports neither jax nor the JAX package."""
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "umgen_tpu"))
+    if foreign:
+        raise AssertionError(f"the port imported {foreign[:5]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import umgen_tpu_torch  # noqa: F401  (sets the TF32 switches)
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    _check_stands_alone()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -621,6 +871,17 @@ def main() -> int:
     report = {"nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     t_start = time.perf_counter()
+    try:
+        return _run_phases(dev, smi, report, t_start)
+    finally:     # whatever was measured before a failure is kept
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
+                  "w") as f:
+            json.dump(report, f, indent=1)
+
+
+def _run_phases(dev, smi, report, t_start) -> int:
+    import torch
     report["build"] = phase_build()
     report["flash"], flash_err, report["flash_planted"] = phase_flash(dev)
     report["decode"] = phase_decode(dev)
@@ -634,49 +895,61 @@ def main() -> int:
         report["serving"] = phase_serving(dev, out_dir)
     torch.cuda.empty_cache()
     report["serving_reference"] = phase_serving_reference(dev)
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+        report["serving_i4"] = phase_serving(dev, out_dir, tag="g",
+                                             oar_int4=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+        report["rollout_i4"] = phase_rollout(dev, out_dir, tag="h",
+                                             new_frames=2, oar_int4=True)
+    torch.cuda.empty_cache()
+    report["serving_i4_reference"] = phase_serving_reference(
+        dev, tag="i", oar_cache_dtype="int4")
+    _check_stands_alone()
     report["seconds"] = time.perf_counter() - t_start
     print(f"all phases {report['seconds']:.1f} s")
 
     def pick(rows, **kw):
         return next(r for r in rows if all(r[k] == v for k, v in kw.items()))
 
-    def entry(name, source, replaces, launches, rows, at):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": max(r["max_abs_err"] for r in rows),
-                "ms": at["ms"], "plain_ms": at["plain_ms"]}
+    def entry(kind, line, launches, **at):
+        """One decode kernel's line: its times and bound at the main
+        path's shape `at`, its launches on the path that runs it."""
+        name = f"fused_decode_step_{kind}"
+        r = pick(dec[kind], **at)
+        return {"name": name, "route": "cuda",
+                "source": "umgen_tpu_torch/csrc/decode_step.cu",
+                "replaces": f"umgen_tpu/ops/decode_kernel.py:{line}",
+                "launches": launches[name],
+                "max_abs_err": max(x["max_abs_err"] for x in dec[kind]),
+                **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}}
 
     dec = report["decode"]
-    slice1 = report["rollout"]["launches"]      # the bf16-ring slice (c)
-    serve = report["serving"]["launches"]       # the serving path (e)
-    f1 = pick(report["flash"], B=1, Sq=2207, causal=False)
-    src = "umgen_tpu_torch/csrc/decode_step.cu"
+    slice1 = report["rollout"]["launches"]        # the bf16-ring slice (c)
+    serve = report["serving"]["launches"]         # the serving path (e)
+    serve4 = report["serving_i4"]["launches"]     # serving-i4 (g)
+    slice4 = report["rollout_i4"]["launches"]     # slice-i4 (h)
+    # serving-i4 calls flash once a TAR block on its 10 scenes' frame
+    f1 = pick(report["flash"], B=10, Sq=2207, causal=False)
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "umgen_tpu_torch/csrc/flash_attention.cu",
          "replaces": "umgen_tpu/ops/flash_attention.py:79",
-         "launches": serve["flash_attention"], "max_abs_err": flash_err,
-         "ms": f1["ms"], "plain_ms": f1["plain_ms"]},
-        entry("fused_decode_step_v5", src,
-              "umgen_tpu/ops/decode_kernel.py:1363", slice1, dec["v5"],
-              pick(dec["v5"], B=1, cache_len=1100)),
-        entry("fused_decode_step_v5mq", src,
-              "umgen_tpu/ops/decode_kernel.py:3411", slice1, dec["v5mq"],
-              pick(dec["v5mq"], B=1, Q=6)),
-        entry("fused_decode_step_w4", src,
-              "umgen_tpu/ops/decode_kernel.py:2034", serve, dec["w4"],
-              pick(dec["w4"], B=10, cache_len=1100)),
-        entry("fused_decode_step_w4mq", src,
-              "umgen_tpu/ops/decode_kernel.py:3488", serve, dec["w4mq"],
-              pick(dec["w4mq"], B=10, Q=6, cache_len=0)),
+         "launches": serve4["flash_attention"], "max_abs_err": flash_err,
+         **{k: f1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")}},
+        entry("v5", 1363, slice1, B=1, cache_len=1100),
+        entry("v5mq", 3411, slice1, B=1, Q=6),
+        entry("w4", 2034, serve, B=10, cache_len=1100),
+        entry("w4mq", 3488, serve, B=10, Q=6, cache_len=0),
+        entry("v5i4", 2588, slice4, B=1, cache_len=1100),
+        entry("v5mqi4", 3451, slice4, B=1, Q=6, cache_len=0),
+        entry("w4i4", 2883, serve4, B=10, cache_len=1100),
+        entry("w4mqi4", 3523, serve4, B=10, Q=6, cache_len=0),
     ]
     report["kernels"] = kernels
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
-              "w") as f:
-        json.dump(report, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

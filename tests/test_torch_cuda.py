@@ -135,6 +135,135 @@ def test_w4_kernel_matches_plain(cuda_device, B, Q, cache_len):
     _check_step(w4, name, B, Q, cache_len, cuda_device, cache_len == 0)
 
 
+def _check_step_i4(packed, name, B, Q, cache_len, dev, exact, S=2208):
+    """One step of an int4-cache wrapper against decode_step_plain on a
+    random cache quantized by `quantize_kv_int4`: h within 2e-2 of its scale
+    (one layer); the new rows' nibbles and scales written in place and —
+    one layer sees identical inputs on both sides — equal bit for bit; the
+    rest of the caches untouched."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    L = packed["vec"].shape[0]
+    rows = 0.5 * torch.randn(2, L, B, S, 768, generator=g, device=dev)
+    (kp, ks), (vp, vs) = (tdk.quantize_kv_int4(r, 16) for r in rows)
+    x = torch.randn(B, Q, 768, generator=g, device=dev).bfloat16()
+    got = [t.clone() for t in (kp, vp, ks, vs)]
+    n0 = tdk.LAUNCHES[name]
+    out = getattr(tdk, name)(packed, x, *got, cache_len, n_head=16)
+    assert tdk.LAUNCHES[name] == n0 + 1
+    assert all(o is t for o, t in zip(out[1:], got))
+    ref = tdk.decode_step_plain(packed, x, kp, vp, cache_len, 16, ks, vs)
+    torch.cuda.synchronize()
+    rel = ((out[0].float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    assert math.isfinite(rel) and rel <= 2e-2
+    if exact:
+        assert torch.equal(out[0], ref)
+    for g_, want in zip(got, (kp, vp, ks, vs)):
+        assert torch.equal(g_, want)
+    new = ks[:, :, cache_len:cache_len + Q]
+    assert new.min() > 0        # the step did write the new rows' scales
+
+
+@pytest.mark.parametrize("kind", ["v5", "w4"])
+@pytest.mark.parametrize("B,Q,cache_len", [(1, 1, 0), (10, 1, 0), (2, 6, 0),
+                                           (10, 6, 0), (2, 1, 900),
+                                           (1, 2, 1030), (1, 8, 2200)])
+def test_i4_kernel_matches_plain(cuda_device, kind, B, Q, cache_len):
+    """v5i4 / v5mqi4 / w4i4 / w4mqi4, one layer at the model's width: the
+    prep kernel's nibbles and scales equal `quantize_kv_int4`'s bit for bit,
+    h bit for bit at cache_len 0 and within a few bf16 ulps with a prefix
+    (the kernel folds the prefix in row by row, the plain version in the
+    reference's blocks)."""
+    packs = dict(zip(("v5", "w4"), _oar_packs(cuda_device)))
+    name = f"fused_decode_step_{kind}{'mq' if Q > 1 else ''}i4"
+    _check_step_i4(packs[kind], name, B, Q, cache_len, cuda_device,
+                   cache_len == 0)
+
+
+def _visible_packs(dev):
+    """`_oar_packs` of one layer that shows its attention: the output
+    projection the identity without bias, the MLP's second product zero, so
+    that the layer returns x + the attention output."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    oar = _Init(g, dev, torch.bfloat16).block_oar(768, 1)
+    b = oar["attn"]["qkv"]["b"]
+    oar["attn"]["qkv"]["b"] = (0.02 * torch.randn(b.shape, generator=g,
+                                                  device=dev)).bfloat16()
+    oar["attn"]["proj"]["w"] = torch.eye(768, device=dev).bfloat16()[None]
+    oar["mlp"]["proj"]["w"] = torch.zeros_like(oar["mlp"]["proj"]["w"])
+    v5 = pack_decode_weights(quantize_params_int8({"oar": oar})["oar"])
+    return {"v5": v5, "w4": pack_fused_w4({}, oar)["oar_packed"]}
+
+
+@pytest.mark.parametrize("kind", ["v5", "w4"])
+@pytest.mark.parametrize("B,Q,cache_len", [(2, 1, 900), (1, 6, 1100),
+                                           (10, 2, 2206)])
+def test_i4_prefix_attention_matches_plain(cuda_device, kind, B, Q,
+                                           cache_len):
+    """The int4 prefix attention itself, which is ~0.6% of max |h| through
+    a layer of random weights: through the layer that shows it, on a small
+    x, h - x is the attention output y.  Kernel and plain version round the
+    softmax weights to bf16 under another running maximum, which flips the
+    int8 quantization of y (step 1/127 of a row's max) in a few elements:
+    no element beyond 2e-2 of max |y|, mean error within 2^-7 of mean |y|.
+    Two wrong prefixes given to the plain version — the scale planes
+    swapped, the low nibble read for the heads >= H/2 — must fail that."""
+    dev = cuda_device
+    packed = _visible_packs(dev)[kind]
+    name = f"fused_decode_step_{kind}{'mq' if Q > 1 else ''}i4"
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = 0.5 * torch.randn(2, 1, B, 2208, 768, generator=g, device=dev)
+    (kp, ks), (vp, vs) = (tdk.quantize_kv_int4(r, 16) for r in rows)
+    x = (2.0 ** -6 * torch.randn(B, Q, 768, generator=g, device=dev)
+         ).bfloat16()
+
+    def plain(*cache):
+        return tdk.decode_step_plain(packed, x, *(t.clone() for t in
+                                                  cache[:2]), cache_len, 16,
+                                     *(t.clone() for t in cache[2:])
+                                     ).float() - x.float()
+
+    def ok(y, ref):
+        d, r = (y - ref).abs(), ref.abs()
+        return (d.max() <= 2e-2 * r.max()
+                and d.mean() <= 2.0 ** -7 * r.mean()).item()
+
+    y = getattr(tdk, name)(packed, x, *(t.clone() for t in
+                                        (kp, vp, ks, vs)), cache_len,
+                           n_head=16)[0].float() - x.float()
+    assert ok(y, plain(kp, vp, ks, vs))
+    assert not ok(y, plain(kp, vp, vs, ks))
+    assert not ok(y, plain((kp << 4) | (kp & 0xF), (vp << 4) | (vp & 0xF),
+                           ks, vs))
+
+
+def test_i4_kernel_takes_segment_views(cuda_device):
+    """A prefix view of the packed cache and of the scale planes (as
+    `Rollout._sliced` hands out): the kernel takes their strides, and the
+    new rows land in the full tensors."""
+    v5, _ = _oar_packs(cuda_device, layers=2)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    rows = 0.5 * torch.randn(2, 2, 3, 2208, 768, generator=g,
+                             device=cuda_device)
+    (kp, ks), (vp, vs) = (tdk.quantize_kv_int4(r, 16) for r in rows)
+    x = torch.randn(3, 1, 768, generator=g, device=cuda_device).bfloat16()
+    full = [t.clone() for t in (kp, vp, ks, vs)]
+    views = [t[:, :, :1032] for t in full]
+    assert not views[0].is_contiguous()
+    h, *_ = tdk.fused_decode_step_v5i4(v5, x, *views, 1000, n_head=16)
+    ref_c = [t[:, :, :1032].clone() for t in (kp, vp, ks, vs)]
+    ref = tdk.decode_step_plain(v5, x, ref_c[0], ref_c[1], 1000, 16,
+                                ref_c[2], ref_c[3])
+    torch.cuda.synchronize()
+    rel = ((h.float() - ref.float()).abs().max() / ref.float().abs().max())
+    assert rel.item() <= 2e-2
+    for f, r, orig in zip(full, ref_c, (kp, vp, ks, vs)):
+        assert torch.equal(f[0, :, :1032], r[0])          # layer 0: equal
+        assert not torch.equal(f[:, :, 1000], orig[:, :, 1000])
+        assert torch.equal(f[:, :, 1032:], orig[:, :, 1032:])
+        assert torch.equal(f[:, :, :1000], orig[:, :, :1000])
+
+
 def test_plain_divides_as_the_kernel(cuda_device):
     """The plain decode step's divisions by constants (layer norm's 1/n,
     the quantizers' 1/127, GELU's 1/sqrt(2)) are IEEE divisions on the

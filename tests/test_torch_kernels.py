@@ -158,7 +158,8 @@ def test_decode_plain_matches_jax(interpret, Q, cache_len):
         assert diff.max() <= 1
         assert (diff == 0).mean() > 0.999
     assert tdk.LAUNCHES == {f"fused_decode_step_{v}": 0
-                            for v in ("v5", "v5mq", "w4", "w4mq")}
+                            for v in ("v5", "v5mq", "w4", "w4mq", "v5i4",
+                                      "v5mqi4", "w4i4", "w4mqi4")}
 
 
 def test_decode_plain_blocking_matches_reference():

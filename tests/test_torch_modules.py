@@ -260,7 +260,7 @@ def test_samplers():
 @pytest.mark.parametrize("flags,item", [
     (["--tar_mode", "recompute"], "Recompute mode"),
     (["--kv_dtype", "float8_e4m3fn"], "TAR rings"),
-    (["--oar_kv_dtype", "int4"], "int4 OAR KV cache"),
+    (["--oar_kv_dtype", "bfloat16"], "Unfused and bf16 OAR caches"),
     (["--kv_dtype", "int2"], "TAR rings"),
     (["--speculative_k", "4"], "Speculative decoding"),
     (["--dp", "2"], "Multi-GPU"),
@@ -289,12 +289,19 @@ def test_cli_rejects_flags_outside_the_port(flags, item):
      "--sample_method", "greedy", "--model_scale", "tiny"],
     ["--kv_dtype", "int4", "--oar_kv_dtype", "int8", "--chunked_prefill",
      "--tar_cache_window", "2", "--model_scale", "debug"],
+    ["--kv_dtype", "bfloat16", "--int8", "decode", "--oar_kv_dtype", "int4"],
+    ["--kv_dtype", "int4", "--int8", "all", "--chunked_prefill",
+     "--tar_cache_window", "8", "--batch_size", "10", "--oar_kv_dtype",
+     "int4"],
 ])
 def test_cli_serves_flag_sets_as_jax_maps_them(flags):
     """The served flag sets (int4 rings, int8 on every stack, chunked
-    prefill, a ring window, any batch) pass check_args and give the
-    ModelConfig the JAX CLI gives them, field for field (with --kv_dtype
-    int4 its OAR cache stays int8)."""
+    prefill, a ring window, any batch, the int4 OAR cache) pass check_args
+    and give the ModelConfig the JAX CLI gives them, field for field (the
+    port's own ModelConfig class, so compared by fields; with --kv_dtype
+    int4 its OAR cache stays int8 unless --oar_kv_dtype int4 asks)."""
+    import dataclasses
+
     from umgen_tpu.tools import evaluate as jevaluate
     argv = ["--fused_oar", "--debug"] + flags
     args = evaluate.build_parser().parse_args(argv)
@@ -302,5 +309,18 @@ def test_cli_serves_flag_sets_as_jax_maps_them(flags):
     got = evaluate.config_from_args(args)
     want = jevaluate.config_from_args(jevaluate.build_parser().parse_args(
         argv))
-    assert got == want
-    assert got.oar_cache_dtype == "int8"
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.oar_cache_dtype == ("int4" if "--oar_kv_dtype" in flags
+                                   and "int4" == flags[-1] else "int8")
+
+
+def test_cli_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """Without --device the CLI takes the card, and where there is none it
+    raises before it builds anything: it never carries on on the CPU
+    unasked (`--device cpu` is how the tests ask)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = evaluate.build_parser().parse_args(
+        ["--fused_oar", "--kv_dtype", "bfloat16", "--debug"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate.run(args)

@@ -470,7 +470,8 @@ def serving():
             "cond": {m: torch.as_tensor(v, dtype=torch.long)
                      for m, v in cond.items()},
             "layout": lo, "labels": _decision_labels(lo), "T": T,
-            "jstates": jstates, "jres": jres}
+            "jstates": jstates, "jres": jres, "cfg": cfg,
+            "jparams_fused": jparams_fused}
 
 
 def _serving_frame(sv, run, frame, ulps, gap_ulps):
@@ -565,6 +566,101 @@ def test_serving_slice_chained_matches_jax(serving, two_threads):
                                                _clone(tcache), g), 2,
         CHAINED_ULPS, CHAINED_GAP_ULPS)
     compare_q4_rings(sv["jstates"][T + 1], tcache, "chained, frame 2")
+
+
+def _count_i4_steps(monkeypatch):
+    """Counts the port's calls of its int4-cache decode wrappers."""
+    from umgen_tpu_torch.ops import decode_kernel as tdk
+    hits = {}
+    for kind in ("v5i4", "v5mqi4", "w4i4", "w4mqi4"):
+        real = getattr(tdk, f"fused_decode_step_{kind}")
+
+        def counted(*a, _real=real, _kind=kind, **k):
+            hits[_kind] = hits.get(_kind, 0) + 1
+            return _real(*a, **k)
+        monkeypatch.setattr(tdk, f"fused_decode_step_{kind}", counted)
+    return hits
+
+
+@pytest.mark.parametrize("config", ["slice-i4", "serving-i4"])
+def test_int4_oar_slice_matches_jax(config, serving, two_threads,
+                                    monkeypatch):
+    """One frame of each configuration with the OAR cache int4
+    (`oar_cache_dtype="int4"`, fused kernels on) at the tiny scale, int8
+    (W8A8) OAR weights — JAX packs W4A8 only at d = 768, where
+    tests/test_torch_i4.py holds w4i4 / w4mqi4.  slice-i4: the prefill
+    frame on bf16 rings through `frame_step_prefill`.  serving-i4: int4
+    rings, int8 on every stack, the cached step on the window's last frame
+    from JAX's rings after the chunked ingest (the route of
+    test_serving_slice_matches_jax).  JAX decodes through v5i4 / v5mqi4 in
+    interpret mode, compiled with EXACT; the port replays JAX's decisions
+    through the plain versions: 2196 single-token steps and 3 multi-row
+    pushes, the tokens equal, ego logits and priors within 4 bf16 ulps of
+    their scale and every decision's logit within GAP_ULPS — the bounds of
+    the int8-cache slices: the two sides quantize the same rows on the same
+    grid, so the coarser cache adds no error between them beyond a nibble
+    at a rounding tie."""
+    if config == "serving-i4":
+        sv = serving
+        cfg = sv["cfg"].replace(oar_cache_dtype="int4")
+        jparams_fused, params = sv["jparams_fused"], sv["params"]
+        tin, T = sv["cond"], sv["T"]
+        j_ego, j_pri, _, _ = sv["jres"][0]
+        last_bbox = jnp.asarray(tin["bbox3d"][:, T - 1].numpy())
+
+        def run(ro):
+            return ro.frame_step_cached(
+                params, {m: v[:, T - 1:] for m, v in tin.items()},
+                _ring_state(sv["jstates"][T - 1]), torch.Generator())
+    else:
+        cfg = _cfg().replace(oar_cache_dtype="int4")
+        jmodel = JUMGen(cfg)
+        jparams = j_quantize(jmodel.init_params(jax.random.PRNGKey(0)))
+        jparams_fused = dict(jparams, oar_packed=jdk.pack_fused_oar(
+            jparams["oar"]))
+        params = pack_fused(from_jax(jparams))
+        cond = make_token_batch(jmodel.layout, T=2, B=2, seed=0, config=cfg)
+        jin = {m: jnp.asarray(v) for m, v in cond.items()}
+        tin = {m: torch.as_tensor(v, dtype=torch.long)
+               for m, v in cond.items()}
+        j_ego, jcache = jax.jit(jmodel.prefill_ego_cache)(jparams, jin, {})
+        shifted = dict(jin, pose=jnp.concatenate(
+            [jin["pose"], jnp.argmax(j_ego, axis=-1).astype(jnp.int32)[
+                :, None]], axis=1)[:, 1:])
+        j_pri = jax.jit(jmodel.prefill_tar_caches)(jparams, shifted,
+                                                   jcache)["prior_seq"]
+        last_bbox = jin["bbox3d"][:, -1]
+
+        def run(ro):
+            return ro.frame_step_prefill(params, tin, torch.Generator())
+
+    jro = JRollout(JUMGen(cfg))
+    rec = _Recorder(jro)
+    rec.add(j_ego)
+    j_tok = jnp.argmax(j_ego, axis=-1).astype(jnp.int32)
+    B = j_tok.shape[0]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jdk.pl, "pallas_call",
+                   ft.partial(pl.pallas_call, interpret=True))
+        jout = _exact_jit(jro._finish_frame)(
+            jparams_fused, j_pri, j_tok, last_bbox,
+            jnp.zeros((B, 61), bool), jax.random.PRNGKey(0))
+        jax.effects_barrier()
+    lo = jro.layout
+    labels = _decision_labels(lo)
+
+    ro = Rollout(UMGen(cfg))
+    replay = _Replay(ro, rec.calls)
+    hits = _count_i4_steps(monkeypatch)
+    tout, _ = run(ro)
+    assert hits == {"v5i4": lo.seq_len - 5 - 2 * 3, "v5mqi4": 3}, hits
+    seen = {"ego logits": _close(tout.ego_logits, j_ego, "ego logits"),
+            "priors": _close(tout.prior_seq, j_pri, "priors"),
+            "decision logits": _check_decisions(rec.calls, replay.seen,
+                                                labels, frame=1)}
+    np.testing.assert_array_equal(tout.tokens.numpy(),
+                                  np.asarray(jout.tokens))
+    print(f"{config}, deviations from JAX in bf16 ulps: {seen}")
 
 
 class _Stop(Exception):

@@ -7,9 +7,10 @@ module layout so each module's counterpart is found by path:
     umgen_tpu/ops/flash_attention ->  umgen_tpu_torch/ops/flash_attention.py
     ...
 
-It imports `torch` and never `jax`.  From the JAX package it only reuses the
-framework-free numpy modules (`umgen_tpu.config`, `umgen_tpu.layout`,
-`umgen_tpu.data.*`).  The TPU's Pallas kernels on the slice's path are
+It imports `torch`, never `jax`, and nothing of the JAX package: it keeps its
+own copies of the framework-free numpy modules it needs (`config.py`,
+`layout.py`, `data/*`, each its counterpart with only the imports
+rewritten).  The TPU's Pallas kernels on the slice's path are
 hand-written CUDA kernels (`csrc/*.cu`, built with nvcc for sm_90a at first
 use and bound through ctypes); every kernel wrapper keeps a plain PyTorch
 version beside it, which serves CPU tensors and the tests.

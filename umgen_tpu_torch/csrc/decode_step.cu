@@ -6,7 +6,12 @@
 //     `_mq_call` (1 < Q <= 128/H): int8 weights, entry `umgen_decode_step`;
 //   * `fused_decode_step_w4` (Q = 1, `_kernel_w4`) and
 //     `fused_decode_step_w4mq` (`_mq_call` with w4=True): W4A8 weights,
-//     entry `umgen_decode_step_w4`.
+//     entry `umgen_decode_step_w4`;
+//   * `fused_decode_step_v5i4` / `fused_decode_step_v5mqi4` and
+//     `fused_decode_step_w4i4` / `fused_decode_step_w4mqi4` (`_kernel_v5i4`,
+//     `_kernel_w4i4`, `_mq_call` with int4=True): the same steps on the
+//     nibble-packed int4 KV cache, entries `umgen_decode_step_i4` and
+//     `umgen_decode_step_w4_i4`.
 // Per layer: LN1 → QKV → attention over the int8 KV prefix plus the chunk's
 // own rows (causal within the chunk) → proj + residual → LN2 → fc → GELU
 // (Abramowitz & Stegun erf) → proj + residual.  Activations are quantized
@@ -23,6 +28,21 @@
 // residual stream rounds to bf16 after every add.  The chunk's K/V rows are
 // written into the caches at `cache_len` on the fixed 1/16 int8 grid — in
 // place (the JAX package writes the cache back functionally).
+//
+// The int4 cache stores a row's H·Dh values as H·Dh/2 bytes in the halves
+// layout — byte j holds value j in its low nibble and value j + H·Dh/2 in its
+// high nibble, so heads hh and hh + H/2 share the bytes [hh·Dh, (hh+1)·Dh) —
+// with one float32 scale s = max|x| + 1e-12 per (row, head): q = clip(round(
+// x·(7/s)), ±7).  The prefix attention never dequantizes: a (query, head)
+// thread sign-extends its head's nibbles into int8 lanes (the W4 GEMV's
+// __vsub4 trick), takes __dp4a against the int8 query, and folds the scales
+// into the logit, logit = li·ks[row, head]·(sq·scale/7), and into the softmax
+// weight, pv = bf16(p·vs[row, head]·(1/7)), which multiplies the value
+// nibbles as they are.  New rows are quantized from their bf16 rounding by
+// the step's prep kernel: one thread owns a pair of heads that share bytes,
+// so every byte has one writer.  The int4 rows halve the KV stream (2 x 384 B
+// of nibbles + 2 x 64 B of scales per cached row per layer per scene at
+// d = 768, H = 16, against 2 x 768 B).
 //
 // What bounds it on the H100: a step reads every layer's weights — int8
 // 7.1 MB a layer at d = 768 (255 MB for 36 layers); W4A8 (768·3072 +
@@ -229,6 +249,21 @@ __device__ __forceinline__ int nibbles_hi(int w) {
   return __vsub4(((w >> 4) & 0x0F0F0F0F) ^ 0x08080808, 0x08080808);
 }
 
+// 16 bytes of an int4 cache row: the chosen nibble x of each byte as the
+// unsigned value x ^ 8 = q + 8 in [1, 15] (q the stored value in [-7, 7]),
+// one per int8 lane.  The attention takes its products against q + 8 and
+// removes the 8 afterwards, which is exact in integers and costs a shift, an
+// and and an xor a word where a per-byte sign extension (__vsub4, emulated
+// on this card) costs a dozen instructions.
+__device__ __forceinline__ int biased_nibbles(int w, int shift) {
+  return ((w >> shift) & 0x0F0F0F0F) ^ 0x08080808;
+}
+
+__device__ __forceinline__ int4 biased_nibbles(int4 w, int shift) {
+  return make_int4(biased_nibbles(w.x, shift), biased_nibbles(w.y, shift),
+                   biased_nibbles(w.z, shift), biased_nibbles(w.w, shift));
+}
+
 // W4A8 GEMV over all R rows.  wt [N, K/2] output-major: column n's byte
 // j·128 + i holds input row (2j)·128 + i in its low nibble and (2j+1)·128 + i
 // in its high nibble; sc [N, K/128] its group scales.  One warp per output
@@ -282,14 +317,31 @@ __global__ void gemv_w4_kernel(const int8_t* __restrict__ aq,
   }
 }
 
+// One layer's OAR KV cache.  int8 (ks == null): rows of H·Dh bytes on the
+// fixed 1/16 grid.  int4 (ks != null): rows of H·Dh/2 nibble-pair bytes in
+// the halves layout plus the scale planes ks / vs, [S, H] float32 per scene.
+struct Cache {
+  int8_t* k;
+  int8_t* v;
+  long long batch_stride;     // bytes between scenes
+  float* ks;
+  float* vs;
+  long long sc_batch_stride;  // floats between scenes
+};
+
+__device__ __forceinline__ int quant_i4(float xb, float inv) {
+  return (int)fminf(fmaxf(rintf(xb * inv), -7.f), 7.f);
+}
+
 // Per scene b (one block): store the chunk's K/V rows into the caches at
-// cache_len (bf16-rounded, x16, round, clip), quantize the chunk's queries
-// with one scale per scene, and fold the intra-chunk causal attention
-// (query i over chunk keys j <= i) into the flash state (m0, den0, acc0).
+// cache_len (int8: bf16-rounded, x16, round, clip; int4: per (row, head)
+// absmax scale of the bf16-rounded values, nibbles packed in the halves
+// layout), quantize the chunk's queries with one scale per scene, and fold
+// the intra-chunk causal attention (query i over chunk keys j <= i) into the
+// flash state (m0, den0, acc0).  cq = scale/16 (int8) or scale/7 (int4).
 __global__ void attn_prep_kernel(const float* __restrict__ qkv, int Q, int H,
-                                 int Dh, int8_t* kc, int8_t* vc,
-                                 long long batch_stride, int cl, float scale,
-                                 float c16, int8_t* __restrict__ qp,
+                                 int Dh, Cache c, int cl, float scale,
+                                 float cq, int8_t* __restrict__ qp,
                                  float* __restrict__ factor,
                                  float* __restrict__ m0,
                                  float* __restrict__ den0,
@@ -300,23 +352,52 @@ __global__ void attn_prep_kernel(const float* __restrict__ qkv, int Q, int H,
   const float* base = qkv + (long long)b * Q * 3 * HD;
   float amax = 0.f;
   for (int i = threadIdx.x; i < Q * HD; i += blockDim.x) {
-    const int qi = i / HD, c = i % HD;
+    const int qi = i / HD, e = i % HD;
     const float* row = base + (long long)qi * 3 * HD;
-    const long long dst = b * batch_stride + (long long)(cl + qi) * HD + c;
-    kc[dst] = (int8_t)fminf(fmaxf(rintf(bf16r(row[HD + c]) * 16.f), -127.f),
-                            127.f);
-    vc[dst] =
-        (int8_t)fminf(fmaxf(rintf(bf16r(row[2 * HD + c]) * 16.f), -127.f),
-                      127.f);
-    amax = fmaxf(amax, fabsf(row[c]));
+    if (c.ks == nullptr) {
+      const long long dst =
+          b * c.batch_stride + (long long)(cl + qi) * HD + e;
+      c.k[dst] = (int8_t)fminf(
+          fmaxf(rintf(bf16r(row[HD + e]) * 16.f), -127.f), 127.f);
+      c.v[dst] = (int8_t)fminf(
+          fmaxf(rintf(bf16r(row[2 * HD + e]) * 16.f), -127.f), 127.f);
+    }
+    amax = fmaxf(amax, fabsf(row[e]));
+  }
+  if (c.ks != nullptr) {
+    // task t: (row qi, head pair hp = heads hp and hp + H/2, K or V)
+    const int H2 = H / 2;
+    for (int t = threadIdx.x; t < Q * H; t += blockDim.x) {
+      const int isv = t & 1, hp = (t >> 1) % H2, qi = (t >> 1) / H2;
+      const float* lo = base + (long long)qi * 3 * HD + (isv + 1) * HD +
+                        hp * Dh;
+      const float* hi = lo + H2 * Dh;
+      float s_lo = 0.f, s_hi = 0.f;
+      for (int d = 0; d < Dh; ++d) {
+        s_lo = fmaxf(s_lo, fabsf(bf16r(lo[d])));
+        s_hi = fmaxf(s_hi, fabsf(bf16r(hi[d])));
+      }
+      s_lo = s_lo + 1e-12f;
+      s_hi = s_hi + 1e-12f;
+      const float i_lo = 7.f / s_lo, i_hi = 7.f / s_hi;
+      int8_t* dst = (isv ? c.v : c.k) + b * c.batch_stride +
+                    (long long)(cl + qi) * (HD / 2) + hp * Dh;
+      for (int d = 0; d < Dh; ++d)
+        dst[d] = (int8_t)((quant_i4(bf16r(hi[d]), i_hi) * 16) |
+                          (quant_i4(bf16r(lo[d]), i_lo) & 0xF));
+      float* sd = (isv ? c.vs : c.ks) + b * c.sc_batch_stride +
+                  (long long)(cl + qi) * H;
+      sd[hp] = s_lo;
+      sd[hp + H2] = s_hi;
+    }
   }
   const float sq = block_max(amax, red) / 127.f + 1e-12f;
   for (int i = threadIdx.x; i < Q * HD; i += blockDim.x) {
-    const int qi = i / HD, c = i % HD;
-    qp[(long long)b * Q * HD + i] = quant_i8(base[(long long)qi * 3 * HD + c],
+    const int qi = i / HD, e = i % HD;
+    qp[(long long)b * Q * HD + i] = quant_i8(base[(long long)qi * 3 * HD + e],
                                              sq);
   }
-  if (threadIdx.x == 0) factor[b] = sq * c16;
+  if (threadIdx.x == 0) factor[b] = sq * cq;
   for (int pr = threadIdx.x; pr < Q * H; pr += blockDim.x) {
     const int qi = pr / H, hh = pr % H;
     const float* qrow = base + (long long)qi * 3 * HD + hh * Dh;
@@ -343,14 +424,18 @@ __global__ void attn_prep_kernel(const float* __restrict__ qkv, int Q, int H,
   }
 }
 
-// Split attention over the int8 prefix: block (blk, b) takes cache rows
+// Split attention over the cached prefix: block (blk, b) takes cache rows
 // [blk·32, min(cl, blk·32 + 32)); thread pr = (query, head) keeps an online
-// softmax over those rows and writes its partial (max, sum, Σ p·v).
-template <int DH>
+// softmax over those rows and writes its partial (max, sum, Σ p·v).  I4: the
+// head's DH bytes hold its nibbles (low for hh < H/2, high otherwise) beside
+// those of head hh ± H/2; they are taken as q + 8 in int8 lanes
+// (biased_nibbles), the integer logit is Σ (q + 8)·a − 8·Σ a with the
+// query's Σ a taken once, and the row's scales enter the logit and the
+// softmax weight.
+template <int DH, bool I4>
 __global__ void __launch_bounds__(ATT_THREADS)
-attn_split_kernel(const int8_t* __restrict__ kc,
-                  const int8_t* __restrict__ vc, long long batch_stride,
-                  int cl, int Q, int H, const int8_t* __restrict__ qp,
+attn_split_kernel(Cache c, int cl, int Q, int H,
+                  const int8_t* __restrict__ qp,
                   const float* __restrict__ factor, int nblk,
                   float* __restrict__ pm, float* __restrict__ pl,
                   float* __restrict__ pacc) {
@@ -367,36 +452,65 @@ attn_split_kernel(const int8_t* __restrict__ kc,
 #pragma unroll
   for (int w = 0; w < W; ++w) qv[w] = qsrc[w];
   const float f = factor[b];
+  const int shift = (I4 && hh >= H / 2) ? 4 : 0;
+  int qsum8 = 0;                    // 8·Σ of the head's int8 query values
+  if (I4) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      qsum8 = __dp4a(0x08080808, qv[w].x, qsum8);
+      qsum8 = __dp4a(0x08080808, qv[w].y, qsum8);
+      qsum8 = __dp4a(0x08080808, qv[w].z, qsum8);
+      qsum8 = __dp4a(0x08080808, qv[w].w, qsum8);
+    }
+  }
+  const int row_bytes = I4 ? HD / 2 : HD;
+  const int head_off = I4 ? (hh % (H / 2)) * DH : hh * DH;
+  const float inv7 = (float)(1.0 / 7.0);
   float m = -CUDART_INF_F, l = 0.f, acc[DH];
 #pragma unroll
   for (int d = 0; d < DH; ++d) acc[d] = 0.f;
   const int s0 = blk * SPLIT_ROWS, s1 = min(cl, s0 + SPLIT_ROWS);
   for (int s = s0; s < s1; ++s) {
-    const long long off = b * batch_stride + (long long)s * HD + hh * DH;
-    const int4* krow = reinterpret_cast<const int4*>(kc + off);
-    int li = 0;
+    const long long off =
+        b * c.batch_stride + (long long)s * row_bytes + head_off;
+    const int4* krow = reinterpret_cast<const int4*>(c.k + off);
+    int li = -qsum8;
 #pragma unroll
     for (int w = 0; w < W; ++w) {
-      const int4 kv = __ldg(krow + w);
+      int4 kv = __ldg(krow + w);
+      if (I4) kv = biased_nibbles(kv, shift);
       li = __dp4a(kv.x, qv[w].x, li);
       li = __dp4a(kv.y, qv[w].y, li);
       li = __dp4a(kv.z, qv[w].z, li);
       li = __dp4a(kv.w, qv[w].w, li);
     }
-    const float logit = (float)li * f;
+    float logit, vscale = 0.f;
+    if (I4) {
+      const long long so = b * c.sc_batch_stride + (long long)s * H + hh;
+      logit = (float)li * __ldg(c.ks + so) * f;
+      vscale = __ldg(c.vs + so);
+    } else {
+      logit = (float)li * f;
+    }
     const float mnew = fmaxf(m, logit);
     const float corr = expf(m - mnew);
     const float p = expf(logit - mnew);
-    const float pb = bf16r(p);
+    // int8: bf16(p) against v/16; int4: the value scale folded into the
+    // weight, bf16(p·vs·(1/7)) against the nibbles
+    const float pb = I4 ? bf16r(p * vscale * inv7) : bf16r(p);
+    const float vgrid = I4 ? 1.f : 0.0625f;
     l = l * corr + p;
-    const int4* vrow = reinterpret_cast<const int4*>(vc + off);
+    const int4* vrow = reinterpret_cast<const int4*>(c.v + off);
 #pragma unroll
     for (int w = 0; w < W; ++w) {
-      const int4 vv = __ldg(vrow + w);
+      int4 vv = __ldg(vrow + w);
+      if (I4) vv = biased_nibbles(vv, shift);
       const int8_t* ve = reinterpret_cast<const int8_t*>(&vv);
+      const int bias = I4 ? 8 : 0;
 #pragma unroll
       for (int j = 0; j < 16; ++j)
-        acc[w * 16 + j] = acc[w * 16 + j] * corr + pb * ((float)ve[j] * 0.0625f);
+        acc[w * 16 + j] =
+            acc[w * 16 + j] * corr + pb * ((float)(ve[j] - bias) * vgrid);
     }
     m = mnew;
   }
@@ -498,18 +612,15 @@ size_t workspace_layout(int B, int Q, int d, int H, int S, char* base,
   return off;
 }
 
-template <int DH>
-cudaError_t attention(const Workspace& w, int B, int Q, int H, int8_t* kc,
-                      int8_t* vc, long long batch_stride, int cl,
-                      float scale, float c16, cudaStream_t st) {
-  attn_prep_kernel<<<B, 256, 0, st>>>(w.qkv, Q, H, DH, kc, vc, batch_stride,
-                                      cl, scale, c16, w.qp, w.factor, w.m0,
-                                      w.den0, w.acc0);
+template <int DH, bool I4>
+cudaError_t attention(const Workspace& w, int B, int Q, int H, const Cache& c,
+                      int cl, float scale, float cq, cudaStream_t st) {
+  attn_prep_kernel<<<B, 256, 0, st>>>(w.qkv, Q, H, DH, c, cl, scale, cq, w.qp,
+                                      w.factor, w.m0, w.den0, w.acc0);
   const int nblk = (cl + SPLIT_ROWS - 1) / SPLIT_ROWS;
   if (nblk > 0)
-    attn_split_kernel<DH><<<dim3(nblk, B), ATT_THREADS, 0, st>>>(
-        kc, vc, batch_stride, cl, Q, H, w.qp, w.factor, nblk, w.pm, w.pl,
-        w.pacc);
+    attn_split_kernel<DH, I4><<<dim3(nblk, B), ATT_THREADS, 0, st>>>(
+        c, cl, Q, H, w.qp, w.factor, nblk, w.pm, w.pl, w.pacc);
   const size_t smem = (size_t)Q * H * DH * sizeof(float);
   attn_combine_kernel<DH><<<B, ATT_THREADS, smem, st>>>(
       Q, H, nblk, w.m0, w.den0, w.acc0, w.pm, w.pl, w.pacc, w.aq, w.sa);
@@ -552,14 +663,25 @@ cudaError_t gemv(const Workspace& w, bool w4, int R, const int8_t* wt,
   return cudaSuccess;
 }
 
+// The whole cache of a step: layer l's part starts l·layer_stride bytes (and
+// l·sc_layer_stride floats) into the arrays of `c`.
+struct StepCache {
+  Cache c;
+  long long layer_stride;
+  long long sc_layer_stride;
+};
+
+// cq: scale/16 for the int8 cache, scale/7 for the int4 one
 int run_step(const void* x, void* out, int B, int Q, int d, int H, int L,
-             const float* vec, const Products& P, void* kc, void* vc,
-             long long layer_stride, long long batch_stride, int S, int cl,
-             float scale, float c16, void* workspace, cudaStream_t st) {
+             const float* vec, const Products& P, const StepCache& kv, int S,
+             int cl, float scale, float cq, void* workspace,
+             cudaStream_t st) {
   const int R = B * Q, Dh = d / H;
+  const bool i4 = kv.c.ks != nullptr;
   if (Q > 8 || Q * H > ATT_THREADS || cl + Q > S)
     return (int)cudaErrorInvalidValue;
   if (Dh != 16 && Dh != 48) return (int)cudaErrorInvalidValue;
+  if (i4 && (H % 2 || kv.c.vs == nullptr)) return (int)cudaErrorInvalidValue;
   if (P.w4 && (d % 256 || 4 * d > 256 * W4_MAX_PAIRS))
     return (int)cudaErrorInvalidValue;
   Workspace w;
@@ -570,8 +692,13 @@ int run_step(const void* x, void* out, int B, int Q, int d, int H, int L,
       (const __nv_bfloat16*)x, w.h, R * d);
   for (int l = 0; l < L; ++l) {
     const float* vl = vec + (long long)l * V;
-    int8_t* kl = (int8_t*)kc + l * layer_stride;
-    int8_t* vlc = (int8_t*)vc + l * layer_stride;
+    Cache c = kv.c;
+    c.k += l * kv.layer_stride;
+    c.v += l * kv.layer_stride;
+    if (i4) {
+      c.ks += l * kv.sc_layer_stride;
+      c.vs += l * kv.sc_layer_stride;
+    }
     const int8_t* wt[4];
     const float* sc[4];
     // int8: per-column scales qkv_ws, proj_ws, fc_ws, pj_ws of the vector
@@ -586,10 +713,12 @@ int run_step(const void* x, void* out, int B, int Q, int d, int H, int L,
     cudaError_t e = gemv(w, P.w4, R, wt[0], sc[0], d, 3 * d, vl + 5 * d,
                          EPI_STORE, w.qkv, st);
     if (e != cudaSuccess) return (int)e;
-    e = Dh == 48 ? attention<48>(w, B, Q, H, kl, vlc, batch_stride, cl,
-                                 scale, c16, st)
-                 : attention<16>(w, B, Q, H, kl, vlc, batch_stride, cl,
-                                 scale, c16, st);
+    if (Dh == 48)
+      e = i4 ? attention<48, true>(w, B, Q, H, c, cl, scale, cq, st)
+             : attention<48, false>(w, B, Q, H, c, cl, scale, cq, st);
+    else
+      e = i4 ? attention<16, true>(w, B, Q, H, c, cl, scale, cq, st)
+             : attention<16, false>(w, B, Q, H, c, cl, scale, cq, st);
     if (e != cudaSuccess) return (int)e;
     e = gemv(w, P.w4, R, wt[1], sc[1], d, d, vl + 9 * d, EPI_RESID, w.h, st);
     if (e != cudaSuccess) return (int)e;
@@ -610,6 +739,50 @@ int run_step(const void* x, void* out, int B, int Q, int d, int H, int L,
   return (int)cudaGetLastError();
 }
 
+// int8 weights (runtime/quantize.py pack_decode_weights): wqkv [L, 3d, d],
+// wproj [L, d, d], wfc [L, 4d, d], wpj [L, d, 4d] int8, each stored
+// output-major (input dim contiguous); their per-column scales sit in vec.
+Products int8_products(int d, const void* wqkv, const void* wproj,
+                       const void* wfc, const void* wpj) {
+  const long long dd = (long long)d * d;
+  return Products{false,
+                  {(const int8_t*)wqkv, (const int8_t*)wproj,
+                   (const int8_t*)wfc, (const int8_t*)wpj},
+                  {3 * dd, dd, 4 * dd, 4 * dd},
+                  {nullptr, nullptr, nullptr, nullptr},
+                  {0, 0, 0, 0}};
+}
+
+// W4A8 weights (runtime/quantize.py w4_kernel_layout): w4k [L, 6d²] int8
+// holds per layer the packed qkv [3d, d/2], proj [d, d/2], fc [4d, d/2] and
+// pj [d, 2d] blocks, each output-major; s4k [L, 12·d·G] f32 (G = d/128)
+// their group scales qkv [3d, G], proj [d, G], fc [4d, G], pj [d, 4G].
+Products w4_products(int d, const void* w4k, const void* s4k) {
+  const long long dd = (long long)d * d, G = d / 128;
+  const int8_t* wb = (const int8_t*)w4k;
+  const float* sb = (const float*)s4k;
+  return Products{true,
+                  {wb, wb + 3 * dd / 2, wb + 2 * dd, wb + 4 * dd},
+                  {6 * dd, 6 * dd, 6 * dd, 6 * dd},
+                  {sb, sb + 3 * d * G, sb + 4 * d * G, sb + 8 * d * G},
+                  {12 * d * G, 12 * d * G, 12 * d * G, 12 * d * G}};
+}
+
+StepCache int8_cache(void* kc, void* vc, long long layer_stride,
+                     long long batch_stride) {
+  return StepCache{
+      Cache{(int8_t*)kc, (int8_t*)vc, batch_stride, nullptr, nullptr, 0},
+      layer_stride, 0};
+}
+
+StepCache int4_cache(void* kc, void* vc, long long layer_stride,
+                     long long batch_stride, void* ks, void* vs,
+                     long long sc_layer_stride, long long sc_batch_stride) {
+  return StepCache{Cache{(int8_t*)kc, (int8_t*)vc, batch_stride, (float*)ks,
+                         (float*)vs, sc_batch_stride},
+                   layer_stride, sc_layer_stride};
+}
+
 }  // namespace
 
 extern "C" const char* umgen_cuda_error_string(int err) {
@@ -623,12 +796,10 @@ extern "C" long long umgen_decode_workspace_bytes(int B, int Q, int d, int H,
 }
 
 // One decode step for x [B, Q, d] bf16 → out [B, Q, d] bf16 (before the
-// final layer norm), int8 weights.  Packed per-layer weights
-// (runtime/quantize.py pack_decode_weights): vec [L, 15d] f32 (ln1, ln2,
-// qkv_ws, qkv_b, proj_ws, proj_b, fc_ws, pj_ws), wqkv [L, 3d, d], wproj
-// [L, d, d], wfc [L, 4d, d], wpj [L, d, 4d] int8, each stored output-major
-// (input dim contiguous).  Caches kc/vc: int8 rows of d bytes; layer l,
-// scene b, row s at l·layer_stride + b·batch_stride + s·d.
+// final layer norm), int8 weights (int8_products) with vec [L, 15d] f32
+// (ln1, ln2, qkv_ws, qkv_b, proj_ws, proj_b, fc_ws, pj_ws).  Caches kc/vc:
+// int8 rows of d bytes; layer l, scene b, row s at l·layer_stride +
+// b·batch_stride + s·d.  c16 = scale/16.
 extern "C" int umgen_decode_step(const void* x, void* out, int B, int Q,
                                  int d, int H, int L, const void* vec,
                                  const void* wqkv, const void* wproj,
@@ -637,23 +808,14 @@ extern "C" int umgen_decode_step(const void* x, void* out, int B, int Q,
                                  long long batch_stride, int S, int cl,
                                  float scale, float c16, void* workspace,
                                  void* stream) {
-  const long long dd = (long long)d * d;
-  const Products P{false,
-                   {(const int8_t*)wqkv, (const int8_t*)wproj,
-                    (const int8_t*)wfc, (const int8_t*)wpj},
-                   {3 * dd, dd, 4 * dd, 4 * dd},
-                   {nullptr, nullptr, nullptr, nullptr},
-                   {0, 0, 0, 0}};
-  return run_step(x, out, B, Q, d, H, L, (const float*)vec, P, kc, vc,
-                  layer_stride, batch_stride, S, cl, scale, c16, workspace,
-                  (cudaStream_t)stream);
+  return run_step(x, out, B, Q, d, H, L, (const float*)vec,
+                  int8_products(d, wqkv, wproj, wfc, wpj),
+                  int8_cache(kc, vc, layer_stride, batch_stride), S, cl,
+                  scale, c16, workspace, (cudaStream_t)stream);
 }
 
-// The same step with W4A8 weights (runtime/quantize.py w4_kernel_layout):
-// vec [L, 15d] f32 as above (its ws slots unused); w4k [L, 6d²] int8 holds
-// per layer the packed qkv [3d, d/2], proj [d, d/2], fc [4d, d/2] and pj
-// [d, 2d] blocks, each output-major; s4k [L, 12·d·G] f32 (G = d/128) their
-// group scales qkv [3d, G], proj [d, G], fc [4d, G], pj [d, 4G].
+// The same step with W4A8 weights (w4_products); vec as above, its ws
+// slots unused.
 extern "C" int umgen_decode_step_w4(const void* x, void* out, int B, int Q,
                                     int d, int H, int L, const void* vec,
                                     const void* w4k, const void* s4k,
@@ -662,15 +824,41 @@ extern "C" int umgen_decode_step_w4(const void* x, void* out, int B, int Q,
                                     long long batch_stride, int S, int cl,
                                     float scale, float c16, void* workspace,
                                     void* stream) {
-  const long long dd = (long long)d * d, G = d / 128;
-  const int8_t* wb = (const int8_t*)w4k;
-  const float* sb = (const float*)s4k;
-  const Products P{true,
-                   {wb, wb + 3 * dd / 2, wb + 2 * dd, wb + 4 * dd},
-                   {6 * dd, 6 * dd, 6 * dd, 6 * dd},
-                   {sb, sb + 3 * d * G, sb + 4 * d * G, sb + 8 * d * G},
-                   {12 * d * G, 12 * d * G, 12 * d * G, 12 * d * G}};
-  return run_step(x, out, B, Q, d, H, L, (const float*)vec, P, kc, vc,
-                  layer_stride, batch_stride, S, cl, scale, c16, workspace,
-                  (cudaStream_t)stream);
+  return run_step(x, out, B, Q, d, H, L, (const float*)vec,
+                  w4_products(d, w4k, s4k),
+                  int8_cache(kc, vc, layer_stride, batch_stride), S, cl,
+                  scale, c16, workspace, (cudaStream_t)stream);
+}
+
+// The int8-weight step on the int4 cache.  kc/vc: rows of d/2 nibble-pair
+// bytes (halves layout), layer l, scene b, row s at l·layer_stride +
+// b·batch_stride + s·d/2; ks/vs: float32 scales, H per row, at
+// l·sc_layer_stride + b·sc_batch_stride + s·H (strides in floats).
+// c7 = scale/7.
+extern "C" int umgen_decode_step_i4(
+    const void* x, void* out, int B, int Q, int d, int H, int L,
+    const void* vec, const void* wqkv, const void* wproj, const void* wfc,
+    const void* wpj, void* kc, void* vc, long long layer_stride,
+    long long batch_stride, void* ks, void* vs, long long sc_layer_stride,
+    long long sc_batch_stride, int S, int cl, float scale, float c7,
+    void* workspace, void* stream) {
+  return run_step(x, out, B, Q, d, H, L, (const float*)vec,
+                  int8_products(d, wqkv, wproj, wfc, wpj),
+                  int4_cache(kc, vc, layer_stride, batch_stride, ks, vs,
+                             sc_layer_stride, sc_batch_stride),
+                  S, cl, scale, c7, workspace, (cudaStream_t)stream);
+}
+
+// The W4A8 step on the int4 cache.
+extern "C" int umgen_decode_step_w4_i4(
+    const void* x, void* out, int B, int Q, int d, int H, int L,
+    const void* vec, const void* w4k, const void* s4k, void* kc, void* vc,
+    long long layer_stride, long long batch_stride, void* ks, void* vs,
+    long long sc_layer_stride, long long sc_batch_stride, int S, int cl,
+    float scale, float c7, void* workspace, void* stream) {
+  return run_step(x, out, B, Q, d, H, L, (const float*)vec,
+                  w4_products(d, w4k, s4k),
+                  int4_cache(kc, vc, layer_stride, batch_stride, ks, vs,
+                             sc_layer_stride, sc_batch_stride),
+                  S, cl, scale, c7, workspace, (cudaStream_t)stream);
 }

@@ -14,7 +14,9 @@ sampling position p feeds input k = p-1 with the KV cache holding inputs
 0..p-2.  Separators are forced, never sampled.
 
 The OAR KV cache is the flat int8 [L, B, 2208, H·Dh] of the fused decode
-kernel, updated in place (the JAX package threads it functionally).
+kernel or, with `oar_cache_dtype="int4"`, a `PackedKV` of nibble-packed rows
+and per-(row, head) scales; either is updated in place (the JAX package
+threads it functionally).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
-from umgen_tpu.config import EGO_WHL, TASK_NAME_ID
+from umgen_tpu_torch.config import EGO_WHL, TASK_NAME_ID
 from umgen_tpu_torch.models import modules as nn
 from umgen_tpu_torch.models.sampling import make_sampler
 from umgen_tpu_torch.models.umgen import UMGen
@@ -37,9 +39,22 @@ Params = Dict[str, Any]
 MAX_BOXES = 62   # ego + 60 slots + candidate headroom
 
 
+class PackedKV(NamedTuple):
+    """One half (K or V) of the int4 OAR cache: packed [L, B, S, H·Dh/2]
+    int8 nibble pairs in the halves layout (ops.decode_kernel.
+    quantize_kv_int4) and scale [L, B, S, H] float32."""
+    packed: torch.Tensor
+    scale: torch.Tensor
+
+
+def _kv_rows(kv) -> int:
+    """Cache length (the S axis) of dense or packed storage."""
+    return (kv.packed if isinstance(kv, PackedKV) else kv).shape[2]
+
+
 class OarState(NamedTuple):
     """The OAR decode's state within one frame."""
-    kv_k: torch.Tensor        # [L, B, S, H·Dh]
+    kv_k: torch.Tensor        # [L, B, S, H·Dh] (or PackedKV)
     kv_v: torch.Tensor
     prev_emb: torch.Tensor    # [B, 1, D] input embedding for the next step
 
@@ -87,8 +102,19 @@ class Rollout:
     # ------------------------------------------------------------------
     def init_kv(self, B: int, device=None):
         """Flat [L, B, 2208, H·Dh] caches in the OAR cache dtype (int8 for
-        the fused kernel)."""
+        the fused kernel), or two PackedKV for "int4": nibble pairs
+        [L, B, 2208, H·Dh/2] int8 with scales [L, B, 2208, H] float32."""
         cfg = self.config
+        if cfg.oar_cache_dtype == "int4":
+            L, S, H = cfg.n_oar_layer, self.layout.input_len, cfg.n_head
+
+            def half():
+                return PackedKV(
+                    torch.zeros(L, B, S, H * cfg.head_dim // 2,
+                                dtype=torch.int8, device=device),
+                    torch.zeros(L, B, S, H, dtype=torch.float32,
+                                device=device))
+            return half(), half()
         shape = (cfg.n_oar_layer, B, self.layout.input_len,
                  cfg.n_head * cfg.head_dim)
         dt = torch.int8 if cfg.oar_cache_dtype == "int8" \
@@ -96,15 +122,18 @@ class Rollout:
         return (torch.zeros(shape, dtype=dt, device=device),
                 torch.zeros(shape, dtype=dt, device=device))
 
-    def oar_step(self, params: Params, x: torch.Tensor, kv_k: torch.Tensor,
-                 kv_v: torch.Tensor, cache_len: int):
+    def oar_step(self, params: Params, x: torch.Tensor, kv_k, kv_v,
+                 cache_len: int):
         """Push Q new inputs x [B, Q, D] through the OAR stack; their K/V
         land in the caches at cache_len.  Q = 1 goes to the fused v5
         kernel, 1 < Q·H <= 128 to v5mq — or to w4 / w4mq when the packed
         weights are W4A8 (rollout.py:213-266); anything else runs the
-        eager body.  Returns (ln_oar(h) [B, Q, D], kv_k, kv_v)."""
+        eager body.  PackedKV caches go to `_oar_step_int4`.  Returns
+        (ln_oar(h) [B, Q, D], kv_k, kv_v)."""
         cfg = self.config
         Q, H = x.shape[1], cfg.n_head
+        if isinstance(kv_k, PackedKV):
+            return self._oar_step_int4(params, x, kv_k, kv_v, cache_len)
         if (cfg.fused_oar_kernel and "oar_packed" in params
                 and kv_k.dtype == torch.int8 and Q * H <= 128):
             if "wqp4" in params["oar_packed"]:     # W4A8 packing
@@ -121,26 +150,36 @@ class Rollout:
     def _oar_step_eager(self, params, x, kv_k, kv_v, cache_len: int):
         """The reference's multi-row XLA body: every layer attends [prefix
         < cache_len ‖ causal new block] with the int8 prefix dequantized
-        from the 1/16 grid.  It is the plain counterpart of the fused step
-        in the JAX package's own terms."""
+        from the 1/16 grid, or the int4 one (PackedKV) from its nibbles and
+        per-(row, head) scales.  It is the plain counterpart of the fused
+        step in the JAX package's own terms."""
         cfg = self.config
         H, Dh = cfg.n_head, cfg.head_dim
         B, Q, D = x.shape
-        S = kv_k.shape[2]
+        S = _kv_rows(kv_k)
         scale = 1.0 / math.sqrt(Dh)
-        int8 = kv_k.dtype == torch.int8
+        int4 = isinstance(kv_k, PackedKV)
+        int8 = not int4 and kv_k.dtype == torch.int8
         kpos = torch.arange(S, device=x.device)
         prefix_valid = kpos < cache_len
         self_mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool,
                                           device=x.device))
 
-        def load(c):
-            c = c.reshape(B, S, H, Dh)
+        def load(c, l):
+            if int4:
+                return dk.kv_load_int4(c.packed[l], c.scale[l], H, x.dtype)
+            c = c[l].reshape(B, S, H, Dh)
             return (c.float() * (1.0 / dk.KV_INT8_SCALE)).to(x.dtype) \
                 if int8 else c.to(x.dtype)
 
-        def store(t):
-            return dk.kv_store(t) if int8 else t.to(kv_k.dtype)
+        def store(c, l, t):
+            rows = slice(cache_len, cache_len + Q)
+            t = t.reshape(B, Q, H * Dh)
+            if int4:
+                c.packed[l, :, rows], c.scale[l, :, rows] = \
+                    dk.quantize_kv_int4(t, H)
+            else:
+                c[l, :, rows] = dk.kv_store(t) if int8 else t.to(c.dtype)
 
         h = x
         stack = params["oar"]
@@ -153,7 +192,7 @@ class Rollout:
             k_new = k_new.reshape(B, Q, H, Dh)
             v_new = v_new.reshape(B, Q, H, Dh)
             lp = torch.einsum("bqhd,bkhd->bhqk", q.float(),
-                              load(kv_k[l]).float()) * scale
+                              load(kv_k, l).float()) * scale
             lp = lp.masked_fill(~prefix_valid, float("-inf"))
             ls = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                               k_new.float()) * scale
@@ -166,16 +205,38 @@ class Rollout:
             wp = (ep / denom).to(x.dtype)
             ws = (es / denom).to(x.dtype)
             y = (torch.einsum("bhqk,bkhd->bqhd", wp.float(),
-                              load(kv_v[l]).float()).to(x.dtype)
+                              load(kv_v, l).float()).to(x.dtype)
                  + torch.einsum("bhqk,bkhd->bqhd", ws.float(),
                                 v_new.float()).to(x.dtype))
             h = h + nn.linear(p["attn"]["proj"], y.reshape(B, Q, D))
             h = h + nn.mlp(p["mlp"], nn.layer_norm(p["ln2"], h))
-            kv_k[l, :, cache_len:cache_len + Q] = store(k_new).reshape(
-                B, Q, H * Dh)
-            kv_v[l, :, cache_len:cache_len + Q] = store(v_new).reshape(
-                B, Q, H * Dh)
+            store(kv_k, l, k_new)
+            store(kv_v, l, v_new)
         return nn.layer_norm(params["ln_oar"], h), kv_k, kv_v
+
+    def _oar_step_int4(self, params: Params, x: torch.Tensor,
+                       kv_k: PackedKV, kv_v: PackedKV, cache_len: int):
+        """oar_step on the nibble-packed int4 cache (rollout.py:332-438).
+        With the fused kernels on, Q = 1 goes to v5i4 and 1 < Q·H <= 128 to
+        v5mqi4 (w4i4 / w4mqi4 for W4A8 packing).  Otherwise the eager body
+        dequantizes the prefix per layer and re-quantizes the new rows per
+        (row, head)."""
+        cfg = self.config
+        Q, H = x.shape[1], cfg.n_head
+        if (cfg.fused_oar_kernel and "oar_packed" in params
+                and Q * H <= 128):
+            if "wqp4" in params["oar_packed"]:
+                fused = (dk.fused_decode_step_w4i4 if Q == 1
+                         else dk.fused_decode_step_w4mqi4)
+            else:
+                fused = (dk.fused_decode_step_v5i4 if Q == 1
+                         else dk.fused_decode_step_v5mqi4)
+            h, kp, vp, ks, vs = fused(params["oar_packed"], x, kv_k.packed,
+                                      kv_v.packed, kv_k.scale, kv_v.scale,
+                                      cache_len, n_head=H)
+            return (nn.layer_norm(params["ln_oar"], h), PackedKV(kp, ks),
+                    PackedKV(vp, vs))
+        return self._oar_step_eager(params, x, kv_k, kv_v, cache_len)
 
     def _embed_token(self, params: Params, mod: str,
                      token: torch.Tensor) -> torch.Tensor:
@@ -201,8 +262,13 @@ class Rollout:
     # cache).  The kernel reads only rows < cache_len either way; the view
     # keeps the plain version's S-blocking identical to the reference's.
     def _sliced(self, state: OarState, kv_len: int) -> OarState:
-        return OarState(state.kv_k[:, :, :kv_len], state.kv_v[:, :, :kv_len],
-                        state.prev_emb)
+        def cut(kv):
+            if isinstance(kv, PackedKV):
+                return PackedKV(kv.packed[:, :, :kv_len],
+                                kv.scale[:, :, :kv_len])
+            return kv[:, :, :kv_len]
+
+        return OarState(cut(state.kv_k), cut(state.kv_v), state.prev_emb)
 
     def _unsliced(self, full: OarState, part: OarState) -> OarState:
         return OarState(full.kv_k, full.kv_v, part.prev_emb)
@@ -368,7 +434,7 @@ class Rollout:
         for si, seg in enumerate(segs):
             tokens[:, seg.start] = seg.bos
             forced = forced_tokens.get(seg.mod)
-            part = self._sliced(state, min(seg.end, state.kv_k.shape[2]))
+            part = self._sliced(state, min(seg.end, _kv_rows(state.kv_k)))
             if forced is not None:
                 part, seg_tokens = self._decode_forced_segment(
                     params, seg.mod, seg, part, prior_seq, forced)

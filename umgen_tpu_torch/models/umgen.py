@@ -20,9 +20,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from umgen_tpu.config import BOS_EOS, MAP_HW, TASKS, ModelConfig
-from umgen_tpu.data.pipeline import ScenePipeline
-from umgen_tpu.layout import SequenceLayout
+from umgen_tpu_torch.config import BOS_EOS, MAP_HW, TASKS, ModelConfig
+from umgen_tpu_torch.data.pipeline import ScenePipeline
+from umgen_tpu_torch.layout import SequenceLayout
 from umgen_tpu_torch.models import modules as nn
 from umgen_tpu_torch.ops.warp import affine_warp_map
 from umgen_tpu_torch.params import torch_dtype

@@ -17,8 +17,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from umgen_tpu.config import ModelConfig
-from umgen_tpu.layout import SequenceLayout
+from umgen_tpu_torch.config import ModelConfig
+from umgen_tpu_torch.layout import SequenceLayout
 
 Params = Dict[str, Any]
 

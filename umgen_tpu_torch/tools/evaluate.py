@@ -6,10 +6,12 @@
         --debug --synthetic_data 1 --max_scenes 1 --set_num_new_frames 2
 
 Served values: `--kv_dtype bfloat16|int4` (TAR rings; the OAR cache stays
-int8), `--int8 decode|all`, `--chunked_prefill`, `--tar_cache_window N`,
-any `--batch_size`.  Like the JAX CLI it packs int8 (v5) OAR weights; W4A8
+int8 unless asked otherwise), `--oar_kv_dtype int8|int4` (int4: the
+nibble-packed OAR cache with per-(row, head) scales, decoded by the v5i4 /
+v5mqi4 kernels), `--int8 decode|all`, `--chunked_prefill`,
+`--tar_cache_window N`, any `--batch_size`.  Like the JAX CLI it packs int8 (v5) OAR weights; W4A8
 weights are reached as the JAX bench reaches them, through
-`serving_params` and the same Generator (chip_smoke.py phase e).  Weights
+`serving_params` and the same Generator (chip_smoke.py phases e and g).  Weights
 are seeded random (`--debug`, or a missing checkpoint); scenes come from
 the dataset or, with `--synthetic_data N`, from the synthetic generator.
 Every flag value outside what the port serves raises NotPortedError naming
@@ -87,8 +89,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tpe_clamp", type=int, default=None)
     p.add_argument("--dp", type=int, default=1)
     # port-only
-    p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: cuda when available)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; the CPU only when asked (cpu)")
     return p
 
 
@@ -116,8 +118,9 @@ def check_args(args) -> None:
     no(not args.fused_oar, "the unfused OAR decode (omit --fused_oar)",
        "Unfused and bf16 OAR caches")
     no(args.int8 == "off", "--int8 off", "bf16 OAR weights")
-    no(args.oar_kv_dtype not in (None, "int8"),
-       f"--oar_kv_dtype {args.oar_kv_dtype}", "int4 OAR KV cache")
+    no(args.oar_kv_dtype not in (None, "int8", "int4"),
+       f"--oar_kv_dtype {args.oar_kv_dtype} (served: int8, int4)",
+       "Unfused and bf16 OAR caches")
     no(args.oar_kernel != 5, f"--oar_kernel {args.oar_kernel}",
        "Superseded decode variants")
     if args.oar_batch_block:
@@ -138,8 +141,9 @@ def check_args(args) -> None:
 def config_from_args(args):
     """argparse namespace → scaled ModelConfig, field for field as the JAX
     CLI's (umgen_tpu/tools/evaluate.py:146-187): `--kv_dtype int4` sets the
-    TAR rings and keeps the OAR cache int8."""
-    from umgen_tpu.config import ModelConfig
+    TAR rings and keeps the OAR cache int8 unless `--oar_kv_dtype int4`
+    opts it in too."""
+    from umgen_tpu_torch.config import ModelConfig
     return ModelConfig(task=args.pred_task,
                        rule_constrain=args.rule_constrain,
                        sample_method=args.sample_method,
@@ -183,7 +187,8 @@ def build_params(args, cfg, device, pipeline):
 def serving_params(cfg, generator, device, buffers=None):
     """The JAX bench's serving weights (bench.py:341-352): seeded random
     params, int8 on every stack, W4A8 OAR weights packed from the raw OAR
-    stack — the fused steps then run w4 / w4mq.  The CLI, like the JAX
+    stack — the fused steps then run w4 / w4mq (w4i4 / w4mqi4 on the int4
+    OAR cache).  The CLI, like the JAX
     CLI, never builds these."""
     from umgen_tpu_torch.params import init_params
     from umgen_tpu_torch.runtime.quantize import (ALL_STACK_KEYS,
@@ -197,12 +202,12 @@ def serving_params(cfg, generator, device, buffers=None):
 def run_dataset(args, runner, infer_cfg, pipeline) -> None:
     """The scenes of `--data_root` (or `--synthetic_data N` generated ones)
     through `runner`, `--batch_size` at a time."""
-    from umgen_tpu.config import DataConfig
-    from umgen_tpu.data.dataset import NuPlanTokenDataset
+    from umgen_tpu_torch.config import DataConfig
+    from umgen_tpu_torch.data.dataset import NuPlanTokenDataset
 
     data_root = args.data_root
     if not os.path.isdir(data_root) and args.synthetic_data > 0:
-        from umgen_tpu.data.synthetic import write_synthetic_dataset
+        from umgen_tpu_torch.data.synthetic import write_synthetic_dataset
         data_root = os.path.join(args.output_path, "synthetic_scenes")
         write_synthetic_dataset(data_root, n_scenes=args.synthetic_data,
                                 seed=args.seed)
@@ -239,16 +244,18 @@ def run(args):
     Generator."""
     import torch
 
-    from umgen_tpu.config import InferConfig
-    from umgen_tpu.data.pipeline import ScenePipeline
+    from umgen_tpu_torch.config import InferConfig
+    from umgen_tpu_torch.data.pipeline import ScenePipeline
     from umgen_tpu_torch.models.generate import Generator
     from umgen_tpu_torch.models.umgen import UMGen
     from umgen_tpu_torch.tools.harness import SceneRunner
 
     check_args(args)
     cfg = config_from_args(args)
-    device = torch.device(args.device or
-                          ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card; pass "
+                           "--device cpu for the plain versions on the CPU")
     infer_cfg = InferConfig.for_task(args.infer_task,
                                      args.set_num_new_frames,
                                      batch_size=args.batch_size,

@@ -16,7 +16,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from umgen_tpu.config import InferConfig
+from umgen_tpu_torch.config import InferConfig
 from umgen_tpu_torch.models.generate import Generator
 
 

@@ -3,12 +3,15 @@
     python -m umgen_tpu_torch.tools.profile_frame --out chiprun_out/profile
     python -m umgen_tpu_torch.tools.profile_frame --config serving \
         --out chiprun_out/profile_serving
+    python -m umgen_tpu_torch.tools.profile_frame --config serving-i4 \
+        --out chiprun_out/profile_serving_i4
 
 Builds a served configuration at UMGen_Large width with seeded random
 weights and a 20-frame synthetic window: `slice` (default: int8 decode
 weights, bf16 rings over the whole window, B = 1 and 2) or `serving` (the
 JAX bench's: int8 on every stack, W4A8 OAR weights, 8-frame int4 rings,
-chunked prefill, B = 10).  It runs the first frame (the prefill, or the
+chunked prefill, B = 10); `slice-i4` and `serving-i4` are the same two
+with the OAR cache int4 (`--oar_kv_dtype int4`).  It runs the first frame (the prefill, or the
 chunked ingest and a cached step), then for one cached frame times its
 three phases on the host clock with a synchronize after each: the ego net
 (`ego_logits_cached`), the TAR cascade (`tar_priors_cached`) and the OAR
@@ -52,7 +55,7 @@ def profile_batch(model, ro, params, B: int, generator, out_dir: str,
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from umgen_tpu.data.synthetic import make_token_batch
+    from umgen_tpu_torch.data.synthetic import make_token_batch
     cfg, lo = model.config, model.layout
     dev = params["axe"].device
     cond = make_token_batch(lo, T=cfg.cond_frame, B=B, seed=0, config=cfg)
@@ -103,11 +106,15 @@ def profile_batch(model, ro, params, B: int, generator, out_dir: str,
 
 
 # configuration name → (CLI flags, default batch sizes)
+_SLICE = ["--kv_dtype", "bfloat16", "--tar_cache_window", "20"]
+_SERVING = ["--kv_dtype", "int4", "--int8", "all", "--chunked_prefill",
+            "--tar_cache_window", "8"]
+_OAR_INT4 = ["--oar_kv_dtype", "int4"]
 CONFIGS = {
-    "slice": (["--kv_dtype", "bfloat16", "--tar_cache_window", "20"],
-              [1, 2]),
-    "serving": (["--kv_dtype", "int4", "--int8", "all", "--chunked_prefill",
-                 "--tar_cache_window", "8"], [10]),
+    "slice": (_SLICE, [1, 2]),
+    "serving": (_SERVING, [10]),
+    "slice-i4": (_SLICE + _OAR_INT4, [1, 2]),
+    "serving-i4": (_SERVING + _OAR_INT4, [10]),
 }
 
 
@@ -125,7 +132,8 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--out", default="chiprun_out/profile")
     p.add_argument("--config", default="slice", choices=sorted(CONFIGS))
     p.add_argument("--batch_sizes", type=int, nargs="+", default=None,
-                   help="default: 1 2 (slice), 10 (serving)")
+                   help="default: 1 2 (slice, slice-i4), 10 (serving, "
+                   "serving-i4)")
     p.add_argument("--model_scale", default="larger")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -142,7 +150,7 @@ def main(argv: Optional[list] = None) -> int:
     g.manual_seed(0)
     model = UMGen(cfg)
     ro = Rollout(model)
-    if a.config == "serving":
+    if a.config.startswith("serving"):
         params = evaluate.serving_params(cfg, g, dev)
     else:
         params = pack_fused(quantize_params_int8(init_params(cfg, g, dev)))
