@@ -1,30 +1,36 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases variants step_loops   # a partial run
 
 Run from the root of a checkout on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
 
   (a) build the port's CUDA kernels from umgen_tpu_torch/csrc/ (nvcc);
-  (b) hold each of the nine kernels against its plain PyTorch version on
+  (b) hold each of the fifteen kernels against its plain PyTorch version on
       the card, at the shapes the served configurations give it (B = 1, 2
-      and 10 scenes; the int8 and the int4 OAR cache), and time both; hold
-      the decode steps' prefix attention by itself, through a layer that
-      returns x + the attention output, and check that five wrong int4
-      prefixes fail that; time `scaled_dot_product_attention` beside the
-      flash kernel, for the record only;
+      and 10 scenes; the int8, the int4 and the bf16 / fp8 OAR cache), and
+      time both; hold the decode steps' prefix attention by itself, through
+      a layer that returns x + the attention output, and check that wrong
+      prefixes fail that (five int4 ones; for v1, v2 and v7 a bf16 cache
+      read at fp8 precision, the scene's query scale in place of the
+      head's, a dropped 32-row block); v3 and v4 must equal v5 bit for bit,
+      v6's h too; time `scaled_dot_product_attention` beside the flash
+      kernel, for the record only;
   (c) run the UMGen_Large cached video rollout (36-layer stacks, d = 768,
       seeded random weights on the card, one synthetic scene, B = 1, bf16
       rings, int8 decode weights) through the CLI's code path
       (umgen_tpu_torch.tools.evaluate), with every kernel's launch count
-      reset just before: the prefill frame plus two cached frames.  Tokens
+      reset just before: the prefill frame plus one cached frame.  Tokens
       must lie in their modalities' ranges, logits and priors must be
       finite, and flash, v5 and v5mq must have launched;
   (d) run one prefill frame of that configuration at full width with
       one-layer stacks on the card and, from the same weights, on the CPU
       (the plain versions), the CPU replaying the card's greedy decisions:
       tokens equal, ego logits, TAR priors and every decision's logits
-      close;
+      close.  The card's sides of (d), (n), (f) and (i) run after the B = 1
+      and 2 paths (c, h, j, k, l); each CPU side runs in a child process
+      while the card runs (e) and (g), and is compared at the end;
   (e) the JAX bench's serving configuration end to end: UMGen_Large, B = 10
       synthetic scenes, a 20-frame window ingested frame by frame (chunked
       prefill) into 8-frame int4 TAR rings, int8 weights on every stack,
@@ -40,9 +46,28 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
       frames.  Flash, w4i4 and w4mqi4 must launch; v5, v5mq, w4, w4mq, v5i4
       and v5mqi4 must not;
   (h) slice-i4: the configuration of (c) with the OAR cache int4, B = 1,
-      the prefill frame plus one cached frame.  Flash, v5i4 and v5mqi4 must
-      launch, no other decode kernel;
-  (i) serving-i4 at debug scale on the card and on the CPU, as (f).
+      the prefill frame.  Flash, v5i4 and v5mqi4 must launch, no other
+      decode kernel;
+  (i) serving-i4 at debug scale on the card and on the CPU, as (f) with one
+      scene (the CPU side is most of the phase's time);
+  (j) slice-bf16kv, this slice's main path: the configuration of (c) with
+      `--oar_kv_dtype bfloat16`, full width and depth, B = 1, the prefill
+      frame plus one cached frame.  Flash and v2 must launch (2196 steps a
+      frame), no other decode kernel: the multi-row pushes run the eager
+      body on the bf16 cache;
+  (k) slice-v7: the configuration of (c) with `--oar_kernel 7`, B = 2, the
+      prefill frame plus one cached frame.  Flash, v7 and v5mq must launch,
+      v5 must not;
+  (l) slice-fp8kv (`--oar_kv_dtype float8_e4m3fn`, through the CLI's code
+      path: flash and v2) and slice-v1 (int8-quantized but unpacked OAR
+      weights on a bf16 cache, through Generator: flash and v1), each the
+      prefill frame at full width and the 24-layer depth (`--model_scale
+      stander`);
+  (m) 64 single-token steps from cache_len 1000 at full width and depth,
+      B = 2: `Rollout.oar_step` on caller-built 5-D int8 caches with the v3
+      and then the v4 packing, and `fused_decode_step_v6`, each against v5
+      on the same inputs (v3, v4: h and caches bit for bit at every step);
+  (n) slice-bf16kv at debug scale on the card and on the CPU, as (d).
 
 Prints each phase's results, the card's name and power limit, a JSON line
 describing the kernels, and as its last line
@@ -121,6 +146,22 @@ FLASH_RTOL_MEAN = 2.0 ** -8
 #   K and V scale planes swapped, the low nibble read for the heads
 #   >= H/2, a dropped 32-row block, and the V or the K nibbles one grid
 #   step high (an eighth of an omitted -8 bias).
+#   The six steps added last (phase b's second half).  v3, v4, v6, v7 keep
+#   integer logits and the bounds above, cache_len 0 bit for bit through 36
+#   layers; v3 and v4 launch v5's kernel on the flat view of their 5-D
+#   caches, so on the same values they must equal v5 bit for bit at every
+#   cache_len (h and rows); v6's h must equal v5's and its new rows (from
+#   float32) lie at most one grid step from v5's and equal the plain
+#   version's at layer 0.  v1 and v2 (a dense bf16 / fp8 / int8-grid cache
+#   read as bf16): the kernel keeps the plain version's S-blocks and every
+#   rounding point of it, and differs in the order of the float32 sums
+#   inside a block only, so the same bounds hold with room; at cache_len 0
+#   the attention is the new row's own value: bit for bit, h and rows in
+#   the cache's type; layer 0's rows equal at every cache_len.  The prefix
+#   attention by itself for v1, v2 and v7, with planted faults at cache_len
+#   1100 that must fail: the bf16 cache read at fp8 precision (v1, v2 on
+#   bf16), the scene's query scale in place of the (scene, head) one (v7),
+#   a dropped 32-row block (all).
 DECODE_RTOL_1 = 2e-2
 DECODE_RTOL_36 = 0.15
 KV_LAYER0_ATOL = 1
@@ -188,19 +229,22 @@ def flash_work(B, Sq, Sk, causal, H=16, Dh=48):
     return nbytes, 4 * B * H * pairs * Dh / H100_BF16_FLOPS
 
 
-def decode_work(name, L, d, H, B, Q, cl):
+def decode_work(name, L, d, H, B, Q, cl, kv="int8"):
     """(bytes, seconds of operations) of one decode step: every layer's
-    weights and vector block, the cl cached rows of K and V per scene (int8:
-    d bytes a row; int4: d/2 bytes + H float32 scales), the Q new rows
-    written, x read and h written; the four products as int8 operations,
-    the attention's QKᵀ as int8 and its PV as bf16 ones."""
+    weights and vector block, the cl cached rows of K and V per scene (int8
+    and fp8: d bytes a row; bf16: 2d; int4: d/2 bytes + H float32 scales),
+    the Q new rows written, x read and h written; the four products as int8
+    operations, the attention's QKᵀ as int8 and its PV as bf16 ones (v1 and
+    v2, which read their cache as bf16: both as bf16)."""
     w4, i4 = name.startswith("w4"), name.endswith("i4")
+    dense = name in ("v1", "v2")
     weights = 6 * d * d + 12 * d * (d // 128) * 4 if w4 else 12 * d * d
-    row = 2 * (d // 2 + 4 * H) if i4 else 2 * d
+    row = 2 * (d // 2 + 4 * H) if i4 else 4 * d if kv == "bfloat16" else 2 * d
     nbytes = L * (weights + 15 * d * 4 + B * (cl + Q) * row) + 4 * B * Q * d
     keys = cl + (Q + 1) / 2            # prefix + the causal chunk, per query
+    qk_rate = H100_BF16_FLOPS if dense else H100_INT8_OPS
     ops_s = L * B * Q * (2 * 12 * d * d / H100_INT8_OPS
-                         + 2 * keys * d / H100_INT8_OPS
+                         + 2 * keys * d / qk_rate
                          + 2 * keys * d / H100_BF16_FLOPS)
     return nbytes, ops_s
 
@@ -325,9 +369,17 @@ def phase_flash(dev):
     return rows, worst, planted
 
 
+def _first_layer(tree):
+    """Layer 0 of a stacked tree, as a stack of one layer."""
+    return ({k: _first_layer(v) for k, v in tree.items()}
+            if isinstance(tree, dict) else tree[:1].clone())
+
+
 def _decode_params(dev):
-    """One random 36-layer OAR stack at the model's width, packed both
-    ways: {"v5": int8 (pack_decode_weights), "w4": W4A8 (pack_fused_w4)};
+    """One random 36-layer OAR stack at the model's width and its packings:
+    {"v5": int8 (pack_decode_weights), "w4": W4A8 (pack_fused_w4), "v4": the
+    six int8 streams (pack_fused_oar_v4), "qoar": the int8-quantized stack
+    unpacked (what v1 takes)};
     and its layer 0 made to show its attention, packed the same ways: the
     output projection the identity without bias, the MLP's second product
     zero, so that the layer returns x + the attention output."""
@@ -335,6 +387,7 @@ def _decode_params(dev):
     from umgen_tpu_torch.config import ModelConfig
     from umgen_tpu_torch.params import _Init
     from umgen_tpu_torch.runtime.quantize import (pack_decode_weights,
+                                                  pack_fused_oar_v4,
                                                   pack_fused_w4,
                                                   quantize_params_int8)
     cfg = ModelConfig()
@@ -352,11 +405,7 @@ def _decode_params(dev):
         b = oar["attn"][lin]["b"]
         oar["attn"][lin]["b"] = (0.02 * torch.randn(b.shape, generator=g,
                                                     device=dev)).to(b.dtype)
-    def first(t):
-        return ({k: first(v) for k, v in t.items()} if isinstance(t, dict)
-                else t[:1].clone())
-
-    vis = first(oar)
+    vis = _first_layer(oar)
     proj = vis["attn"]["proj"]
     proj["w"] = torch.eye(cfg.n_embd, device=dev, dtype=proj["w"].dtype)[None]
     proj["b"] = torch.zeros_like(proj["b"])
@@ -365,7 +414,8 @@ def _decode_params(dev):
     def packs(tree):
         q = quantize_params_int8({"oar": tree})
         return {"v5": pack_decode_weights(q["oar"]),
-                "w4": pack_fused_w4({}, tree)["oar_packed"]}
+                "w4": pack_fused_w4({}, tree)["oar_packed"],
+                "v4": pack_fused_oar_v4(q["oar"]), "qoar": q["oar"]}
 
     return cfg, packs(oar), packs(vis)
 
@@ -453,10 +503,9 @@ def planted_i4_faults(cache, cl):
             "k_nibbles_one_step_high": ([step_up(kp), vp, ks, vs], cl)}
 
 
-def phase_decode(dev):
+def phase_decode(dev, cfg, packs, visible):
     import torch
     from umgen_tpu_torch.ops import decode_kernel as dk
-    cfg, packs, visible = _decode_params(dev)
     L, d, H = cfg.n_oar_layer, cfg.n_embd, cfg.n_head
     S = 2208
     g = torch.Generator(device=dev)
@@ -566,90 +615,310 @@ def phase_decode(dev):
     return rows
 
 
-def _card_vs_cpu(dev, cfg, params, drive, B, T, tag, rtol_priors,
-                 rtol_logits):
-    """Run `drive(rollout, params, inputs, device)` → FrameOutputs once on
-    `dev` and once on the CPU (the plain versions) from the same weights,
-    the CPU replaying the device's sampler decisions, so both decode one
-    token stream; the tokens must be equal, and the ego logits, TAR priors
-    and every decision's logits must agree within the bounds."""
+# (kernel, cache type, B, cache_len) of the six steps added last: v1 and v2
+# at the B = 1 of the slices that reach them, in every storage type they
+# take; v3, v4, v6 at B = 2; v7 at B = 2 (slice-v7) and 8 (the largest B the
+# reference routes to it: B·H = 128)
+_CLS = (0, 1100, 2207)
+VARIANT_CASES = (
+    [("v2", kv, 1, cl) for kv in ("bfloat16", "float8_e4m3fn", "int8")
+     for cl in _CLS]
+    + [("v1", kv, 1, cl) for kv in ("bfloat16", "float8_e4m3fn")
+       for cl in _CLS]
+    + [(name, "int8", 2, cl) for name in ("v3", "v4", "v6") for cl in _CLS]
+    + [("v7", "int8", B, cl) for B in (2, 8) for cl in _CLS])
+
+
+def phase_variants(dev, cfg, packs, visible):
+    """Phase b for v1, v2, v3, v4, v6 and v7 (bounds: see DECODE_RTOL_1)."""
     import torch
-    from umgen_tpu_torch.data.synthetic import make_token_batch
+    from umgen_tpu_torch.ops import decode_kernel as dk
+    L, d, H = cfg.n_oar_layer, cfg.n_embd, cfg.n_head
+    S, Dh = 2208, d // H
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    tdt = {"bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn,
+           "int8": torch.int8}
+    rows = {}
+    for name, kv, B, cl in VARIANT_CASES:
+        dense = name in ("v1", "v2")
+        fn = dk.fused_decode_step if name == "v1" else \
+            getattr(dk, f"fused_decode_step_{name}")
+        key_k = {"v1": "qoar", "v4": "v4"}.get(name, "v5")   # the kernel's
+        key_p = "v4" if name == "v4" else "v5"               # the plain one's
+        cache = _random_cache(g, dev, False, L, B, S, d, H)
+        if dense and kv != "int8":      # the same values, off the grid's type
+            cache = [(c.float() * 0.0625).to(tdt[kv]) for c in cache]
+        x = torch.randn(B, 1, d, generator=g, device=dev).to(torch.bfloat16)
+        ck = [t.clone() for t in cache]
+        cp = cache
+        c5 = ([t.clone() for t in cache] if name in ("v3", "v4", "v6")
+              else None)                # for v5 on the same values
+
+        def call(pk, c, xin=x, at=cl):
+            if name in ("v3", "v4"):    # the reference's 5-D caches
+                c = [t.view(t.shape[0], B, S, H, Dh) for t in c]
+            return fn(pk, xin, *c, at, n_head=H)[0]
+
+        def plain(pk, c, xin=x, at=cl, head_scale=name == "v7"):
+            if dense:
+                return dk.decode_step_dense_plain(pk, xin, c[0], c[1], at, H,
+                                                  whole_s=name == "v1")
+            return dk.decode_step_plain(
+                pk, xin, c[0], c[1], at, H,
+                prefer=dk.V2_BLOCKS if name in ("v3", "v4") else dk.V5_BLOCKS,
+                head_scale=head_scale, rows_f32=name == "v6")
+
+        def layer0(c):
+            return [t[:1].clone() for t in c]
+
+        def row_err(a, b):
+            """[L]: the largest difference between the new rows of two
+            caches, in grid steps (int8) or in value (bf16, fp8)."""
+            return (a[:, :, cl].float() - b[:, :, cl].float()).abs().amax(
+                dim=(1, 2))
+
+        attn, faults = (0.0, 0.0), {}
+        if cl and name in ("v1", "v2", "v7"):
+            xs = (x.float() * 2.0 ** -6).to(torch.bfloat16)
+
+            def readings(ref):
+                dlt, r = (y - ref).abs(), ref.abs()
+                return ((dlt.max() / r.max()).item(),
+                        (dlt.mean() / r.mean()).item())
+
+            def y_plain(c, at=cl, **kw):
+                return plain(visible[key_p], c, xs, at, **kw).float() \
+                    - xs.float()
+
+            y = call(visible[key_k], layer0(ck), xs).float() - xs.float()
+            attn = readings(y_plain(layer0(cp)))
+            if cl == 1100:
+                c0 = layer0(cp)
+                faults["dropped_32_row_block"] = readings(y_plain(
+                    [torch.cat([t[:, :, :512], t[:, :, 544:], t[:, :, :32]],
+                               dim=2) for t in c0], cl - 32))
+                if dense and kv == "bfloat16":
+                    faults["bf16_cache_read_at_fp8_precision"] = readings(
+                        y_plain([t.to(torch.float8_e4m3fn).to(t.dtype)
+                                 for t in c0]))
+                if name == "v7":
+                    faults["scene_scale_for_head_scale"] = readings(
+                        y_plain(c0, head_scale=False))
+            passed = [k for k, e in faults.items() if attn_ok(e)]
+            if not attn_ok(attn) or passed:
+                raise AssertionError(
+                    f"{name} {kv} B={B} cache_len={cl}: attention output max "
+                    f"err {attn[0]:.3g} of max |y| (bound {ATTN_RTOL_MAX:.3g})"
+                    f", mean {attn[1]:.3g} of mean |y| (bound "
+                    f"{ATTN_RTOL_MEAN:.3g}); planted faults that pass: "
+                    f"{passed} of {faults}")
+
+        h1 = call(_first_layer(packs[key_k]), layer0(ck))
+        h1ref = plain(_first_layer(packs[key_p]), layer0(cp))
+        h = call(packs[key_k], ck)
+        t0 = time.perf_counter()
+        href = plain(packs[key_p], cp)
+        torch.cuda.synchronize()
+        pms = 1e3 * (time.perf_counter() - t0)
+        rel1 = ((h1.float() - h1ref.float()).abs().max()
+                / h1ref.float().abs().max()).item()
+        err = (h.float() - href.float()).abs().max().item()
+        rel = err / href.float().abs().max().item()
+        dkv = torch.stack([row_err(a, b) for a, b in zip(ck, cp)])   # [2, L]
+        dkv0 = dkv[:, 0].max().item()
+        untouched = all(
+            torch.equal(a[:, :, :cl], b[:, :, :cl])
+            and torch.equal(a[:, :, cl + 1:], b[:, :, cl + 1:])
+            for a, b in ((a.view(torch.uint8), b.view(torch.uint8))
+                         for a, b in zip(ck, cp)))
+        exact = cl == 0
+        ok = (math.isfinite(rel) and rel1 <= DECODE_RTOL_1
+              and rel <= DECODE_RTOL_36 and untouched
+              and dkv0 <= (0 if dense or name == "v6" else KV_LAYER0_ATOL)
+              and (not exact or (err == 0 and dkv.max().item() == 0)))
+        against_v5 = ""
+        if c5 is not None:
+            h5 = dk.fused_decode_step_v5(packs["v5"], x, *c5, cl, n_head=H)[0]
+            d5 = max((a[:, :, cl].int() - b[:, :, cl].int()).abs().max().item()
+                     for a, b in zip(ck, c5))
+            same_h = torch.equal(h, h5)
+            ok = ok and same_h and d5 <= (1 if name == "v6" else 0)
+            against_v5 = (f", h equal to v5's: {same_h}, rows at most {d5} "
+                          "steps from v5's")
+        if not ok:
+            raise AssertionError(
+                f"{name} {kv} B={B} cache_len={cl}: h rel err {rel1} at 1 "
+                f"layer, {rel} at {L} (must be 0 here: {exact}); new rows' "
+                f"err {dkv0} at layer 0, {dkv.max().item()} at any; rest of "
+                f"the caches untouched: {untouched}{against_v5}")
+        ms = _time_ms(lambda: call(packs[key_k], ck), 20)
+        rows.setdefault(name, []).append({
+            "kv": kv, "B": B, "Q": 1, "cache_len": cl, "max_abs_err": err,
+            "rel_err": rel, "rel_err_1_layer": rel1,
+            "kv_max_err_all_layers": dkv.max().item(),
+            "attn_rel_err_max": attn[0], "attn_rel_err_mean": attn[1],
+            "attn_planted_faults": faults,
+            "ms": ms, "plain_ms": pms, "library_ms": None,
+            **_bound(*decode_work(name, L, d, H, B, 1, cl, kv))})
+        print(f"(b) {name} {kv} B={B} cache_len={cl}: h rel err {rel1:.3g} "
+              f"(1 layer) / {rel:.3g} ({L} layers, max abs {err:.3g}), new "
+              f"rows max err layer 0 {dkv0:.3g} / all layers "
+              f"{dkv.max().item():.3g}{against_v5}"
+              + (f", attention output max {attn[0]:.3g} / mean {attn[1]:.3g}"
+                 if cl and name in ("v1", "v2", "v7") else "")
+              + ("; planted faults (max / mean, each must fail): "
+                 + ", ".join(f"{k} {e[0]:.3g} / {e[1]:.3g}"
+                             for k, e in faults.items()) if faults else "")
+              + f", kernel {ms:.3f} ms, plain {pms:.1f} ms, bound "
+              f"{rows[name][-1]['bound_ms']:.4f} ms "
+              f"({rows[name][-1]['bound_by']})")
+        del cache, ck, cp
+    return rows
+
+
+def _first_frame(ro, params, inputs, device, chunked):
+    """The frame step the card-against-CPU phases drive, on either side."""
+    import torch
+    step = ro.frame_step_chunked if chunked else ro.frame_step_prefill
+    return step(params, inputs, torch.Generator(device))[0]
+
+
+def _cpu_replay(job_path):
+    """Entry of the child process of `_CardVsCpu`: replay the card's
+    decisions through the plain versions on the CPU and save what it saw
+    beside the job.  Two intra-op threads: four such children and the
+    parent, which goes on driving the card, share the host's cores."""
+    import torch
     from umgen_tpu_torch.models.rollout import Rollout
-    from umgen_tpu_torch.models.sampling import greedy_sample
     from umgen_tpu_torch.models.umgen import UMGen
-    model = UMGen(cfg)
+    torch.set_num_threads(2)
+    job = torch.load(job_path, weights_only=False)
+    ro = Rollout(UMGen(job["cfg"]))
+    replay = iter(job["tokens"])
+    seen = []
 
-    def to_cpu(t):
-        return ({k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict)
-                else t.cpu())
+    def sampler(gen, logits):
+        seen.append(logits.clone())
+        return next(replay)
 
-    cond = make_token_batch(model.layout, T=T, B=B, seed=0, config=cfg)
-    decisions = {"dev": [], "cpu": []}
-    runs = {}
-    for side, device, p in (("dev", dev, params), ("cpu", "cpu",
-                                                   to_cpu(params))):
+    ro._samplers = {m: sampler for m in ro._samplers}
+    inputs = {m: torch.as_tensor(v, dtype=torch.long)
+              for m, v in job["cond"].items()}
+    t0 = time.perf_counter()
+    out = _first_frame(ro, job["params"], inputs, "cpu", job["chunked"])
+    torch.save({"tokens": out.tokens, "ego_logits": out.ego_logits,
+                "prior_seq": out.prior_seq, "logits": seen,
+                "seconds": time.perf_counter() - t0}, job_path + ".out")
+
+
+class _CardVsCpu:
+    """One card-against-CPU check.  Creating it runs the frame step
+    (`_first_frame`) on `dev` and starts a child process that runs it on
+    the CPU (the plain versions) from the same weights, replaying the
+    card's sampler decisions, so that both decode one token stream; the
+    card goes on with the next phases meanwhile.  `finish()` waits for the
+    child and compares: the tokens must be equal, and the ego logits, TAR
+    priors and every decision's logits must agree within the bounds."""
+
+    def __init__(self, dev, cfg, params, chunked, B, T, tag, rtol_priors,
+                 rtol_logits, work_dir):
+        import multiprocessing
+
+        import torch
+        from umgen_tpu_torch.data.synthetic import make_token_batch
+        from umgen_tpu_torch.models.rollout import Rollout
+        from umgen_tpu_torch.models.sampling import greedy_sample
+        from umgen_tpu_torch.models.umgen import UMGen
+        self.cfg, self.B, self.tag, self.dev = cfg, B, tag, dev
+        self.rtol_priors, self.rtol_logits = rtol_priors, rtol_logits
+        model = UMGen(cfg)
+
+        def to_cpu(t):
+            return ({k: to_cpu(v) for k, v in t.items()}
+                    if isinstance(t, dict) else t.cpu())
+
+        cond = make_token_batch(model.layout, T=T, B=B, seed=0, config=cfg)
+        self.logits, tokens = [], []
+
+        def sampler(gen, logits):
+            tok = greedy_sample(gen, logits)
+            self.logits.append(logits.cpu())
+            tokens.append(tok.cpu())
+            return tok
+
         ro = Rollout(model)
-        if side == "dev":
-            def sampler(gen, logits):
-                tok = greedy_sample(gen, logits)
-                decisions["dev"].append((logits.float().cpu(), tok.cpu()))
-                return tok
-        else:
-            replay = iter(decisions["dev"])
-
-            def sampler(gen, logits):
-                decisions["cpu"].append((logits.float(), None))
-                return next(replay)[1]
         ro._samplers = {m: sampler for m in ro._samplers}
-        inputs = {m: torch.as_tensor(v, dtype=torch.long, device=device)
+        inputs = {m: torch.as_tensor(v, dtype=torch.long, device=dev)
                   for m, v in cond.items()}
         t0 = time.perf_counter()
-        out = drive(ro, p, inputs, device)
-        runs[side] = {k: getattr(out, k).cpu() for k in
-                      ("tokens", "ego_logits", "prior_seq")}
-        runs[side]["seconds"] = time.perf_counter() - t0
+        out = _first_frame(ro, params, inputs, dev, chunked)
+        self.run = {k: getattr(out, k).cpu() for k in
+                    ("tokens", "ego_logits", "prior_seq")}
+        self.device_s = time.perf_counter() - t0
+        self.job = os.path.join(work_dir, f"replay_{tag}.pt")
+        torch.save({"cfg": cfg, "params": to_cpu(params), "cond": cond,
+                    "tokens": tokens, "chunked": chunked}, self.job)
+        self.child = multiprocessing.get_context("spawn").Process(
+            target=_cpu_replay, args=(self.job,))
+        self.child.start()
 
-    def rel(a, b):
-        # over the finite entries (the control override masks <pad> with
-        # -inf); the -inf entries must coincide
-        a, b = a.float(), b.float()
-        fin = torch.isfinite(b)
-        if not torch.equal(fin, torch.isfinite(a)):
-            return math.inf
-        return ((a - b)[fin].abs().max() / b[fin].abs().max()).item()
+    def stop(self):
+        if self.child.is_alive():
+            self.child.terminate()
+        self.child.join()
 
-    err_ego = rel(runs["cpu"]["ego_logits"], runs["dev"]["ego_logits"])
-    err_pri = rel(runs["cpu"]["prior_seq"], runs["dev"]["prior_seq"])
-    n = len(decisions["dev"])
-    if len(decisions["cpu"]) != n:
-        raise AssertionError(f"{n} decisions on the device, "
-                             f"{len(decisions['cpu'])} on the CPU")
-    errs = [rel(c[0], d[0]) for c, d in zip(decisions["cpu"],
-                                           decisions["dev"])]
-    worst = max(range(n), key=errs.__getitem__)
-    same = torch.equal(runs["cpu"]["tokens"], runs["dev"]["tokens"])
-    res = {"decisions": n, "ego_logits_rel_err": err_ego,
-           "priors_rel_err": err_pri, "logits_rel_err_max": errs[worst],
-           "logits_rel_err_mean": sum(errs) / n, "tokens_equal": same,
-           "device_s": runs["dev"]["seconds"], "cpu_s": runs["cpu"]["seconds"]}
-    print(f"({tag}) {cfg.n_tar_layer}-layer stacks, B={B}, on {dev} vs the "
-          f"CPU: ego logits rel err {err_ego:.3g}, priors {err_pri:.3g}, "
-          f"logits of {n} decisions max {errs[worst]:.3g} (decision {worst})"
-          f" mean {res['logits_rel_err_mean']:.3g}; tokens equal: {same}; "
-          f"{res['device_s']:.1f} s on the card, {res['cpu_s']:.1f} s on the "
-          "CPU")
-    if not (same and err_ego <= rtol_priors and err_pri <= rtol_priors
-            and errs[worst] <= rtol_logits):
-        raise AssertionError(f"the model on {dev} disagrees with the plain "
-                             f"versions on the CPU: {res}")
-    return res
+    def finish(self):
+        import torch
+        self.child.join()
+        if self.child.exitcode != 0:
+            raise AssertionError(f"phase {self.tag}: the CPU replay exited "
+                                 f"with code {self.child.exitcode}")
+        cpu = torch.load(self.job + ".out", weights_only=False)
+
+        def rel(a, b):
+            # over the finite entries (the control override masks <pad>
+            # with -inf); the -inf entries must coincide
+            a, b = a.float(), b.float()
+            fin = torch.isfinite(b)
+            if not torch.equal(fin, torch.isfinite(a)):
+                return math.inf
+            return ((a - b)[fin].abs().max() / b[fin].abs().max()).item()
+
+        err_ego = rel(cpu["ego_logits"], self.run["ego_logits"])
+        err_pri = rel(cpu["prior_seq"], self.run["prior_seq"])
+        n = len(self.logits)
+        if len(cpu["logits"]) != n:
+            raise AssertionError(f"{n} decisions on the device, "
+                                 f"{len(cpu['logits'])} on the CPU")
+        errs = [rel(c, d) for c, d in zip(cpu["logits"], self.logits)]
+        worst = max(range(n), key=errs.__getitem__)
+        same = torch.equal(cpu["tokens"], self.run["tokens"])
+        res = {"decisions": n, "ego_logits_rel_err": err_ego,
+               "priors_rel_err": err_pri, "logits_rel_err_max": errs[worst],
+               "logits_rel_err_mean": sum(errs) / n, "tokens_equal": same,
+               "device_s": self.device_s, "cpu_s": cpu["seconds"]}
+        print(f"({self.tag}) {self.cfg.n_tar_layer}-layer stacks, "
+              f"B={self.B}, on {self.dev} vs the CPU: ego logits rel err "
+              f"{err_ego:.3g}, priors {err_pri:.3g}, logits of {n} decisions "
+              f"max {errs[worst]:.3g} (decision {worst}) mean "
+              f"{res['logits_rel_err_mean']:.3g}; tokens equal: {same}; "
+              f"{res['device_s']:.1f} s on the card, {res['cpu_s']:.1f} s in "
+              "the CPU's child process")
+        if not (same and err_ego <= self.rtol_priors
+                and err_pri <= self.rtol_priors
+                and errs[worst] <= self.rtol_logits):
+            raise AssertionError(f"the model on {self.dev} disagrees with "
+                                 f"the plain versions on the CPU: {res}")
+        return res
 
 
-def phase_reference(dev, scale="debug"):
+def phase_reference(dev, work_dir, scale="debug", tag="d",
+                    oar_cache_dtype="int8"):
     """One prefill frame of the bf16-ring slice, B = 1, a 2-frame window,
     greedy, every stack one layer deep at the scale's full width, card
-    against CPU."""
+    against CPU; the OAR cache int8 (phase d: v5, v5mq) or bfloat16 (phase
+    n: v2 and the eager pushes).  Returns the started _CardVsCpu."""
     import torch
     from umgen_tpu_torch.config import ModelConfig
     from umgen_tpu_torch.params import init_params
@@ -657,26 +926,26 @@ def phase_reference(dev, scale="debug"):
                                                   quantize_params_int8)
     cfg = ModelConfig(sample_method="greedy", tar_mode="temporal_cache",
                       tar_cache_dtype="bfloat16",
-                      oar_cache_dtype="int8", fused_oar_kernel=True,
+                      oar_cache_dtype=oar_cache_dtype,
+                      fused_oar_kernel=True,
                       tar_cache_window=20).scaled(scale)
     g = torch.Generator(device=dev)
     g.manual_seed(3)
-    params = pack_fused(quantize_params_int8(init_params(cfg, g, dev)))
+    params = pack_fused(quantize_params_int8(init_params(cfg, g, dev)),
+                        kv_dtype=oar_cache_dtype)
 
-    def drive(ro, p, inputs, device):
-        return ro.frame_step_prefill(p, inputs, torch.Generator(device))[0]
-
-    res = _card_vs_cpu(dev, cfg, params, drive, B=1, T=2, tag="d",
-                       rtol_priors=REF_RTOL_PRIORS,
-                       rtol_logits=REF_RTOL_LOGITS)
-    return dict(res, scale=scale)
+    return _CardVsCpu(dev, cfg, params, False, B=1, T=2, tag=tag,
+                      rtol_priors=REF_RTOL_PRIORS,
+                      rtol_logits=REF_RTOL_LOGITS, work_dir=work_dir)
 
 
-def phase_serving_reference(dev, tag="f", oar_cache_dtype="int8"):
-    """The serving configuration at debug scale, B = 2, a 3-frame window
+def phase_serving_reference(dev, work_dir, tag="f", oar_cache_dtype="int8",
+                            B=2):
+    """The serving configuration at debug scale, B scenes, a 3-frame window
     into 2-frame int4 rings by chunked prefill (frames 0-1 ingested, frame
     2 through a cached step, as Generator does), card against CPU; the OAR
-    cache int8 (phase f) or int4 (phase i)."""
+    cache int8 (phase f, two scenes) or int4 (phase i, one).  Returns the
+    started _CardVsCpu."""
     import torch
     from umgen_tpu_torch.config import ModelConfig
     from umgen_tpu_torch.tools.evaluate import serving_params
@@ -691,12 +960,9 @@ def phase_serving_reference(dev, tag="f", oar_cache_dtype="int8"):
     if "wqp4" not in params["oar_packed"]:
         raise AssertionError(f"phase {tag} needs W4A8 OAR weights")
 
-    def drive(ro, p, inputs, device):
-        return ro.frame_step_chunked(p, inputs, torch.Generator(device))[0]
-
-    return _card_vs_cpu(dev, cfg, params, drive, B=2, T=3, tag=tag,
-                        rtol_priors=SERVE_RTOL_PRIORS,
-                        rtol_logits=SERVE_RTOL_LOGITS)
+    return _CardVsCpu(dev, cfg, params, True, B=B, T=3, tag=tag,
+                      rtol_priors=SERVE_RTOL_PRIORS,
+                      rtol_logits=SERVE_RTOL_LOGITS, work_dir=work_dir)
 
 
 VOCAB = {"pose": 1024, "map": 8192, "bbox3d": 1028, "image": 8192}
@@ -710,14 +976,21 @@ def _reset_launches():
             counts[k] = 0
 
 
-def _launches(decode):
-    """The kernels' launch counts since the reset.  Flash and the decode
-    kernels named in `decode` (suffixes of fused_decode_step_) have to have
-    launched, and no other decode kernel."""
+def _kernel_name(kind):
+    """v5, w4mqi4, ... → the wrapper's name; v1 is `fused_decode_step`."""
+    return "fused_decode_step" if kind == "v1" else \
+        f"fused_decode_step_{kind}"
+
+
+def _launches(decode, flash=True):
+    """The kernels' launch counts since the reset.  Flash (unless the path
+    has no TAR cascade) and the decode kernels named in `decode` have to
+    have launched, and no other kernel."""
     from umgen_tpu_torch.ops import decode_kernel as dk
     from umgen_tpu_torch.ops import flash_attention as fa
     launches = {**fa.LAUNCHES, **dk.LAUNCHES}
-    must = ["flash_attention"] + [f"fused_decode_step_{k}" for k in decode]
+    must = (["flash_attention"] if flash else []) \
+        + [_kernel_name(k) for k in decode]
     for k in must:
         if launches[k] <= 0:
             raise AssertionError(f"{k} never launched on the main path")
@@ -743,32 +1016,172 @@ def _check_tokens(out_dir, scenes, frames):
                 raise AssertionError(f"{mod}: tokens outside [0, {n})")
 
 
-def phase_rollout(dev, out_dir, tag="c", new_frames=3, oar_int4=False):
-    """The bf16-ring slice at UMGen_Large width, B = 1, through the CLI's
-    code path: the prefill frame and `new_frames` - 1 cached ones; the OAR
-    cache int8 (phase c: v5, v5mq) or int4 (phase h: v5i4, v5mqi4)."""
+def phase_rollout(dev, out_dir, tag="c", new_frames=2, flags=(),
+                  must=("v5", "v5mq"), B=1, scale="larger"):
+    """The bf16-ring slice at UMGen_Large width through the CLI's code
+    path: the prefill frame and `new_frames` - 1 cached ones, with the extra
+    CLI `flags`; the decode kernels `must` have to launch, and no other.
+    Phase c: the int8 OAR cache (v5, v5mq); h: `--oar_kv_dtype int4` (v5i4,
+    v5mqi4); j: `--oar_kv_dtype bfloat16` (v2; the pushes run the eager
+    body); k: `--oar_kernel 7`, B = 2 (v7, v5mq); l: `--oar_kv_dtype
+    float8_e4m3fn` at the 24-layer scale (v2)."""
     from umgen_tpu_torch.tools import evaluate
     args = evaluate.build_parser().parse_args([
-        "--infer_task", "video", "--model_scale", "larger", "--fused_oar",
+        "--infer_task", "video", "--model_scale", scale, "--fused_oar",
         "--kv_dtype", "bfloat16", "--int8", "decode", "--debug",
-        "--synthetic_data", "1", "--max_scenes", "1",
-        "--set_num_new_frames", str(new_frames), "--batch_size", "1",
+        "--synthetic_data", str(B), "--max_scenes", str(B),
+        "--set_num_new_frames", str(new_frames), "--batch_size", str(B),
         "--sample_method", "topk", "--output_path", out_dir,
-        "--device", str(dev)]
-        + (["--oar_kv_dtype", "int4"] if oar_int4 else []))
+        "--device", str(dev)] + list(flags))
     _reset_launches()
     t0 = time.perf_counter()
     runner, gen = evaluate.run(args)
     secs = time.perf_counter() - t0
-    launches = _launches(("v5i4", "v5mqi4") if oar_int4 else ("v5", "v5mq"))
-    _check_tokens(out_dir, scenes=1, frames=20 + new_frames)
+    launches = _launches(must)
+    _check_tokens(out_dir, scenes=B, frames=20 + new_frames)
     frame_s = list(gen.frame_seconds)
-    print(f"({tag}) UMGen_Large cached rollout B=1, "
-          f"{'int4' if oar_int4 else 'int8'} OAR cache: per-frame seconds "
+    print(f"({tag}) cached rollout, --model_scale {scale}, B={B}, "
+          f"{' '.join(flags) or 'int8 OAR cache'}: per-frame seconds "
           f"{', '.join(f'{s:.2f}' for s in frame_s)} (first = prefill + "
           f"decode); launches {launches}; whole run {secs:.1f} s")
     return {"frame_seconds": frame_s, "launches": launches,
             "seconds": secs}
+
+
+def phase_slice_v1(dev, out_dir):
+    """slice-v1: the bf16-ring slice with int8-quantized but UNPACKED OAR
+    weights on a bfloat16 OAR cache, through Generator / SceneRunner — the
+    API path on which `Rollout.oar_step` reaches `fused_decode_step` (v1).
+    Full width, the 24-layer scale, B = 1, the prefill frame; flash and v1
+    must launch, no other kernel (the pushes run the eager body)."""
+    import torch
+    from umgen_tpu_torch.config import InferConfig
+    from umgen_tpu_torch.data.pipeline import ScenePipeline
+    from umgen_tpu_torch.models.generate import Generator
+    from umgen_tpu_torch.models.umgen import UMGen, build_buffers
+    from umgen_tpu_torch.params import init_params
+    from umgen_tpu_torch.runtime.quantize import quantize_params_int8
+    from umgen_tpu_torch.tools import evaluate
+    from umgen_tpu_torch.tools.harness import SceneRunner
+    args = evaluate.build_parser().parse_args([
+        "--infer_task", "video", "--model_scale", "stander", "--fused_oar",
+        "--kv_dtype", "bfloat16", "--oar_kv_dtype", "bfloat16", "--debug",
+        "--synthetic_data", "1", "--max_scenes", "1",
+        "--set_num_new_frames", "1", "--sample_method", "topk",
+        "--output_path", out_dir, "--device", str(dev)])
+    evaluate.check_args(args)
+    cfg = evaluate.config_from_args(args)
+    pipeline = ScenePipeline()
+    infer_cfg = InferConfig.for_task(args.infer_task, args.set_num_new_frames,
+                                     batch_size=1, seed=args.seed)
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed)
+    params = quantize_params_int8(init_params(
+        cfg, g, dev, buffers=build_buffers(cfg, pipeline, device=dev)))
+    if "oar_packed" in params:
+        raise AssertionError("slice-v1 runs on unpacked OAR weights")
+    gen = Generator(UMGen(cfg), params, seed=args.seed, device=dev)
+    runner = SceneRunner(gen, infer_cfg, output_path=out_dir)
+    _reset_launches()
+    t0 = time.perf_counter()
+    evaluate.run_dataset(args, runner, infer_cfg, pipeline)
+    secs = time.perf_counter() - t0
+    launches = _launches(("v1",))
+    _check_tokens(out_dir, scenes=1, frames=21)
+    frame_s = list(gen.frame_seconds)
+    print(f"(l) slice-v1, --model_scale stander, B=1, unpacked int8 OAR "
+          f"weights on a bfloat16 cache: per-frame seconds "
+          f"{', '.join(f'{s:.2f}' for s in frame_s)}; launches {launches}; "
+          f"whole run {secs:.1f} s")
+    return {"frame_seconds": frame_s, "launches": launches, "seconds": secs}
+
+
+def phase_step_loops(dev, cfg, packs, steps=64, start=1000, B=2):
+    """64 single-token steps from cache_len 1000, full width and depth,
+    B = 2, on one random cache and one input a step: `Rollout.oar_step` on
+    caller-built 5-D int8 caches with pack_fused's blocks (v3) and with the
+    six-stream ones (v4), and `fused_decode_step_v6` on flat caches, each
+    against `Rollout.oar_step` on flat caches (v5).  v3 and v4: ln_oar(h) of
+    every step and the caches at the end equal v5's bit for bit.  v6: the
+    first step's h equals v5's and layer 0's new rows stay within one grid
+    step; its other rows, from float32, sit up to a grid step from v5's and
+    are attended by the later steps, whose h then drifts from v5's as the
+    re-quantization flips compound through 36 layers — recorded, and held to
+    twice DECODE_RTOL_36, which only a gross fault exceeds."""
+    import torch
+    from umgen_tpu_torch.models import modules as nn
+    from umgen_tpu_torch.models.rollout import Rollout
+    from umgen_tpu_torch.models.umgen import UMGen
+    from umgen_tpu_torch.ops import decode_kernel as dk
+    L, d, H = cfg.n_oar_layer, cfg.n_embd, cfg.n_head
+    S = 2208
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    ro = Rollout(UMGen(cfg.replace(fused_oar_kernel=True,
+                                   oar_cache_dtype="int8",
+                                   tar_mode="temporal_cache")))
+    ln = {"w": (1 + 0.1 * torch.randn(d, generator=g, device=dev)
+                ).to(torch.bfloat16)}
+    cache = _random_cache(g, dev, False, L, B, S, d, H)
+    xs = torch.randn(steps, B, 1, d, generator=g, device=dev
+                     ).to(torch.bfloat16)
+
+    def loop(kind):
+        packed = packs["v4" if kind == "v4" else "v5"]
+        params = {"oar": packs["qoar"], "ln_oar": ln, "oar_packed": packed}
+        kv = [t.clone() for t in cache]
+        if kind in ("v3", "v4"):
+            kv = [t.view(L, B, S, H, d // H) for t in kv]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hs = []
+        for i in range(steps):
+            if kind == "v6":
+                h = nn.layer_norm(ln, dk.fused_decode_step_v6(
+                    packed, xs[i], *kv, start + i, n_head=H)[0])
+            else:
+                h = ro.oar_step(params, xs[i], *kv, start + i)[0]
+            hs.append(h)
+        torch.cuda.synchronize()
+        return torch.stack(hs), [t.reshape(L, B, S, d) for t in kv], \
+            time.perf_counter() - t0
+
+    _reset_launches()
+    h5, kv5, s5 = loop("v5")
+    res = {"steps": steps, "B": B, "v5_seconds": s5}
+    new = slice(start, start + steps)
+    for kind in ("v3", "v4", "v6"):
+        h, kv, secs = loop(kind)
+        same_h = torch.equal(h, h5)
+        same_kv = all(torch.equal(a, b) for a, b in zip(kv, kv5))
+        rel = ((h.float() - h5.float()).abs().amax(dim=(1, 2, 3))
+               / h5.float().abs().amax(dim=(1, 2, 3))).max().item()
+        drow0 = max((a[0, :, new].int() - b[0, :, new].int()).abs().max()
+                    .item() for a, b in zip(kv, kv5))
+        first = torch.equal(h[0], h5[0])
+        res[kind] = {"seconds": secs, "h_equal_v5": same_h,
+                     "caches_equal_v5": same_kv, "h_rel_err_max": rel,
+                     "first_step_h_equal_v5": first,
+                     "layer0_rows_max_steps_from_v5": drow0}
+        print(f"(m) {steps} steps of {kind} from cache_len {start}, B={B}: "
+              f"{secs:.2f} s (v5 {s5:.2f} s); h equal to v5's at every step: "
+              f"{same_h} (first step: {first}; max rel err {rel:.3g}); "
+              f"caches equal: {same_kv}; layer 0's new rows at most {drow0} "
+              "steps from v5's")
+        if kind == "v6":
+            ok = first and math.isfinite(rel) \
+                and rel <= 2 * DECODE_RTOL_36 and drow0 <= 1
+        else:
+            ok = same_h and same_kv
+        if not ok:
+            raise AssertionError(f"step loop of {kind} against v5: "
+                                 f"{res[kind]}")
+    res["launches"] = _launches(("v5", "v3", "v4", "v6"), flash=False)
+    want = {_kernel_name(k): steps for k in ("v5", "v3", "v4", "v6")}
+    got = {k: res["launches"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"step loops launched {got}, expected {want}")
+    return res
 
 
 SERVING_FLAGS = [
@@ -857,8 +1270,19 @@ def _check_stands_alone():
         raise AssertionError(f"the port imported {foreign[:5]}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", nargs="+", default=None, metavar="KEY",
+                    help="run only these phases, by the key of their report "
+                    "(flash decode variants step_loops rollout reference "
+                    "serving serving_reference serving_i4 rollout_i4 "
+                    "serving_i4_reference rollout_bf16kv rollout_v7 "
+                    "rollout_fp8kv rollout_v1 bf16kv_reference), for work "
+                    "on one of them; prints no result line")
+    only = ap.parse_args(argv).phases
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -872,7 +1296,8 @@ def main() -> int:
               "cuda": torch.version.cuda}
     t_start = time.perf_counter()
     try:
-        return _run_phases(dev, smi, report, t_start)
+        return _run_phases(dev, smi, report, t_start,
+                           None if only is None else set(only))
     finally:     # whatever was measured before a failure is kept
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
         with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
@@ -880,35 +1305,93 @@ def main() -> int:
             json.dump(report, f, indent=1)
 
 
-def _run_phases(dev, smi, report, t_start) -> int:
+def _run_phases(dev, smi, report, t_start, only=None) -> int:
+    """Every phase; `only`: the report keys of the phases to run (a partial
+    run prints no result line)."""
+    pending = {}
+    with tempfile.TemporaryDirectory(dir=ROOT) as work_dir:
+        try:
+            return _phases(dev, smi, report, t_start, only, pending,
+                           work_dir)
+        finally:        # no child outlives the run
+            for check in pending.values():
+                check.stop()
+
+
+def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
     import torch
+
+    def want(key):
+        return only is None or key in only
+
     report["build"] = phase_build()
-    report["flash"], flash_err, report["flash_planted"] = phase_flash(dev)
-    report["decode"] = phase_decode(dev)
+    if want("flash"):
+        report["flash"], flash_err, report["flash_planted"] = \
+            phase_flash(dev)
+    cfg, packs, visible = _decode_params(dev)
+    report["decode"] = {}
+    if want("decode"):
+        report["decode"].update(phase_decode(dev, cfg, packs, visible))
+    if want("variants"):
+        report["decode"].update(phase_variants(dev, cfg, packs, visible))
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
-        report["rollout"] = phase_rollout(dev, out_dir)
+    if want("step_loops"):
+        report["step_loops"] = phase_step_loops(dev, cfg, packs)
+    del packs, visible
     torch.cuda.empty_cache()
-    report["reference"] = phase_reference(dev)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
-        report["serving"] = phase_serving(dev, out_dir)
-    torch.cuda.empty_cache()
-    report["serving_reference"] = phase_serving_reference(dev)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
-        report["serving_i4"] = phase_serving(dev, out_dir, tag="g",
-                                             oar_int4=True)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
-        report["rollout_i4"] = phase_rollout(dev, out_dir, tag="h",
-                                             new_frames=2, oar_int4=True)
-    torch.cuda.empty_cache()
-    report["serving_i4_reference"] = phase_serving_reference(
-        dev, tag="i", oar_cache_dtype="int4")
+
+    def rollout(key, **kw):
+        if want(key):
+            with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+                report[key] = phase_rollout(dev, out_dir, **kw)
+            torch.cuda.empty_cache()
+
+    def serving(key, **kw):
+        if want(key):
+            with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+                report[key] = phase_serving(dev, out_dir, **kw)
+            torch.cuda.empty_cache()
+
+    # first the paths at B = 1 and 2, whose frame times the host's launch
+    # rate bounds: nothing else runs on the host meanwhile
+    rollout("rollout")
+    rollout("rollout_i4", tag="h", new_frames=1,
+            flags=("--oar_kv_dtype", "int4"), must=("v5i4", "v5mqi4"))
+    rollout("rollout_bf16kv", tag="j",
+            flags=("--oar_kv_dtype", "bfloat16"), must=("v2",))
+    rollout("rollout_v7", tag="k", flags=("--oar_kernel", "7"), B=2,
+            must=("v7", "v5mq"))
+    rollout("rollout_fp8kv", tag="l", new_frames=1, scale="stander",
+            flags=("--oar_kv_dtype", "float8_e4m3fn"), must=("v2",))
+    if want("rollout_v1"):
+        with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+            report["rollout_v1"] = phase_slice_v1(dev, out_dir)
+        torch.cuda.empty_cache()
+    # then the card-against-CPU checks (d, n, f, i): the card's side of each
+    # runs now, its CPU side in a child process while the card runs the two
+    # serving paths, which the device bounds
+    for key, fn, kw in (
+            ("reference", phase_reference, {}),
+            ("bf16kv_reference", phase_reference,
+             {"tag": "n", "oar_cache_dtype": "bfloat16"}),
+            ("serving_reference", phase_serving_reference, {}),
+            ("serving_i4_reference", phase_serving_reference,
+             {"tag": "i", "oar_cache_dtype": "int4", "B": 1})):
+        if want(key):
+            pending[key] = fn(dev, work_dir, **kw)
+            torch.cuda.empty_cache()
+    serving("serving")
+    serving("serving_i4", tag="g", oar_int4=True)
+    t_wait = time.perf_counter()
+    for key in list(pending):
+        report[key] = pending.pop(key).finish()
+    print(f"waited {time.perf_counter() - t_wait:.1f} s for the CPU sides")
     _check_stands_alone()
     report["seconds"] = time.perf_counter() - t_start
     print(f"all phases {report['seconds']:.1f} s")
+    if only is not None:
+        print(f"ran only {sorted(only)}: no result line")
+        return 0
 
     def pick(rows, **kw):
         return next(r for r in rows if all(r[k] == v for k, v in kw.items()))
@@ -916,7 +1399,7 @@ def _run_phases(dev, smi, report, t_start) -> int:
     def entry(kind, line, launches, **at):
         """One decode kernel's line: its times and bound at the main
         path's shape `at`, its launches on the path that runs it."""
-        name = f"fused_decode_step_{kind}"
+        name = _kernel_name(kind)
         r = pick(dec[kind], **at)
         return {"name": name, "route": "cuda",
                 "source": "umgen_tpu_torch/csrc/decode_step.cu",
@@ -931,6 +1414,10 @@ def _run_phases(dev, smi, report, t_start) -> int:
     serve = report["serving"]["launches"]         # the serving path (e)
     serve4 = report["serving_i4"]["launches"]     # serving-i4 (g)
     slice4 = report["rollout_i4"]["launches"]     # slice-i4 (h)
+    bf16kv = report["rollout_bf16kv"]["launches"]  # slice-bf16kv (j)
+    slice7 = report["rollout_v7"]["launches"]     # slice-v7 (k)
+    slice_v1 = report["rollout_v1"]["launches"]   # slice-v1 (l)
+    loops = report["step_loops"]["launches"]      # the step loops (m)
     # serving-i4 calls flash once a TAR block on its 10 scenes' frame
     f1 = pick(report["flash"], B=10, Sq=2207, causal=False)
     kernels = [
@@ -948,6 +1435,12 @@ def _run_phases(dev, smi, report, t_start) -> int:
         entry("v5mqi4", 3451, slice4, B=1, Q=6, cache_len=0),
         entry("w4i4", 2883, serve4, B=10, cache_len=1100),
         entry("w4mqi4", 3523, serve4, B=10, Q=6, cache_len=0),
+        entry("v1", 186, slice_v1, kv="bfloat16", cache_len=1100),
+        entry("v2", 497, bf16kv, kv="bfloat16", cache_len=1100),
+        entry("v3", 752, loops, cache_len=1100),
+        entry("v4", 1052, loops, cache_len=1100),
+        entry("v6", 1654, loops, cache_len=1100),
+        entry("v7", 2293, slice7, B=2, cache_len=1100),
     ]
     report["kernels"] = kernels
     print(smi)

@@ -275,3 +275,202 @@ def test_plain_divides_as_the_kernel(cuda_device):
     for c in (768.0, 3072.0, 127.0, 1.41421353816986083984375):
         ieee = (x.cpu().double() / c).float()     # correctly rounded
         assert torch.equal(tdk._div(x, c).cpu(), ieee), c
+
+
+# ---------------------------------------------------------------------------
+# v3, v4, v6, v7 (integer logits) and v1, v2 (dense bf16 / fp8 / int8 cache)
+# ---------------------------------------------------------------------------
+def _int8_caches(dev, L, B, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kv = torch.randint(-100, 101, (2, L, B, 2208, 768), generator=g,
+                       device=dev, dtype=torch.int8)
+    x = torch.randn(B, 1, 768, generator=g, device=dev).bfloat16()
+    return kv, x
+
+
+@pytest.mark.parametrize("B,cache_len", [(1, 0), (2, 900), (10, 2207)])
+def test_v3_v4_v6_v7_kernels(cuda_device, B, cache_len):
+    """One layer at the model's width.  v3 and v4 run v5's kernel on the
+    flat view of their 5-D caches: h and the new rows equal v5's bit for
+    bit, and the 5-D caches passed come back written in place.  v6 puts the
+    new rows on the grid from float32: h equals v5's, rows at most one step
+    from v5's and equal to the plain version's.  v7 (one query scale per
+    (scene, head)) against its plain version: bit for bit at cache_len 0,
+    within 2e-2 of h's scale with a prefix."""
+    from umgen_tpu_torch.runtime.quantize import pack_fused_oar_v4
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(0)
+    oar = _Init(g, dev, torch.bfloat16).block_oar(768, 1)
+    q = quantize_params_int8({"oar": oar})["oar"]
+    v5, v4 = pack_decode_weights(q), pack_fused_oar_v4(q)
+    kv, x = _int8_caches(dev, 1, B)
+    k5, v5c = kv[0].clone(), kv[1].clone()
+    h5 = tdk.fused_decode_step_v5(v5, x, k5, v5c, cache_len, n_head=16)[0]
+    for name, packed in (("fused_decode_step_v3", v5),
+                         ("fused_decode_step_v4", v4)):
+        kk = kv[0].clone().view(1, B, 2208, 16, 48)
+        vv = kv[1].clone().view(1, B, 2208, 16, 48)
+        n0 = tdk.LAUNCHES[name]
+        h, kk2, vv2 = getattr(tdk, name)(packed, x, kk, vv, cache_len,
+                                         n_head=16)
+        assert tdk.LAUNCHES[name] == n0 + 1
+        assert kk2 is kk and vv2 is vv and kk.ndim == 5
+        assert torch.equal(h, h5)
+        assert torch.equal(kk.flatten(3), k5) and torch.equal(vv.flatten(3),
+                                                              v5c)
+    with pytest.raises(ValueError, match="contiguous"):
+        bad = kv[0].clone().view(1, B, 2208, 16, 48).transpose(3, 4)
+        tdk.fused_decode_step_v3(v5, x, bad, bad.clone(), cache_len,
+                                 n_head=16)
+    k6, v6 = kv[0].clone(), kv[1].clone()
+    h6 = tdk.fused_decode_step_v6(v5, x, k6, v6, cache_len, n_head=16)[0]
+    kp, vp = kv[0].clone(), kv[1].clone()
+    tdk.decode_step_plain(v5, x, kp, vp, cache_len, 16, rows_f32=True)
+    assert torch.equal(h6, h5)
+    assert torch.equal(k6, kp) and torch.equal(v6, vp)
+    assert (k6.int() - k5.int()).abs().max() <= 1
+    k7, v7 = kv[0].clone(), kv[1].clone()
+    h7 = tdk.fused_decode_step_v7(v5, x, k7, v7, cache_len, n_head=16)[0]
+    ref = tdk.decode_step_plain(v5, x, kp, vp, cache_len, 16,
+                                head_scale=True)
+    rel = ((h7.float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    assert rel <= 2e-2 and (cache_len or torch.equal(h7, ref))
+    assert torch.equal(k7, k5) and torch.equal(v7, v5c)
+
+
+def _dense_caches(dev, dtype, L, B, seed=1):
+    """Random dense caches (values ~N(0, 0.5²)) and x."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kvf = 0.5 * torch.randn(2, L, B, 2208, 768, generator=g, device=dev)
+    x = torch.randn(B, 1, 768, generator=g, device=dev).bfloat16()
+    return [tdk.kv_store(t, dtype) for t in kvf], x
+
+
+def _dense_call(name, v5, oar_q, x, kk, vv, cl):
+    first = oar_q if name == "fused_decode_step" else v5
+    return getattr(tdk, name)(first, x, kk, vv, cl, n_head=16)
+
+
+@pytest.mark.parametrize("name,dtype", [
+    ("fused_decode_step_v2", torch.bfloat16),
+    ("fused_decode_step_v2", torch.float8_e4m3fn),
+    ("fused_decode_step_v2", torch.int8),
+    ("fused_decode_step", torch.bfloat16),
+    ("fused_decode_step", torch.float8_e4m3fn)])
+@pytest.mark.parametrize("B,cache_len", [(1, 0), (2, 900), (1, 2207)])
+def test_dense_kernels_match_plain(cuda_device, name, dtype, B, cache_len):
+    """v2 and v1, one layer at the model's width, every storage type: the
+    kernel keeps the plain version's S-blocks and rounding points, so only
+    the order of float32 sums differs — h within 2e-2 of its scale, bit for
+    bit at cache_len 0; the new rows (one layer: identical inputs) equal in
+    the cache's type, written in place, the rest untouched; a 5-D view of
+    the caches is taken as it is."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(0)
+    oar_q = quantize_params_int8(
+        {"oar": _Init(g, dev, torch.bfloat16).block_oar(768, 1)})["oar"]
+    v5 = pack_decode_weights(oar_q)
+    (kc, vc), x = _dense_caches(dev, dtype, 1, B)
+    kk, vv = kc.clone(), vc.clone()
+    k5d = kk.view(1, B, 2208, 16, 48)
+    n0 = tdk.LAUNCHES[name]
+    h, kk2, vv2 = _dense_call(name, v5, oar_q, x, k5d, vv, cache_len)
+    assert tdk.LAUNCHES[name] == n0 + 1 and kk2 is k5d and vv2 is vv
+    ref = tdk.decode_step_dense_plain(v5, x, kc, vc, cache_len, 16,
+                                      whole_s=name == "fused_decode_step")
+    rel = ((h.float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    assert math.isfinite(rel) and rel <= 2e-2
+    assert cache_len or torch.equal(h, ref)
+    for got, want in ((kk, kc), (vv, vc)):
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert kc[:, :, cache_len].float().abs().max() > 0
+
+
+@pytest.mark.parametrize("name,dtype", [
+    ("fused_decode_step_v2", torch.bfloat16),
+    ("fused_decode_step_v2", torch.float8_e4m3fn),
+    ("fused_decode_step_v2", torch.int8),
+    ("fused_decode_step", torch.bfloat16),
+    ("fused_decode_step", torch.float8_e4m3fn),
+    ("fused_decode_step_v7", torch.int8)])
+@pytest.mark.parametrize("B,cache_len", [(2, 900), (1, 2207)])
+def test_variant_prefix_attention_matches_plain(cuda_device, name, dtype, B,
+                                                cache_len):
+    """The prefix attention of v1, v2 and v7 read by itself (the layer whose
+    output projection is the identity; see the int4 test above): max error
+    within 2e-2 of max |y|, mean within 2^-7 of mean |y|.  A prefix one
+    32-row block short must fail that."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(0)
+    oar = _Init(g, dev, torch.bfloat16).block_oar(768, 1)
+    oar["attn"]["proj"]["w"] = torch.eye(768, device=dev).bfloat16()[None]
+    oar["mlp"]["proj"]["w"] = torch.zeros_like(oar["mlp"]["proj"]["w"])
+    oar_q = quantize_params_int8({"oar": oar})["oar"]
+    v5 = pack_decode_weights(oar_q)
+    if name.endswith("v7"):
+        (kc, vc), x = _int8_caches(dev, 1, B)
+    else:
+        (kc, vc), x = _dense_caches(dev, dtype, 1, B)
+    x = (x.float() * 2.0 ** -6).bfloat16()
+
+    def plain(k, v, cl):
+        if name.endswith("v7"):
+            h = tdk.decode_step_plain(v5, x, k.clone(), v.clone(), cl, 16,
+                                      head_scale=True)
+        else:
+            h = tdk.decode_step_dense_plain(
+                v5, x, k.clone(), v.clone(), cl, 16,
+                whole_s=name == "fused_decode_step")
+        return h.float() - x.float()
+
+    def ok(y, ref):
+        d, r = (y - ref).abs(), ref.abs()
+        return (d.max() <= 2e-2 * r.max()
+                and d.mean() <= 2.0 ** -7 * r.mean()).item()
+
+    y = _dense_call(name, v5, oar_q, x, kc.clone(), vc.clone(),
+                    cache_len)[0].float() - x.float()
+    assert ok(y, plain(kc, vc, cache_len))
+    assert not ok(y, plain(kc[:, :, 32:], vc[:, :, 32:], cache_len - 32))
+
+
+def test_dense_kernel_takes_segment_views(cuda_device):
+    """A prefix view of a bf16 cache (as `Rollout._sliced` hands out, S =
+    1032: three S-blocks of 344 rows): the kernel takes its strides, the
+    new row lands in the full cache."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(0)
+    v5 = pack_decode_weights(quantize_params_int8(
+        {"oar": _Init(g, dev, torch.bfloat16).block_oar(768, 2)})["oar"])
+    (kc, vc), x = _dense_caches(dev, torch.bfloat16, 2, 3)
+    fk, fv = kc.clone(), vc.clone()
+    h, *_ = tdk.fused_decode_step_v2(v5, x, fk[:, :, :1032], fv[:, :, :1032],
+                                     1000, n_head=16)
+    rk, rv = kc[:, :, :1032].clone(), vc[:, :, :1032].clone()
+    ref = tdk.decode_step_dense_plain(v5, x, rk, rv, 1000, 16)
+    rel = ((h.float() - ref.float()).abs().max() / ref.float().abs().max())
+    assert rel.item() <= 2e-2
+    for f, r, orig in ((fk, rk, kc), (fv, rv, vc)):
+        assert torch.equal(f[0, :, :1032], r[0])          # layer 0: equal
+        assert not torch.equal(f[:, :, 1000], orig[:, :, 1000])
+        assert torch.equal(f[:, :, 1032:], orig[:, :, 1032:])
+        assert torch.equal(f[:, :, :1000], orig[:, :, :1000])
+
+
+def test_fp8_rows_saturate_as_the_plain_version(cuda_device):
+    """K/V beyond ±448 (a K bias of 600 here) saturate in the kernel's fp8
+    store exactly as in `kv_store` on the card; JAX's conversion would give
+    NaN (ROADMAP.md Queue 3)."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(0)
+    oar = _Init(g, dev, torch.bfloat16).block_oar(768, 1)
+    oar["attn"]["qkv"]["b"][:, 768:1536] = 600.0
+    v5 = pack_decode_weights(quantize_params_int8({"oar": oar})["oar"])
+    (kc, vc), x = _dense_caches(dev, torch.float8_e4m3fn, 1, 1)
+    kk, vv = kc.clone(), vc.clone()
+    tdk.fused_decode_step_v2(v5, x, kk, vv, 5, n_head=16)
+    tdk.decode_step_dense_plain(v5, x, kc, vc, 5, 16)
+    assert torch.equal(kk.view(torch.uint8), kc.view(torch.uint8))
+    assert kk[0, 0, 5].float().max().item() == 448.0

@@ -63,6 +63,17 @@ def test_cli_serves_the_int4_oar_cache(tmp_path):
     _run_cli(tmp_path, "--oar_kv_dtype", "int4")
 
 
+@pytest.mark.parametrize("flags", [
+    ("--oar_kv_dtype", "bfloat16"), ("--oar_kv_dtype", "float8_e4m3fn"),
+    ("--oar_kernel", "7")], ids=["bf16kv", "fp8kv", "v7"])
+def test_cli_serves_the_dense_oar_caches_and_v7(tmp_path, flags):
+    """`--fused_oar --oar_kv_dtype bfloat16|float8_e4m3fn` (v2's plain
+    version for the single-token steps, the eager body for the pushes) and
+    `--oar_kernel 7` (v7's) on the CPU: a frame decodes, token pickles of
+    the right shapes, no JAX imported."""
+    _run_cli(tmp_path, *flags)
+
+
 def _port_sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     for base, _, files in os.walk(os.path.join(ROOT, "umgen_tpu_torch")):

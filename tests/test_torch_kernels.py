@@ -157,9 +157,10 @@ def test_decode_plain_matches_jax(interpret, Q, cache_len):
         diff = np.abs(np.asarray(ref, np.int32) - got.numpy().astype(np.int32))
         assert diff.max() <= 1
         assert (diff == 0).mean() > 0.999
-    assert tdk.LAUNCHES == {f"fused_decode_step_{v}": 0
-                            for v in ("v5", "v5mq", "w4", "w4mq", "v5i4",
-                                      "v5mqi4", "w4i4", "w4mqi4")}
+    assert tdk.LAUNCHES == {f"fused_decode_step{v}": 0
+                            for v in ("_v5", "_v5mq", "_w4", "_w4mq", "_v5i4",
+                                      "_v5mqi4", "_w4i4", "_w4mqi4", "",
+                                      "_v2", "_v3", "_v4", "_v6", "_v7")}
 
 
 def test_decode_plain_blocking_matches_reference():

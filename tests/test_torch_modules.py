@@ -260,7 +260,7 @@ def test_samplers():
 @pytest.mark.parametrize("flags,item", [
     (["--tar_mode", "recompute"], "Recompute mode"),
     (["--kv_dtype", "float8_e4m3fn"], "TAR rings"),
-    (["--oar_kv_dtype", "bfloat16"], "Unfused and bf16 OAR caches"),
+    (["--oar_kv_dtype", "float16"], "as if it were fp8"),
     (["--kv_dtype", "int2"], "TAR rings"),
     (["--speculative_k", "4"], "Speculative decoding"),
     (["--dp", "2"], "Multi-GPU"),
@@ -269,7 +269,7 @@ def test_samplers():
     (["--tar_cache_refresh", "2"], "Ring refresh"),
     (["--temporal_pe", "relative"], "Relative temporal PE"),
     (["--oar_batch_block", "5"], "VMEM-driven blockings"),
-    (["--oar_kernel", "7"], "Superseded decode variants"),
+    (["--oar_kv_dtype", "float32"], "served are int8, int4, bfloat16"),
     (["--infer_task", "control"], "Control mode"),
 ])
 def test_cli_rejects_flags_outside_the_port(flags, item):
@@ -293,13 +293,18 @@ def test_cli_rejects_flags_outside_the_port(flags, item):
     ["--kv_dtype", "int4", "--int8", "all", "--chunked_prefill",
      "--tar_cache_window", "8", "--batch_size", "10", "--oar_kv_dtype",
      "int4"],
+    ["--kv_dtype", "bfloat16", "--int8", "decode", "--oar_kv_dtype",
+     "bfloat16"],
+    ["--kv_dtype", "bfloat16", "--oar_kv_dtype", "float8_e4m3fn"],
+    ["--kv_dtype", "bfloat16", "--batch_size", "2", "--oar_kernel", "7"],
 ])
 def test_cli_serves_flag_sets_as_jax_maps_them(flags):
     """The served flag sets (int4 rings, int8 on every stack, chunked
-    prefill, a ring window, any batch, the int4 OAR cache) pass check_args
-    and give the ModelConfig the JAX CLI gives them, field for field (the
-    port's own ModelConfig class, so compared by fields; with --kv_dtype
-    int4 its OAR cache stays int8 unless --oar_kv_dtype int4 asks)."""
+    prefill, a ring window, any batch, the int4 / bfloat16 / fp8 OAR cache,
+    --oar_kernel 7) pass check_args and give the ModelConfig the JAX CLI
+    gives them, field for field (the port's own ModelConfig class, so
+    compared by fields; with --kv_dtype int4 its OAR cache stays int8
+    unless --oar_kv_dtype asks)."""
     import dataclasses
 
     from umgen_tpu.tools import evaluate as jevaluate
@@ -310,8 +315,10 @@ def test_cli_serves_flag_sets_as_jax_maps_them(flags):
     want = jevaluate.config_from_args(jevaluate.build_parser().parse_args(
         argv))
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    assert got.oar_cache_dtype == ("int4" if "--oar_kv_dtype" in flags
-                                   and "int4" == flags[-1] else "int8")
+    assert got.oar_cache_dtype == (
+        flags[flags.index("--oar_kv_dtype") + 1] if "--oar_kv_dtype" in flags
+        else "int8")
+    assert got.oar_kernel_version == (7 if "--oar_kernel" in flags else 5)
 
 
 def test_cli_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):

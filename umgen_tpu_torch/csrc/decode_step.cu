@@ -11,7 +11,20 @@
 //     `fused_decode_step_w4i4` / `fused_decode_step_w4mqi4` (`_kernel_v5i4`,
 //     `_kernel_w4i4`, `_mq_call` with int4=True): the same steps on the
 //     nibble-packed int4 KV cache, entries `umgen_decode_step_i4` and
-//     `umgen_decode_step_w4_i4`.
+//     `umgen_decode_step_w4_i4`;
+//   * `fused_decode_step_v3` and `_v4` (`_kernel_v3`, `_kernel_v4`): the v5
+//     arithmetic on a 5-D int8 cache [L, B, S, H, Dh], whose memory is the
+//     flat cache's — `umgen_decode_step` on the view; v4's six weight streams
+//     are a TPU DMA schedule, the kernel reads the one output-major layout;
+//   * `fused_decode_step_v6` (`_kernel_v6`): v5 with the new rows put on the
+//     int8 grid from float32 (flag STEP_ROWS_F32) — its in-place append is
+//     what every entry here does;
+//   * `fused_decode_step_v7` (`_kernel_v7`): v5 with one query scale per
+//     (scene, head) (flag STEP_HEAD_SCALE), any B;
+//   * `fused_decode_step_v2` (`_kernel_v2`) and `fused_decode_step` (v1,
+//     `_kernel`): int8 weights on a bf16 / fp8 (e4m3) / int8-grid cache read
+//     as bf16, entry `umgen_decode_step_dense` (see "Dense-cache attention"
+//     below).
 // Per layer: LN1 → QKV → attention over the int8 KV prefix plus the chunk's
 // own rows (causal within the chunk) → proj + residual → LN2 → fc → GELU
 // (Abramowitz & Stegun erf) → proj + residual.  Activations are quantized
@@ -62,7 +75,13 @@
 // bounds B·Q.  The design is simple and right first; it is launch-bound
 // (~360 launches a step).  Graph capture or a persistent kernel, wgmma/TMA
 // weight streams and wider attention splits are the next steps for speed.
+// A bf16 cache doubles the KV stream (2 x 1536 B a cached row a layer a scene,
+// up to 244 MB a scene at 2208 rows), fp8 equals int8's; the dense step
+// launches twelve kernels a layer (~430 a step) and is launch-bound
+// like the others.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -339,17 +358,28 @@ __device__ __forceinline__ int quant_i4(float xb, float inv) {
 // layout), quantize the chunk's queries with one scale per scene, and fold
 // the intra-chunk causal attention (query i over chunk keys j <= i) into the
 // flash state (m0, den0, acc0).  cq = scale/16 (int8) or scale/7 (int4).
+// Flags, for the int8 cache: STEP_ROWS_F32 puts the new rows on the grid from
+// their float32 values (TPU v6) instead of their bf16 rounding;
+// STEP_HEAD_SCALE quantizes the queries with one scale per (scene, head)
+// (TPU v7) instead of one per scene.  factor [B, H] holds sq·cq per head
+// either way.
+constexpr int STEP_HEAD_SCALE = 1;
+constexpr int STEP_ROWS_F32 = 2;
+
 __global__ void attn_prep_kernel(const float* __restrict__ qkv, int Q, int H,
                                  int Dh, Cache c, int cl, float scale,
-                                 float cq, int8_t* __restrict__ qp,
+                                 float cq, int flags,
+                                 int8_t* __restrict__ qp,
                                  float* __restrict__ factor,
                                  float* __restrict__ m0,
                                  float* __restrict__ den0,
                                  float* __restrict__ acc0) {
   __shared__ float red[32];
+  __shared__ float sqh[ATT_THREADS];   // per-head query scales (H <= 128)
   const int b = blockIdx.x;
   const int HD = H * Dh;
   const float* base = qkv + (long long)b * Q * 3 * HD;
+  const bool rows_f32 = (flags & STEP_ROWS_F32) != 0;
   float amax = 0.f;
   for (int i = threadIdx.x; i < Q * HD; i += blockDim.x) {
     const int qi = i / HD, e = i % HD;
@@ -357,10 +387,10 @@ __global__ void attn_prep_kernel(const float* __restrict__ qkv, int Q, int H,
     if (c.ks == nullptr) {
       const long long dst =
           b * c.batch_stride + (long long)(cl + qi) * HD + e;
-      c.k[dst] = (int8_t)fminf(
-          fmaxf(rintf(bf16r(row[HD + e]) * 16.f), -127.f), 127.f);
-      c.v[dst] = (int8_t)fminf(
-          fmaxf(rintf(bf16r(row[2 * HD + e]) * 16.f), -127.f), 127.f);
+      const float kx = rows_f32 ? row[HD + e] : bf16r(row[HD + e]);
+      const float vx = rows_f32 ? row[2 * HD + e] : bf16r(row[2 * HD + e]);
+      c.k[dst] = (int8_t)fminf(fmaxf(rintf(kx * 16.f), -127.f), 127.f);
+      c.v[dst] = (int8_t)fminf(fmaxf(rintf(vx * 16.f), -127.f), 127.f);
     }
     amax = fmaxf(amax, fabsf(row[e]));
   }
@@ -392,12 +422,25 @@ __global__ void attn_prep_kernel(const float* __restrict__ qkv, int Q, int H,
     }
   }
   const float sq = block_max(amax, red) / 127.f + 1e-12f;
+  for (int hh = threadIdx.x; hh < H; hh += blockDim.x) {
+    float s = sq;
+    if (flags & STEP_HEAD_SCALE) {
+      float hmax = 0.f;
+      for (int qi = 0; qi < Q; ++qi)
+        for (int d = 0; d < Dh; ++d)
+          hmax = fmaxf(hmax,
+                       fabsf(base[(long long)qi * 3 * HD + hh * Dh + d]));
+      s = hmax / 127.f + 1e-12f;
+    }
+    sqh[hh] = s;
+    factor[b * H + hh] = s * cq;
+  }
+  __syncthreads();
   for (int i = threadIdx.x; i < Q * HD; i += blockDim.x) {
     const int qi = i / HD, e = i % HD;
     qp[(long long)b * Q * HD + i] = quant_i8(base[(long long)qi * 3 * HD + e],
-                                             sq);
+                                             sqh[e / Dh]);
   }
-  if (threadIdx.x == 0) factor[b] = sq * cq;
   for (int pr = threadIdx.x; pr < Q * H; pr += blockDim.x) {
     const int qi = pr / H, hh = pr % H;
     const float* qrow = base + (long long)qi * 3 * HD + hh * Dh;
@@ -451,7 +494,7 @@ attn_split_kernel(Cache c, int cl, int Q, int H,
                                     hh * DH);
 #pragma unroll
   for (int w = 0; w < W; ++w) qv[w] = qsrc[w];
-  const float f = factor[b];
+  const float f = factor[b * H + hh];
   const int shift = (I4 && hh >= H / 2) ? 4 : 0;
   int qsum8 = 0;                    // 8·Σ of the head's int8 query values
   if (I4) {
@@ -571,6 +614,243 @@ attn_combine_kernel(int Q, int H, int nblk, const float* __restrict__ m0,
     yq[(long long)b * Q * HD + i] = quant_i8(ys[i], rmax[i / HD]);
 }
 
+// ---------------------------------------------------------------------------
+// Dense-cache attention (TPU v2, and v1 with `whole`): the cache holds bf16,
+// fp8 (e4m3) or int8-grid rows that are read as bf16 — not the integer
+// logits of the steps above.  One new row a scene (Q = 1).  The reference's
+// rounding points are kept: q to bf16; every product k·q to bf16, a head's
+// sum in float32, × scale; the self logit from bf16(k_new·q); per S-block of
+// `bs` rows the unnormalized weight p = exp(logit − m') to bf16, bf16(p)·v to
+// bf16, the block's rows summed in float32 and the sum rounded to bf16, the
+// rescale exp(m − m') and the final denominator rounded to bf16; the self term
+// seeds the state (m = self logit, den = 1, acc = v_new).  `whole`: one block
+// over all of S, the normalized weights ep / denom rounded to bf16, and the
+// self term added as bf16(es / denom)·v_new.  The TPU kernel walks the
+// S-blocks one after another on one core; here the logits of all rows are
+// taken first (one thread a (row, head)), one warp a (scene, head) then
+// walks the S-blocks for the running maxima and the denominator, the value
+// sums are taken in 32-row sub-blocks of the S-blocks by one thread a lane,
+// and a last pass folds the sub-blocks block by block.  Only the order of
+// the float32 sums inside a block differs from a serial walk.
+enum DenseType { KV_BF16 = 0, KV_FP8 = 1, KV_I8 = 2 };
+constexpr int SUB_ROWS = 32;      // cache rows of one value-sum sub-block
+constexpr int LOGIT_ROWS = 16;    // cache rows of one logits block
+
+template <int CODE>
+__device__ __forceinline__ float kv_elem(const void* row, int i) {
+  if constexpr (CODE == KV_BF16) {
+    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(row)[i]);
+  } else if constexpr (CODE == KV_FP8) {
+    const __half_raw hr = __nv_cvt_fp8_to_halfraw(
+        reinterpret_cast<const __nv_fp8_storage_t*>(row)[i], __NV_E4M3);
+    return __half2float(__half(hr));
+  } else {
+    return (float)reinterpret_cast<const int8_t*>(row)[i] * 0.0625f;
+  }
+}
+
+// xb: a bf16 value.  fp8: a second rounding, saturating at ±448 as
+// PyTorch's conversion does; int8: round(xb·16), clip.
+template <int CODE>
+__device__ __forceinline__ void kv_put(void* row, int i, float xb) {
+  if constexpr (CODE == KV_BF16) {
+    reinterpret_cast<__nv_bfloat16*>(row)[i] = __float2bfloat16_rn(xb);
+  } else if constexpr (CODE == KV_FP8) {
+    reinterpret_cast<__nv_fp8_storage_t*>(row)[i] =
+        __nv_cvt_float_to_fp8(xb, __NV_SATFINITE, __NV_E4M3);
+  } else {
+    reinterpret_cast<int8_t*>(row)[i] =
+        (int8_t)fminf(fmaxf(rintf(xb * 16.f), -127.f), 127.f);
+  }
+}
+
+// bytes of one stored value
+#define KV_BYTES(CODE) ((CODE) == KV_BF16 ? 2 : 1)
+
+// Per scene (one block): the new K/V row into the caches at cl, the bf16
+// queries, and the self logit of each head into m0.
+template <int CODE>
+__global__ void dense_prep_kernel(const float* __restrict__ qkv, int H, int Dh,
+                                  Cache c, int cl, float scale,
+                                  float* __restrict__ dq,
+                                  float* __restrict__ m0) {
+  const int b = blockIdx.x;
+  const int HD = H * Dh;
+  const float* row = qkv + (long long)b * 3 * HD;
+  const long long dst =
+      b * c.batch_stride + (long long)cl * HD * KV_BYTES(CODE);
+  for (int e = threadIdx.x; e < HD; e += blockDim.x) {
+    kv_put<CODE>(c.k + dst, e, bf16r(row[HD + e]));
+    kv_put<CODE>(c.v + dst, e, bf16r(row[2 * HD + e]));
+    dq[(long long)b * HD + e] = bf16r(row[e]);
+  }
+  for (int hh = threadIdx.x; hh < H; hh += blockDim.x) {
+    float s = 0.f;
+    for (int d = 0; d < Dh; ++d)
+      s += bf16r(row[HD + hh * Dh + d] * row[hh * Dh + d]);
+    m0[b * H + hh] = s * scale;
+  }
+}
+
+// logits [B, S, H] of the rows below cl: block (blk, b) takes LOGIT_ROWS
+// rows, one thread a (row, head); a product of two bf16 values is exact in
+// float32, so bf16r of it is the bf16 product.
+template <int CODE>
+__global__ void dense_logits_kernel(Cache c, int cl, int S, int H, int Dh,
+                                    float scale, const float* __restrict__ dq,
+                                    float* __restrict__ dlog) {
+  extern __shared__ float qs[];   // [HD]
+  const int b = blockIdx.y;
+  const int HD = H * Dh;
+  for (int e = threadIdx.x; e < HD; e += blockDim.x)
+    qs[e] = dq[(long long)b * HD + e];
+  __syncthreads();
+  constexpr int PER16 = 16 / KV_BYTES(CODE);
+  const int s0 = blockIdx.x * LOGIT_ROWS;
+  for (int t = threadIdx.x; t < LOGIT_ROWS * H; t += blockDim.x) {
+    const int s = s0 + t / H, hh = t % H;
+    if (s >= cl) continue;
+    const int8_t* krow = c.k + b * c.batch_stride +
+                         ((long long)s * HD + hh * Dh) * KV_BYTES(CODE);
+    const float* q = qs + hh * Dh;
+    float sum = 0.f;
+    for (int ch = 0; ch < Dh / PER16; ++ch) {
+      const uint4 w = __ldg(reinterpret_cast<const uint4*>(krow) + ch);
+#pragma unroll
+      for (int j = 0; j < PER16; ++j)
+        sum += bf16r(kv_elem<CODE>(&w, j) * q[ch * PER16 + j]);
+    }
+    dlog[((long long)b * S + s) * H + hh] = sum * scale;
+  }
+}
+
+// One warp a (scene, head) walks the S-blocks: running maximum dm[j] after
+// block j, its bf16 rescale dcorr[j] = bf16(exp(m − m')), and the denominator
+// (den·corr + Σ p, from 1), left in dden rounded to bf16.  `whole`: one
+// block, m = max(prefix, self), denom = Σ ep + es left in dden in float32,
+// and the self weight bf16(es / denom) in dcorr[0].
+__global__ void dense_stats_kernel(int cl, int S, int H, int bs, int nb,
+                                   int nsb, int whole,
+                                   const float* __restrict__ dlog,
+                                   const float* __restrict__ m0,
+                                   float* __restrict__ dm,
+                                   float* __restrict__ dcorr,
+                                   float* __restrict__ dden) {
+  const int b = blockIdx.x;
+  const int hh = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (hh >= H) return;
+  const float self = m0[b * H + hh];
+  const float* lg = dlog + (long long)b * S * H + hh;
+  float m = self, den = 1.f;
+  for (int j = 0; j < nb; ++j) {
+    const int s0 = j * bs, s1 = min(cl, s0 + bs);
+    float mx = -CUDART_INF_F;
+    for (int s = s0 + lane; s < s1; s += 32)
+      mx = fmaxf(mx, lg[(long long)s * H]);
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float mnew = fmaxf(m, mx);
+    float sum = 0.f;
+    for (int s = s0 + lane; s < s1; s += 32)
+      sum += expf(lg[(long long)s * H] - mnew);
+    for (int o = 16; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float corr = expf(m - mnew);
+    // whole: den = 1 stands for the self term's exp(self − self); rescaled
+    // by corr it is es, so Σ ep + corr is the reference's denominator
+    den = whole ? sum + corr : den * corr + sum;
+    if (lane == 0) {
+      const long long idx = ((long long)b * nsb + j) * H + hh;
+      dm[idx] = mnew;
+      dcorr[idx] = bf16r(whole ? corr / den : corr);
+    }
+    m = mnew;
+  }
+  if (lane == 0) {
+    if (nb == 0 && whole) {
+      const long long idx = (long long)b * nsb * H + hh;
+      dm[idx] = self;
+      dcorr[idx] = 1.f;            // bf16(es / denom), es = denom = 1
+    }
+    dden[b * H + hh] = whole ? den : bf16r(den);
+  }
+}
+
+// Value sums of sub-block blk = (S-block j, part i): rows [j·bs + 32i, +32)
+// inside the block and below cl.  The weights of the sub-block's (row, head)
+// pairs go to shared memory first — bf16(exp(logit − dm[j])), or with `whole`
+// bf16(exp(logit − m) / denom) — then thread e sums bf16(w·v[row, e]) over
+// the rows in float32.
+template <int CODE>
+__global__ void dense_mix_kernel(Cache c, int cl, int S, int H, int Dh,
+                                 int bs, int nsub_per, int nsb, int nsub,
+                                 int whole, const float* __restrict__ dlog,
+                                 const float* __restrict__ dm,
+                                 const float* __restrict__ dden,
+                                 float* __restrict__ dpacc) {
+  extern __shared__ float wsm[];   // [SUB_ROWS][H]
+  const int blk = blockIdx.x, b = blockIdx.y;
+  const int HD = H * Dh;
+  const int j = blk / nsub_per, i = blk % nsub_per;
+  const int s0 = j * bs + i * SUB_ROWS;
+  const int s1 = min(min(cl, (j + 1) * bs), s0 + SUB_ROWS);
+  for (int t = threadIdx.x; t < SUB_ROWS * H; t += blockDim.x) {
+    const int s = s0 + t / H, hh = t % H;
+    if (s >= s1) continue;
+    const float m = dm[((long long)b * nsb + j) * H + hh];
+    const float p = expf(dlog[((long long)b * S + s) * H + hh] - m);
+    wsm[t] = bf16r(whole ? p / dden[b * H + hh] : p);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < HD; e += blockDim.x) {
+    const int hh = e / Dh;
+    float acc = 0.f;
+    for (int s = s0; s < s1; ++s) {
+      const int8_t* vrow = c.v + b * c.batch_stride +
+                           (long long)s * HD * KV_BYTES(CODE);
+      acc += bf16r(wsm[(s - s0) * H + hh] * kv_elem<CODE>(vrow, e));
+    }
+    dpacc[((long long)b * nsub + blk) * HD + e] = acc;
+  }
+}
+
+// Per scene (one block, one thread a lane): fold the sub-blocks S-block by
+// S-block — acc = acc·bf16(corr) + bf16(Σ sub-blocks) from acc = v_new, then
+// y = acc / bf16(den); `whole`: y = bf16(Σ) + bf16(es / denom)·v_new — and
+// quantize the row for the output projection.
+__global__ void dense_finish_kernel(const float* __restrict__ qkv, int H,
+                                    int Dh, int nb, int nsub_per, int nsb,
+                                    int nsub, int whole,
+                                    const float* __restrict__ dcorr,
+                                    const float* __restrict__ dden,
+                                    const float* __restrict__ dpacc,
+                                    int8_t* __restrict__ yq,
+                                    float* __restrict__ sa) {
+  __shared__ float red[32];
+  const int b = blockIdx.x, e = threadIdx.x;
+  const int HD = H * Dh, hh = e / Dh;
+  const float vnew = qkv[(long long)b * 3 * HD + 2 * HD + e];
+  float y;
+  if (whole) {
+    float sum = 0.f;
+    for (int i = 0; i < nb * nsub_per; ++i)
+      sum += dpacc[((long long)b * nsub + i) * HD + e];
+    y = bf16r(sum) + dcorr[(long long)b * nsb * H + hh] * vnew;
+  } else {
+    float acc = vnew;
+    for (int j = 0; j < nb; ++j) {
+      float sum = 0.f;
+      for (int i = 0; i < nsub_per; ++i)
+        sum += dpacc[((long long)b * nsub + j * nsub_per + i) * HD + e];
+      acc = acc * dcorr[((long long)b * nsb + j) * H + hh] + bf16r(sum);
+    }
+    y = acc / dden[b * H + hh];
+  }
+  const float s = block_max(fabsf(y), red) / 127.f + 1e-12f;
+  yq[(long long)b * HD + e] = quant_i8(y, s);
+  if (e == 0) sa[b] = s;
+}
+
 size_t align_up(size_t x) { return (x + 255) & ~size_t(255); }
 
 struct Workspace {
@@ -579,7 +859,7 @@ struct Workspace {
   float* sa;      // [R] activation scales
   float* qkv;     // [R, 3d]
   int8_t* qp;     // [B, Q, d] quantized queries
-  float* factor;  // [B]
+  float* factor;  // [B, H]
   float* m0;      // [B, Q*H]
   float* den0;    // [B, Q*H]
   float* acc0;    // [B, Q, d]
@@ -587,25 +867,43 @@ struct Workspace {
   float* pl;      // [B, nblk, Q*H]
   float* pacc;    // [B, nblk, Q, d]
   float* hid;     // [R, 4d]
+  // the dense-cache steps (Q = 1)
+  float* dq;      // [B, d] bf16-rounded queries
+  float* dlog;    // [B, S, H] prefix logits
+  float* dm;      // [B, NSB, H] running maximum after each S-block
+  float* dcorr;   // [B, NSB, H] bf16 rescale of each S-block (v1: self weight)
+  float* dden;    // [B, H] bf16 denominator (v1: float32)
+  float* dpacc;   // [B, NSUB, d] float32 value sums of the 32-row sub-blocks
 };
+
+// S-blocks hold at least 64 rows (or all of S), sub-blocks 32 rows
+size_t dense_max_blocks(int S) { return (size_t)S / 64 + 2; }
+size_t dense_max_subs(int S) { return (size_t)S / 32 + dense_max_blocks(S) + 1; }
 
 size_t workspace_layout(int B, int Q, int d, int H, int S, char* base,
                         Workspace* ws) {
   const size_t R = (size_t)B * Q;
   const size_t nblk = (S + SPLIT_ROWS - 1) / SPLIT_ROWS;
-  const size_t sizes[13] = {
+  const size_t nsb = dense_max_blocks(S), nsub = dense_max_subs(S);
+  constexpr int NSLOT = 19;
+  const size_t sizes[NSLOT] = {
       R * d * 4,        R * 4 * d,        R * 4,
-      R * 3 * d * 4,    R * d,            (size_t)B * 4,
+      R * 3 * d * 4,    R * d,            (size_t)B * H * 4,
       R * H * 4,        R * H * 4,        R * d * 4,
       B * nblk * Q * H * 4, B * nblk * Q * H * 4, B * nblk * Q * d * 4,
-      R * 4 * d * 4};
-  void** slots[13] = {(void**)&ws->h,    (void**)&ws->aq,   (void**)&ws->sa,
-                      (void**)&ws->qkv,  (void**)&ws->qp,   (void**)&ws->factor,
-                      (void**)&ws->m0,   (void**)&ws->den0, (void**)&ws->acc0,
-                      (void**)&ws->pm,   (void**)&ws->pl,   (void**)&ws->pacc,
-                      (void**)&ws->hid};
+      R * 4 * d * 4,
+      (size_t)B * d * 4, (size_t)B * S * H * 4, B * nsb * H * 4,
+      B * nsb * H * 4,  (size_t)B * H * 4, B * nsub * d * 4};
+  void** slots[NSLOT] = {
+      (void**)&ws->h,    (void**)&ws->aq,   (void**)&ws->sa,
+      (void**)&ws->qkv,  (void**)&ws->qp,   (void**)&ws->factor,
+      (void**)&ws->m0,   (void**)&ws->den0, (void**)&ws->acc0,
+      (void**)&ws->pm,   (void**)&ws->pl,   (void**)&ws->pacc,
+      (void**)&ws->hid,  (void**)&ws->dq,   (void**)&ws->dlog,
+      (void**)&ws->dm,   (void**)&ws->dcorr, (void**)&ws->dden,
+      (void**)&ws->dpacc};
   size_t off = 0;
-  for (int i = 0; i < 13; ++i) {
+  for (int i = 0; i < NSLOT; ++i) {
     if (base != nullptr) *slots[i] = base + off;
     off += align_up(sizes[i]);
   }
@@ -614,9 +912,11 @@ size_t workspace_layout(int B, int Q, int d, int H, int S, char* base,
 
 template <int DH, bool I4>
 cudaError_t attention(const Workspace& w, int B, int Q, int H, const Cache& c,
-                      int cl, float scale, float cq, cudaStream_t st) {
-  attn_prep_kernel<<<B, 256, 0, st>>>(w.qkv, Q, H, DH, c, cl, scale, cq, w.qp,
-                                      w.factor, w.m0, w.den0, w.acc0);
+                      int cl, float scale, float cq, int flags,
+                      cudaStream_t st) {
+  attn_prep_kernel<<<B, 256, 0, st>>>(w.qkv, Q, H, DH, c, cl, scale, cq,
+                                      flags, w.qp, w.factor, w.m0, w.den0,
+                                      w.acc0);
   const int nblk = (cl + SPLIT_ROWS - 1) / SPLIT_ROWS;
   if (nblk > 0)
     attn_split_kernel<DH, I4><<<dim3(nblk, B), ATT_THREADS, 0, st>>>(
@@ -624,6 +924,43 @@ cudaError_t attention(const Workspace& w, int B, int Q, int H, const Cache& c,
   const size_t smem = (size_t)Q * H * DH * sizeof(float);
   attn_combine_kernel<DH><<<B, ATT_THREADS, smem, st>>>(
       Q, H, nblk, w.m0, w.den0, w.acc0, w.pm, w.pl, w.pacc, w.aq, w.sa);
+  return cudaGetLastError();
+}
+
+// The dense-cache attention of one layer (see dense_prep_kernel above).
+struct DenseMode {
+  int code;    // DenseType; -1: the integer-logit attention
+  int bs;      // rows of an S-block
+  int whole;   // one block over all of S, normalized weights (TPU v1)
+};
+
+template <int CODE>
+cudaError_t dense_attention(const Workspace& w, int B, int H, int Dh, int S,
+                            const Cache& c, int cl, float scale,
+                            const DenseMode& dm, cudaStream_t st) {
+  const int HD = H * Dh;
+  const int nb = (cl + dm.bs - 1) / dm.bs;
+  const int nsub_per = (dm.bs + SUB_ROWS - 1) / SUB_ROWS;
+  const int nsb = (int)dense_max_blocks(S), nsub = (int)dense_max_subs(S);
+  if (nb > nsb || nb * nsub_per > nsub || HD > 1024 || HD % 32 || H > 32)
+    return cudaErrorInvalidValue;
+  dense_prep_kernel<CODE><<<B, 256, 0, st>>>(w.qkv, H, Dh, c, cl, scale, w.dq,
+                                             w.m0);
+  if (cl > 0)
+    dense_logits_kernel<CODE>
+        <<<dim3((cl + LOGIT_ROWS - 1) / LOGIT_ROWS, B), 256,
+           HD * sizeof(float), st>>>(c, cl, S, H, Dh, scale, w.dq, w.dlog);
+  dense_stats_kernel<<<B, 32 * H, 0, st>>>(cl, S, H, dm.bs, nb, nsb, dm.whole,
+                                           w.dlog, w.m0, w.dm, w.dcorr,
+                                           w.dden);
+  if (nb > 0)
+    dense_mix_kernel<CODE><<<dim3(nb * nsub_per, B), 256,
+                             SUB_ROWS * H * sizeof(float), st>>>(
+        c, cl, S, H, Dh, dm.bs, nsub_per, nsb, nsub, dm.whole, w.dlog, w.dm,
+        w.dden, w.dpacc);
+  dense_finish_kernel<<<B, HD, 0, st>>>(w.qkv, H, Dh, nb, nsub_per, nsb, nsub,
+                                        dm.whole, w.dcorr, w.dden, w.dpacc,
+                                        w.aq, w.sa);
   return cudaGetLastError();
 }
 
@@ -671,14 +1008,20 @@ struct StepCache {
   long long sc_layer_stride;
 };
 
-// cq: scale/16 for the int8 cache, scale/7 for the int4 one
+// cq: scale/16 for the int8 cache, scale/7 for the int4 one; flags: see
+// attn_prep_kernel; dense.code >= 0: the dense-cache attention (then kv's
+// strides are in bytes of its storage type, Q = 1, and cq and flags unused)
 int run_step(const void* x, void* out, int B, int Q, int d, int H, int L,
              const float* vec, const Products& P, const StepCache& kv, int S,
-             int cl, float scale, float cq, void* workspace,
-             cudaStream_t st) {
+             int cl, float scale, float cq, void* workspace, cudaStream_t st,
+             int flags = 0, DenseMode dense = DenseMode{-1, 0, 0}) {
   const int R = B * Q, Dh = d / H;
   const bool i4 = kv.c.ks != nullptr;
   if (Q > 8 || Q * H > ATT_THREADS || cl + Q > S)
+    return (int)cudaErrorInvalidValue;
+  if (dense.code >= 0 && (Q != 1 || i4 || dense.code > KV_I8 || dense.bs < 1))
+    return (int)cudaErrorInvalidValue;
+  if (flags && (i4 || P.w4 || dense.code >= 0))
     return (int)cudaErrorInvalidValue;
   if (Dh != 16 && Dh != 48) return (int)cudaErrorInvalidValue;
   if (i4 && (H % 2 || kv.c.vs == nullptr)) return (int)cudaErrorInvalidValue;
@@ -713,12 +1056,18 @@ int run_step(const void* x, void* out, int B, int Q, int d, int H, int L,
     cudaError_t e = gemv(w, P.w4, R, wt[0], sc[0], d, 3 * d, vl + 5 * d,
                          EPI_STORE, w.qkv, st);
     if (e != cudaSuccess) return (int)e;
-    if (Dh == 48)
-      e = i4 ? attention<48, true>(w, B, Q, H, c, cl, scale, cq, st)
-             : attention<48, false>(w, B, Q, H, c, cl, scale, cq, st);
+    if (dense.code == KV_BF16)
+      e = dense_attention<KV_BF16>(w, B, H, Dh, S, c, cl, scale, dense, st);
+    else if (dense.code == KV_FP8)
+      e = dense_attention<KV_FP8>(w, B, H, Dh, S, c, cl, scale, dense, st);
+    else if (dense.code == KV_I8)
+      e = dense_attention<KV_I8>(w, B, H, Dh, S, c, cl, scale, dense, st);
+    else if (Dh == 48)
+      e = i4 ? attention<48, true>(w, B, Q, H, c, cl, scale, cq, 0, st)
+             : attention<48, false>(w, B, Q, H, c, cl, scale, cq, flags, st);
     else
-      e = i4 ? attention<16, true>(w, B, Q, H, c, cl, scale, cq, st)
-             : attention<16, false>(w, B, Q, H, c, cl, scale, cq, st);
+      e = i4 ? attention<16, true>(w, B, Q, H, c, cl, scale, cq, 0, st)
+             : attention<16, false>(w, B, Q, H, c, cl, scale, cq, flags, st);
     if (e != cudaSuccess) return (int)e;
     e = gemv(w, P.w4, R, wt[1], sc[1], d, d, vl + 9 * d, EPI_RESID, w.h, st);
     if (e != cudaSuccess) return (int)e;
@@ -799,7 +1148,9 @@ extern "C" long long umgen_decode_workspace_bytes(int B, int Q, int d, int H,
 // final layer norm), int8 weights (int8_products) with vec [L, 15d] f32
 // (ln1, ln2, qkv_ws, qkv_b, proj_ws, proj_b, fc_ws, pj_ws).  Caches kc/vc:
 // int8 rows of d bytes; layer l, scene b, row s at l·layer_stride +
-// b·batch_stride + s·d.  c16 = scale/16.
+// b·batch_stride + s·d.  c16 = scale/16.  flags: STEP_HEAD_SCALE (TPU v7),
+// STEP_ROWS_F32 (TPU v6); 0 is the v5 / v5mq step, which v3 and v4 are too on
+// the flat view of their 5-D caches.
 extern "C" int umgen_decode_step(const void* x, void* out, int B, int Q,
                                  int d, int H, int L, const void* vec,
                                  const void* wqkv, const void* wproj,
@@ -807,11 +1158,33 @@ extern "C" int umgen_decode_step(const void* x, void* out, int B, int Q,
                                  void* vc, long long layer_stride,
                                  long long batch_stride, int S, int cl,
                                  float scale, float c16, void* workspace,
-                                 void* stream) {
+                                 void* stream, int flags) {
+  if (flags & ~(STEP_HEAD_SCALE | STEP_ROWS_F32))
+    return (int)cudaErrorInvalidValue;
   return run_step(x, out, B, Q, d, H, L, (const float*)vec,
                   int8_products(d, wqkv, wproj, wfc, wpj),
                   int8_cache(kc, vc, layer_stride, batch_stride), S, cl,
-                  scale, c16, workspace, (cudaStream_t)stream);
+                  scale, c16, workspace, (cudaStream_t)stream, flags);
+}
+
+// The int8-weight step on a dense cache (TPU v2; v1 with whole != 0): kc/vc
+// rows of d values of type `code` (0 bf16, 1 fp8 e4m3, 2 int8 on the 1/16
+// grid), read as bf16; layer l, scene b, row s at l·layer_stride +
+// b·batch_stride + s·d·sizeof(type), strides in bytes.  bs: rows of an
+// S-block (a bf16 rounding a block is part of the result); whole: one block
+// over all of S with normalized weights.  One row a scene (Q = 1).
+extern "C" int umgen_decode_step_dense(
+    const void* x, void* out, int B, int Q, int d, int H, int L,
+    const void* vec, const void* wqkv, const void* wproj, const void* wfc,
+    const void* wpj, void* kc, void* vc, long long layer_stride,
+    long long batch_stride, int S, int cl, float scale, int code, int bs,
+    int whole, void* workspace, void* stream) {
+  if (code < 0) return (int)cudaErrorInvalidValue;
+  return run_step(x, out, B, Q, d, H, L, (const float*)vec,
+                  int8_products(d, wqkv, wproj, wfc, wpj),
+                  int8_cache(kc, vc, layer_stride, batch_stride), S, cl,
+                  scale, 0.f, workspace, (cudaStream_t)stream, 0,
+                  DenseMode{code, whole ? S : bs, whole != 0});
 }
 
 // The same step with W4A8 weights (w4_products); vec as above, its ws

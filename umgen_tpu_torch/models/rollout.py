@@ -13,10 +13,11 @@ index k carries embed(token_k) + prior_seq[k] (the task embedding at k=0);
 sampling position p feeds input k = p-1 with the KV cache holding inputs
 0..p-2.  Separators are forced, never sampled.
 
-The OAR KV cache is the flat int8 [L, B, 2208, H·Dh] of the fused decode
-kernel or, with `oar_cache_dtype="int4"`, a `PackedKV` of nibble-packed rows
-and per-(row, head) scales; either is updated in place (the JAX package
-threads it functionally).
+The OAR KV cache is flat [L, B, 2208, H·Dh] — int8 for the integer-logit
+decode kernels, bfloat16 or float8_e4m3fn for the dense-cache ones (v2, v1)
+— or, with `oar_cache_dtype="int4"`, a `PackedKV` of nibble-packed rows and
+per-(row, head) scales; each is updated in place (the JAX package threads it
+functionally).
 """
 
 from __future__ import annotations
@@ -102,8 +103,12 @@ class Rollout:
     # ------------------------------------------------------------------
     def init_kv(self, B: int, device=None):
         """Flat [L, B, 2208, H·Dh] caches in the OAR cache dtype (int8 for
-        the fused kernel), or two PackedKV for "int4": nibble pairs
-        [L, B, 2208, H·Dh/2] int8 with scales [L, B, 2208, H] float32."""
+        the integer-logit kernels, bfloat16 or float8_e4m3fn for v2 / v1),
+        or two PackedKV for "int4": nibble pairs [L, B, 2208, H·Dh/2] int8
+        with scales [L, B, 2208, H] float32.  The reference keeps bf16 / fp8
+        caches 5-D [L, B, S, H, Dh]; here storage is always flat and 5-D is
+        a view of it (`kv.view(L, B, S, H, Dh)`), which every step that
+        takes a 5-D cache accepts."""
         cfg = self.config
         if cfg.oar_cache_dtype == "int4":
             L, S, H = cfg.n_oar_layer, self.layout.input_len, cfg.n_head
@@ -117,49 +122,73 @@ class Rollout:
             return half(), half()
         shape = (cfg.n_oar_layer, B, self.layout.input_len,
                  cfg.n_head * cfg.head_dim)
-        dt = torch.int8 if cfg.oar_cache_dtype == "int8" \
-            else torch_dtype(cfg.oar_cache_dtype)
+        dt = {"int8": torch.int8, "float8_e4m3fn": torch.float8_e4m3fn}.get(
+            cfg.oar_cache_dtype) or torch_dtype(cfg.oar_cache_dtype)
         return (torch.zeros(shape, dtype=dt, device=device),
                 torch.zeros(shape, dtype=dt, device=device))
 
     def oar_step(self, params: Params, x: torch.Tensor, kv_k, kv_v,
                  cache_len: int):
         """Push Q new inputs x [B, Q, D] through the OAR stack; their K/V
-        land in the caches at cache_len.  Q = 1 goes to the fused v5
-        kernel, 1 < Q·H <= 128 to v5mq — or to w4 / w4mq when the packed
-        weights are W4A8 (rollout.py:213-266); anything else runs the
-        eager body.  PackedKV caches go to `_oar_step_int4`.  Returns
-        (ln_oar(h) [B, Q, D], kv_k, kv_v)."""
+        land in the caches at cache_len.  The dispatch is the reference's,
+        branch for branch (rollout.py:211-272).  PackedKV caches go to
+        `_oar_step_int4`.  With the fused kernels on, packed weights and
+        Q = 1: an int8 cache goes to w4 under W4A8 packing, else a flat one
+        to v7 (`oar_kernel_version` 7 while B·H <= 128, the reference's
+        routing rule) or v5, and a 5-D one to v4 (six-stream packing) or
+        v3; any other cache type to v2.  1 < Q·H <= 128 on a flat int8 cache
+        goes to v5mq / w4mq.  Q = 1 with int8-quantized but unpacked
+        `params["oar"]` on a bf16 / fp8 cache goes to v1 — the reference
+        tells that case by its cache being 5-D, which here any cache may be
+        as a view, so it is told by the dtype.  Anything else runs the
+        eager body.  Returns (ln_oar(h) [B, Q, D], kv_k, kv_v)."""
         cfg = self.config
-        Q, H = x.shape[1], cfg.n_head
+        B, Q, H = x.shape[0], x.shape[1], cfg.n_head
         if isinstance(kv_k, PackedKV):
             return self._oar_step_int4(params, x, kv_k, kv_v, cache_len)
-        if (cfg.fused_oar_kernel and "oar_packed" in params
-                and kv_k.dtype == torch.int8 and Q * H <= 128):
-            if "wqp4" in params["oar_packed"]:     # W4A8 packing
-                fused = (dk.fused_decode_step_w4 if Q == 1
-                         else dk.fused_decode_step_w4mq)
+        packed = params.get("oar_packed") if cfg.fused_oar_kernel else None
+        int8 = kv_k.dtype == torch.int8
+        fused = None
+        if packed is not None and Q == 1:
+            if not int8:
+                fused = dk.fused_decode_step_v2
+            elif "wqp4" in packed:                 # W4A8 packing
+                fused = dk.fused_decode_step_w4
+            elif kv_k.ndim == 4 and cfg.oar_kernel_version == 7 \
+                    and B * H <= 128 and not cfg.oar_batch_block:
+                fused = dk.fused_decode_step_v7
+            elif kv_k.ndim == 4:
+                fused = dk.fused_decode_step_v5
+            elif "wfca" in packed:                 # pack_fused_oar_v4
+                fused = dk.fused_decode_step_v4
             else:
-                fused = (dk.fused_decode_step_v5 if Q == 1
-                         else dk.fused_decode_step_v5mq)
-            h, kv_k, kv_v = fused(params["oar_packed"], x, kv_k, kv_v,
-                                  cache_len, n_head=H)
+                fused = dk.fused_decode_step_v3
+        elif packed is not None and 1 < Q and Q * H <= 128 \
+                and kv_k.ndim == 4 and int8:
+            fused = (dk.fused_decode_step_w4mq if "wqp4" in packed
+                     else dk.fused_decode_step_v5mq)
+        elif cfg.fused_oar_kernel and Q == 1 and "oar_packed" not in params \
+                and kv_k.dtype in dk.DENSE_KV_DTYPES[:2] \
+                and "wq" in params["oar"]["attn"]["qkv"]:
+            fused, packed = dk.fused_decode_step, params["oar"]
+        if fused is not None:
+            h, kv_k, kv_v = fused(packed, x, kv_k, kv_v, cache_len, n_head=H)
             return nn.layer_norm(params["ln_oar"], h), kv_k, kv_v
         return self._oar_step_eager(params, x, kv_k, kv_v, cache_len)
 
     def _oar_step_eager(self, params, x, kv_k, kv_v, cache_len: int):
         """The reference's multi-row XLA body: every layer attends [prefix
         < cache_len ‖ causal new block] with the int8 prefix dequantized
-        from the 1/16 grid, or the int4 one (PackedKV) from its nibbles and
-        per-(row, head) scales.  It is the plain counterpart of the fused
-        step in the JAX package's own terms."""
+        from the 1/16 grid, a bf16 / fp8 one cast, or the int4 one
+        (PackedKV) from its nibbles and per-(row, head) scales; flat or 5-D
+        dense caches.  It is the plain counterpart of the fused step in the
+        JAX package's own terms."""
         cfg = self.config
         H, Dh = cfg.n_head, cfg.head_dim
         B, Q, D = x.shape
         S = _kv_rows(kv_k)
         scale = 1.0 / math.sqrt(Dh)
         int4 = isinstance(kv_k, PackedKV)
-        int8 = not int4 and kv_k.dtype == torch.int8
         kpos = torch.arange(S, device=x.device)
         prefix_valid = kpos < cache_len
         self_mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool,
@@ -168,18 +197,16 @@ class Rollout:
         def load(c, l):
             if int4:
                 return dk.kv_load_int4(c.packed[l], c.scale[l], H, x.dtype)
-            c = c[l].reshape(B, S, H, Dh)
-            return (c.float() * (1.0 / dk.KV_INT8_SCALE)).to(x.dtype) \
-                if int8 else c.to(x.dtype)
+            return dk.kv_load(c[l].reshape(B, S, H, Dh), x.dtype)
 
         def store(c, l, t):
             rows = slice(cache_len, cache_len + Q)
-            t = t.reshape(B, Q, H * Dh)
             if int4:
                 c.packed[l, :, rows], c.scale[l, :, rows] = \
-                    dk.quantize_kv_int4(t, H)
+                    dk.quantize_kv_int4(t.reshape(B, Q, H * Dh), H)
             else:
-                c[l, :, rows] = dk.kv_store(t) if int8 else t.to(c.dtype)
+                c[l, :, rows] = dk.kv_store(t, c.dtype).reshape(
+                    c[l, :, rows].shape)
 
         h = x
         stack = params["oar"]

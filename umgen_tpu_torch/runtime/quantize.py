@@ -1,6 +1,9 @@
 """Weight quantization and the decode kernel's weight packing (port of
 umgen_tpu/runtime/quantize.py and of decode_kernel.py's W4A8 packer).
 
+`pack_fused(params, kv_dtype, version)` keeps the reference's arguments;
+`pack_fused_oar_v4` its six-stream packing for v4.
+
 `quantize_params_int8` turns the selected subtrees' linear weights into
 {"wq" int8 [in, out], "ws" f32 [out]} with per-output-channel symmetric
 scales — the same arithmetic as the JAX package (`DECODE_KEYS`, or
@@ -105,10 +108,38 @@ def pack_decode_weights(oar: Params) -> Params:
             "wpj": t(oar["mlp"]["proj"]["wq"])}
 
 
-def pack_fused(params: Params) -> Params:
-    """Add the decode kernel's ``oar_packed`` blocks to int8 params."""
+def pack_fused_oar_v4(oar: Params) -> Params:
+    """Int8 OAR stack → the reference's six weight streams for v4, input-
+    major as quantized ({"vec", "wqkv" [L, d, 3d], "wproj" [L, d, d], "wfca"
+    | "wfcb" [L, d, 2d] the column halves of fc, "wpja" | "wpjb" [L, 2d, d]
+    the row halves of pj}; the plain version reads these), plus "kernel":
+    `pack_decode_weights`' output-major layout of the same values, which the
+    CUDA kernel reads.  The streams' names overlap the kernel layout's
+    ("wqkv", "wproj") with the other orientation; "wfca" tells them apart."""
+    kernel = pack_decode_weights(oar)
+    d = oar["attn"]["qkv"]["wq"].shape[1]
+    wfc, wpj = oar["mlp"]["fc"]["wq"], oar["mlp"]["proj"]["wq"]
+    return {"vec": kernel["vec"], "wqkv": oar["attn"]["qkv"]["wq"],
+            "wproj": oar["attn"]["proj"]["wq"],
+            "wfca": wfc[:, :, :2 * d].contiguous(),
+            "wfcb": wfc[:, :, 2 * d:].contiguous(),
+            "wpja": wpj[:, :2 * d].contiguous(),
+            "wpjb": wpj[:, 2 * d:].contiguous(), "kernel": kernel}
+
+
+def pack_fused(params: Params, kv_dtype: str = "int8",
+               version: str = "v3") -> Params:
+    """Add the fused decode kernels' ``oar_packed`` blocks to int8 params,
+    with the reference's arguments: an int8 cache with ``version="v4"``
+    gets `pack_fused_oar_v4`'s six streams; everything else — v5 / v7 / v3
+    on int8 caches, v2 on bf16 / fp8 ones — the one layout of
+    `pack_decode_weights` (the reference's `pack_fused_oar` blocks differ
+    from it only in orientation)."""
     out = dict(params)
-    out["oar_packed"] = pack_decode_weights(params["oar"])
+    if kv_dtype == "int8" and version == "v4":
+        out["oar_packed"] = pack_fused_oar_v4(params["oar"])
+    else:
+        out["oar_packed"] = pack_decode_weights(params["oar"])
     return out
 
 

@@ -6,10 +6,14 @@
         --debug --synthetic_data 1 --max_scenes 1 --set_num_new_frames 2
 
 Served values: `--kv_dtype bfloat16|int4` (TAR rings; the OAR cache stays
-int8 unless asked otherwise), `--oar_kv_dtype int8|int4` (int4: the
-nibble-packed OAR cache with per-(row, head) scales, decoded by the v5i4 /
-v5mqi4 kernels), `--int8 decode|all`, `--chunked_prefill`,
-`--tar_cache_window N`, any `--batch_size`.  Like the JAX CLI it packs int8 (v5) OAR weights; W4A8
+int8 unless asked otherwise), `--oar_kv_dtype int8|int4|bfloat16|
+float8_e4m3fn` (int4: the nibble-packed OAR cache with per-(row, head)
+scales, decoded by the v5i4 / v5mqi4 kernels; bfloat16 / float8_e4m3fn: the
+dense cache, its single-token steps decoded by v2 and its multi-row pushes
+by the eager body), `--oar_kernel 5|7` (7: the per-(scene, head) query scale
+of v7 while batch · heads <= 128), `--int8 decode|all`, `--chunked_prefill`,
+`--tar_cache_window N`, any `--batch_size`.  Like the JAX CLI it packs int8
+OAR weights for the cache type (`pack_fused(params, kv_dtype)`); W4A8
 weights are reached as the JAX bench reaches them, through
 `serving_params` and the same Generator (chip_smoke.py phases e and g).  Weights
 are seeded random (`--debug`, or a missing checkpoint); scenes come from
@@ -30,6 +34,9 @@ from umgen_tpu_torch.models.umgen import NotPortedError
 NOT_PORTED_OUTPUTS = ("videos, MMD and the collision-rate metric are not "
                       "ported yet (ROADMAP.md: 'VQ detokenizers, videos and "
                       "metrics'); writing token pickles only")
+
+
+OAR_KV_DTYPES = ("int8", "int4", "bfloat16", "float8_e4m3fn")
 
 
 def _flag(v: str) -> bool:
@@ -116,13 +123,14 @@ def check_args(args) -> None:
     no(args.temporal_pe != "absolute", "--temporal_pe relative",
        "Relative temporal PE")
     no(not args.fused_oar, "the unfused OAR decode (omit --fused_oar)",
-       "Unfused and bf16 OAR caches")
+       "Unfused OAR decode")
     no(args.int8 == "off", "--int8 off", "bf16 OAR weights")
-    no(args.oar_kv_dtype not in (None, "int8", "int4"),
-       f"--oar_kv_dtype {args.oar_kv_dtype} (served: int8, int4)",
-       "Unfused and bf16 OAR caches")
-    no(args.oar_kernel != 5, f"--oar_kernel {args.oar_kernel}",
-       "Superseded decode variants")
+    if args.oar_kv_dtype not in (None,) + OAR_KV_DTYPES:
+        raise NotPortedError(
+            f"--oar_kv_dtype {args.oar_kv_dtype}: served are "
+            f"{', '.join(OAR_KV_DTYPES)}.  The reference's fused v2 kernel "
+            "reads every other type as if it were fp8 (ROADMAP.md, Queue "
+            "3); the port does not copy that")
     if args.oar_batch_block:
         raise NotPortedError(
             "--oar_batch_block splits the batch to fit the TPU's VMEM; the "
@@ -167,8 +175,9 @@ def config_from_args(args):
 
 def build_params(args, cfg, device, pipeline):
     """Seeded random params on `device`: int8 over `DECODE_KEYS`
-    (`--int8 decode`) or `ALL_STACK_KEYS` (`--int8 all`), then the v5
-    decode kernel's packing, as the JAX CLI builds them."""
+    (`--int8 decode`) or `ALL_STACK_KEYS` (`--int8 all`), then the decode
+    kernels' packing for the OAR cache's type, as the JAX CLI builds them
+    (umgen_tpu/tools/evaluate.py:237-239)."""
     import torch
 
     from umgen_tpu_torch.models.umgen import build_buffers
@@ -181,7 +190,8 @@ def build_params(args, cfg, device, pipeline):
     params = init_params(cfg, g, device,
                          buffers=build_buffers(cfg, pipeline, device=device))
     keys = ALL_STACK_KEYS if args.int8 == "all" else DECODE_KEYS
-    return pack_fused(quantize_params_int8(params, keys))
+    return pack_fused(quantize_params_int8(params, keys),
+                      kv_dtype=cfg.oar_cache_dtype)
 
 
 def serving_params(cfg, generator, device, buffers=None):

@@ -5,13 +5,18 @@
         --out chiprun_out/profile_serving
     python -m umgen_tpu_torch.tools.profile_frame --config serving-i4 \
         --out chiprun_out/profile_serving_i4
+    python -m umgen_tpu_torch.tools.profile_frame --config slice-bf16kv \
+        --out profile_bf16kv
 
 Builds a served configuration at UMGen_Large width with seeded random
 weights and a 20-frame synthetic window: `slice` (default: int8 decode
 weights, bf16 rings over the whole window, B = 1 and 2) or `serving` (the
 JAX bench's: int8 on every stack, W4A8 OAR weights, 8-frame int4 rings,
 chunked prefill, B = 10); `slice-i4` and `serving-i4` are the same two
-with the OAR cache int4 (`--oar_kv_dtype int4`).  It runs the first frame (the prefill, or the
+with the OAR cache int4 (`--oar_kv_dtype int4`); `slice-bf16kv` and
+`slice-fp8kv` are the slice on a bfloat16 / float8_e4m3fn OAR cache (the v2
+kernel; the multi-row pushes run the eager body), `slice-v7` the slice under
+`--oar_kernel 7`.  It runs the first frame (the prefill, or the
 chunked ingest and a cached step), then for one cached frame times its
 three phases on the host clock with a synchronize after each: the ego net
 (`ego_logits_cached`), the TAR cascade (`tar_priors_cached`) and the OAR
@@ -115,6 +120,9 @@ CONFIGS = {
     "serving": (_SERVING, [10]),
     "slice-i4": (_SLICE + _OAR_INT4, [1, 2]),
     "serving-i4": (_SERVING + _OAR_INT4, [10]),
+    "slice-bf16kv": (_SLICE + ["--oar_kv_dtype", "bfloat16"], [1, 2]),
+    "slice-fp8kv": (_SLICE + ["--oar_kv_dtype", "float8_e4m3fn"], [1, 2]),
+    "slice-v7": (_SLICE + ["--oar_kernel", "7"], [1, 2]),
 }
 
 
@@ -132,8 +140,7 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--out", default="chiprun_out/profile")
     p.add_argument("--config", default="slice", choices=sorted(CONFIGS))
     p.add_argument("--batch_sizes", type=int, nargs="+", default=None,
-                   help="default: 1 2 (slice, slice-i4), 10 (serving, "
-                   "serving-i4)")
+                   help="default: 10 (serving, serving-i4), 1 2 (the rest)")
     p.add_argument("--model_scale", default="larger")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -153,7 +160,8 @@ def main(argv: Optional[list] = None) -> int:
     if a.config.startswith("serving"):
         params = evaluate.serving_params(cfg, g, dev)
     else:
-        params = pack_fused(quantize_params_int8(init_params(cfg, g, dev)))
+        params = pack_fused(quantize_params_int8(init_params(cfg, g, dev)),
+                            kv_dtype=cfg.oar_cache_dtype)
     os.makedirs(a.out, exist_ok=True)
     summary = {"nvidia_smi": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
