@@ -16,7 +16,9 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
       read at fp8 precision, the scene's query scale in place of the
       head's, a dropped 32-row block); v3 and v4 must equal v5 bit for bit,
       v6's h too; time `scaled_dot_product_attention` beside the flash
-      kernel, for the record only;
+      kernel, for the record only; `torch.profiler` tables
+      (µs a call by kernel, the device's busy share) of 20 w4 steps at B =
+      10, cache_len 1100, and of 20 flash calls at B·T = 10;
   (c) run the UMGen_Large cached video rollout (36-layer stacks, d = 768,
       seeded random weights on the card, one synthetic scene, B = 1, bf16
       rings, int8 decode weights) through the CLI's code path
@@ -134,7 +136,13 @@ FLASH_RTOL_MEAN = 2.0 ** -8
 #   the bounds on h above cannot see a wrong prefix attention.  It is read
 #   through layer 0 with the output projection the identity and the MLP's
 #   second product zero, on x scaled by 2^-6: h - x is then the attention
-#   output y (after its int8 quantization for the projection).  Kernel and
+#   output y (after its int8 quantization for the projection).  On the
+#   int8 cache the kernel walks the plain version's S-blocks and keeps each
+#   of its rounding points; only float32 sums inside a block run in another
+#   order, so y's int8 quantization flips at near-ties only and the errors
+#   should sit far below the bounds that follow (predicted before the first
+#   run of those passes: under 2^-8 of max |y| where no element flips).  On
+#   the int4 cache kernel and
 #   plain version round each softmax weight to bf16 under another running
 #   maximum: two roundings of 2^-9 relative per key, which move y by
 #   ~2^-9.3 of its size; that flips the int8 quantization of y (step 1/127
@@ -208,6 +216,46 @@ def _time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _kernel_profile(fn, calls: int) -> dict:
+    """`torch.profiler` over `calls` calls of fn, warm: device µs a call by
+    kernel name (the table's self CUDA time over the launches) and the
+    device's busy share, the kernels' time over the host clock of the
+    window (as tools/profile_frame.py reads it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    table = {e.key: {"launches_per_call": e.count / calls,
+                     "us_per_launch": e.self_device_time_total / e.count,
+                     "us_per_call": e.self_device_time_total / calls}
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.count}
+    device_us = sum(r["us_per_call"] for r in table.values()) * calls
+    return {"calls": calls, "wall_ms": 1e3 * wall,
+            "device_ms": device_us / 1e3,
+            "busy": device_us / (1e6 * wall),
+            "kernels": dict(sorted(table.items(),
+                                   key=lambda kv: -kv[1]["us_per_call"]))}
+
+
+def _print_profile(what, prof):
+    print(f"(b) profile of {prof['calls']} {what}: {prof['device_ms']:.3f} "
+          f"device ms in {prof['wall_ms']:.3f} ms (busy "
+          f"{100 * prof['busy']:.1f}%); µs a call (launches a call, µs a "
+          "launch):")
+    for name, r in prof["kernels"].items():
+        print(f"      {r['us_per_call']:9.2f}  ({r['launches_per_call']:g}, "
+              f"{r['us_per_launch']:.2f})  {name[:90]}")
 
 
 def _bound(nbytes: float, ops_s: float) -> dict:
@@ -342,6 +390,10 @@ def phase_flash(dev):
             planted = planted_flash_faults(q, k, v, out)
         reps = 3 if B > 2 else 20
         ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal), reps)
+        if (B, Sq, causal) == (10, 2207, False):
+            profile = _kernel_profile(
+                lambda: fa.flash_attention(q, k, v, causal), 20)
+            _print_profile("flash calls, B·T = 10, S = 2207", profile)
         pms = _time_ms(lambda: fa.flash_attention_plain(q, k, v, causal),
                        max(1, reps // 4), warmup=1)
         # the one PyTorch call that computes the same function; timed for
@@ -366,7 +418,7 @@ def phase_flash(dev):
     print("(b) flash check against planted faults (max, mean; each must "
           "fail): " + ", ".join(f"{k} {e[0]:.3g} / {e[1]:.3g}"
                                for k, e in planted.items()))
-    return rows, worst, planted
+    return rows, worst, planted, profile
 
 
 def _first_layer(tree):
@@ -477,6 +529,29 @@ def attn_ok(errs) -> bool:
             and errs[0] <= ATTN_RTOL_MAX and errs[1] <= ATTN_RTOL_MEAN)
 
 
+def attention_summary(rows):
+    """The prefix attention read by itself, per kernel over its cases with
+    a prefix: the largest max and mean errors (of max |y|, of mean |y|).
+    On the int8 cache the kernel keeps the reference's S-blocks and every
+    rounding point, so these sit far below the bounds (ATTN_RTOL_MAX,
+    ATTN_RTOL_MEAN); the int4 cache's 32-row splits round the weights under
+    another running maximum."""
+    out = {}
+    for name, cases in rows.items():
+        seen = [c for c in cases if c["attn_read"]]
+        if seen:
+            out[name] = {"max": max(c["attn_rel_err_max"] for c in seen),
+                         "mean": max(c["attn_rel_err_mean"] for c in seen),
+                         "cases": len(seen)}
+    if out:
+        print("(b) prefix attention by itself, worst max / mean error over "
+              "the cases with a prefix (bounds "
+              f"{ATTN_RTOL_MAX:.3g} / {ATTN_RTOL_MEAN:.3g}): "
+              + ", ".join(f"{k} {v['max']:.3g} / {v['mean']:.3g}"
+                          for k, v in out.items()))
+    return out
+
+
 def planted_i4_faults(cache, cl):
     """Wrong int4 prefixes for the plain version, as {name: (cache,
     cache_len)}, from the one-layer cache [kv_k, kv_v, k_scale, v_scale]."""
@@ -510,7 +585,7 @@ def phase_decode(dev, cfg, packs, visible):
     S = 2208
     g = torch.Generator(device=dev)
     g.manual_seed(2)
-    rows = {}
+    rows, profile = {}, None
     for name, B, Q, cl in DECODE_CASES:
         int4 = name.endswith("i4")
         packing = "w4" if name.startswith("w4") else "v5"
@@ -587,6 +662,10 @@ def phase_decode(dev, cfg, packs, visible):
                 f"{dsc0} / {dsc.max().item()}; rest of the caches "
                 f"untouched: {untouched}")
         ms = _time_ms(lambda: fn(packed, x, *ck, cl, n_head=H), 20)
+        if (name, B, Q, cl) == ("w4", 10, 1, 1100):     # the serving step
+            profile = _kernel_profile(
+                lambda: fn(packed, x, *ck, cl, n_head=H), 20)
+            _print_profile("w4 steps, B = 10, cache_len 1100", profile)
         # the plain step is no yardstick of speed: one run, already warm
         pms = _time_ms(lambda: plain(packed, cp), 1, warmup=0)
         rows.setdefault(name, []).append({
@@ -594,6 +673,7 @@ def phase_decode(dev, cfg, packs, visible):
             "rel_err": rel, "rel_err_1_layer": rel1,
             "kv_max_err_all_layers": dkv.max().item(),
             "scale_max_err_all_layers": dsc.max().item(),
+            "attn_read": bool(cl),
             "attn_rel_err_max": attn[0], "attn_rel_err_mean": attn[1],
             "attn_planted_faults": faults,
             "ms": ms, "plain_ms": pms, "library_ms": None,
@@ -612,7 +692,7 @@ def phase_decode(dev, cfg, packs, visible):
               f"{rows[name][-1]['bound_ms']:.4f} ms "
               f"({rows[name][-1]['bound_by']})")
         del cache, ck, cp
-    return rows
+    return rows, profile
 
 
 # (kernel, cache type, B, cache_len) of the six steps added last: v1 and v2
@@ -757,6 +837,7 @@ def phase_variants(dev, cfg, packs, visible):
             "kv": kv, "B": B, "Q": 1, "cache_len": cl, "max_abs_err": err,
             "rel_err": rel, "rel_err_1_layer": rel1,
             "kv_max_err_all_layers": dkv.max().item(),
+            "attn_read": bool(cl) and name in ("v1", "v2", "v7"),
             "attn_rel_err_max": attn[0], "attn_rel_err_mean": attn[1],
             "attn_planted_faults": faults,
             "ms": ms, "plain_ms": pms, "library_ms": None,
@@ -974,6 +1055,17 @@ def _reset_launches():
     for counts in (fa.LAUNCHES, dk.LAUNCHES):
         for k in counts:
             counts[k] = 0
+
+
+# what of a kernel was redesigned for Hopper after its first port (the
+# `redesigned_in` field of the kernels line; None: the first port's design)
+_ATTN_I8 = "the int8 cache's attention on the reference's S-blocks"
+_GEMV_W4 = "the staged W4 GEMV"
+REDESIGNED = {
+    "flash_attention": "wgmma products, TMA loads by a producer warp",
+    "w4": f"{_ATTN_I8}; {_GEMV_W4}", "w4mq": f"{_ATTN_I8}; {_GEMV_W4}",
+    **{k: _ATTN_I8 for k in ("v5", "v5mq", "v3", "v4", "v6", "v7")},
+    "w4i4": _GEMV_W4, "w4mqi4": _GEMV_W4}
 
 
 def _kernel_name(kind):
@@ -1326,14 +1418,16 @@ def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
 
     report["build"] = phase_build()
     if want("flash"):
-        report["flash"], flash_err, report["flash_planted"] = \
-            phase_flash(dev)
+        (report["flash"], flash_err, report["flash_planted"],
+         report["flash_profile"]) = phase_flash(dev)
     cfg, packs, visible = _decode_params(dev)
     report["decode"] = {}
     if want("decode"):
-        report["decode"].update(phase_decode(dev, cfg, packs, visible))
+        rows, report["w4_profile"] = phase_decode(dev, cfg, packs, visible)
+        report["decode"].update(rows)
     if want("variants"):
         report["decode"].update(phase_variants(dev, cfg, packs, visible))
+    report["attention_alone"] = attention_summary(report["decode"])
     torch.cuda.empty_cache()
     if want("step_loops"):
         report["step_loops"] = phase_step_loops(dev, cfg, packs)
@@ -1405,6 +1499,7 @@ def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
                 "source": "umgen_tpu_torch/csrc/decode_step.cu",
                 "replaces": f"umgen_tpu/ops/decode_kernel.py:{line}",
                 "launches": launches[name],
+                "redesigned_in": REDESIGNED.get(kind),
                 "max_abs_err": max(x["max_abs_err"] for x in dec[kind]),
                 **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}}
@@ -1425,6 +1520,7 @@ def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
          "source": "umgen_tpu_torch/csrc/flash_attention.cu",
          "replaces": "umgen_tpu/ops/flash_attention.py:79",
          "launches": serve4["flash_attention"], "max_abs_err": flash_err,
+         "redesigned_in": REDESIGNED["flash_attention"],
          **{k: f1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")}},
         entry("v5", 1363, slice1, B=1, cache_len=1100),

@@ -54,6 +54,49 @@ def test_flash_kernel_matches_plain(cuda_device, B, Sq, Sk, causal):
     assert d.mean().item() <= 2.0 ** -8 * r.mean().item()
 
 
+# the tile edges of the flash kernel: 64-key tiles, 64-row query blocks
+FLASH_EDGES = (1, 63, 64, 65, 127, 128, 129, 2207)
+
+
+def _flash_check(q, k, v, causal):
+    """The kernel against the plain version, within the bounds above; rows
+    that attend nothing (causal, Sq > Sk) must come out as 0."""
+    out = tfa.flash_attention(q, k, v, causal)
+    ref = tfa.flash_attention_plain(q, k, v, causal)
+    Sq, Sk = q.shape[1], k.shape[1]
+    if causal and Sq > Sk:
+        ref[:, :Sq - Sk] = 0
+    d, r = (out.float() - ref.float()).abs(), ref.float().abs()
+    assert d.max().item() <= 4 * 2.0 ** -8 * r.max().item()
+    assert d.mean().item() <= 2.0 ** -8 * r.mean().item()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("Sk", FLASH_EDGES)
+@pytest.mark.parametrize("Sq", FLASH_EDGES)
+def test_flash_kernel_tile_edges(cuda_device, Sq, Sk, causal):
+    """Query and key counts on either side of the kernel's 64-row blocks
+    and 64-key tiles (the ragged last tile is masked, the TMA box's rows
+    past Sk are zero fill), causal with Sq < Sk, Sq = Sk and Sq > Sk."""
+    g = torch.Generator(device=cuda_device).manual_seed(Sq * 7919 + Sk)
+    q, k, v = (torch.randn(1, S, 16, 48, generator=g, device=cuda_device)
+               .bfloat16() for S in (Sq, Sk, Sk))
+    _flash_check(q, k, v, causal)
+
+
+@pytest.mark.parametrize("S", [129, 2207])
+def test_flash_kernel_fused_views_320_heads(cuda_device, S):
+    """q, k, v as views of one fused qkv projection (rows 2304 elements
+    apart, the K and V tensor maps on offset bases) at B·H = 320, the
+    full-window prefill's batch of 20 frames."""
+    g = torch.Generator(device=cuda_device).manual_seed(S)
+    qkv = torch.randn(20, S, 3 * 768, generator=g, device=cuda_device)
+    q, k, v = (t.reshape(20, S, 16, 48)
+               for t in qkv.bfloat16().split(768, dim=-1))
+    assert q.stride(1) == 2304 and not k.is_contiguous()
+    _flash_check(q, k, v, False)
+
+
 def _oar_packs(dev, layers=1):
     """int8 and W4A8 packings of one random OAR stack at the model's width
     (d 768, 16 heads of 48), layer norms and biases off their init."""
@@ -133,6 +176,51 @@ def test_w4_kernel_matches_plain(cuda_device, B, Q, cache_len):
     _, w4 = _oar_packs(cuda_device)
     name = "fused_decode_step_w4" if Q == 1 else "fused_decode_step_w4mq"
     _check_step(w4, name, B, Q, cache_len, cuda_device, cache_len == 0)
+
+
+@pytest.mark.parametrize("kind", ["v5", "w4"])
+@pytest.mark.parametrize("Q", [1, 6])
+@pytest.mark.parametrize("cache_len", [0, 551, 552, 553, 1100, 2207])
+def test_int8_cache_steps_on_the_reference_blocks(cuda_device, kind, Q,
+                                                  cache_len):
+    """The int8 cache's prefix attention on the reference's S-blocks (552
+    rows at S = 2208; cache lengths on either side of a block edge): one
+    layer's h within 2e-2 of its scale and bit for bit at cache_len 0, the
+    new rows equal up to a rounding tie.  The attention by itself (the layer
+    that shows it): the kernel keeps every rounding point of the plain
+    version and sums float32 in another order inside a block only, so the
+    int8 quantization of y flips only at near-ties — no element beyond 2e-2
+    of max |y|, and a mean error within 2^-10 of mean |y| (a quarter of the
+    int4 cache's bound, whose kernel rounds under another blocking)."""
+    dev = cuda_device
+    cl = min(cache_len, 2208 - Q)
+    name = f"fused_decode_step_{kind}{'mq' if Q > 1 else ''}"
+    packs = dict(zip(("v5", "w4"), _oar_packs(dev)))
+    _check_step(packs[kind], name, 2, Q, cl, dev, cl == 0)
+    if cl == 0:
+        return
+    packed = _visible_packs(dev)[kind]
+    kv, _ = _int8_caches(dev, 1, 2)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = (2.0 ** -6 * torch.randn(2, Q, 768, generator=g, device=dev)
+         ).bfloat16()
+    y = getattr(tdk, name)(packed, x, kv[0].clone(), kv[1].clone(), cl,
+                           n_head=16)[0].float() - x.float()
+    ref = tdk.decode_step_plain(packed, x, kv[0].clone(), kv[1].clone(), cl,
+                                16).float() - x.float()
+    d, r = (y - ref).abs(), ref.abs()
+    assert d.max().item() <= 2e-2 * r.max().item()
+    assert d.mean().item() <= 2.0 ** -10 * r.mean().item()
+
+
+def test_w4_gemv_row_tiles_bit_for_bit(cuda_device):
+    """The W4 GEMV stages the rows' activations a tile at a time (fourteen
+    rows of 3072 at the MLP's second product): 80 rows, two layers, at
+    cache_len 0 the step must equal the plain version bit for bit — the
+    integer sums are exact and the group scales are applied in the
+    reference's pair order, so the redesigned GEMV keeps the old bits."""
+    _, w4 = _oar_packs(cuda_device, layers=2)
+    _check_step(w4, "fused_decode_step_w4mq", 10, 8, 0, cuda_device, True)
 
 
 def _check_step_i4(packed, name, B, Q, cache_len, dev, exact, S=2208):

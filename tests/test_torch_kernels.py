@@ -236,3 +236,51 @@ def test_plain_division_is_correctly_rounded():
     for c in (768.0, 127.0, 1.41421353816986083984375):
         np.testing.assert_array_equal(tdk._div(x, c).numpy(),
                                       (x.double() / c).float().numpy())
+
+
+@pytest.mark.parametrize("S", [256, 1032, 2208])
+@pytest.mark.parametrize("name,prefer", [
+    ("v5", tdk.V5_BLOCKS), ("w4", tdk.V5_BLOCKS), ("v6", tdk.V5_BLOCKS),
+    ("v7", tdk.V5_BLOCKS), ("v3", tdk.V2_BLOCKS), ("v4", tdk.V2_BLOCKS)])
+def test_decode_wrappers_pass_the_plain_blocking(monkeypatch, name, prefer,
+                                                 S):
+    """The S-block rows a wrapper hands on (the same value goes to the
+    kernel on a card and to the plain version here) are the ones
+    `decode_step_plain` would pick by itself for that entry: V5_BLOCKS for
+    v5 / w4 (and v6, v7), V2_BLOCKS for v3 / v4, or a caller's block_s; and
+    the plain version, handed them, walks those blocks."""
+    seen = []
+
+    def record(packed, x, kv_k, kv_v, cache_len, n_head, k_scale=None,
+               v_scale=None, block_s=0, prefer=tdk.V5_BLOCKS, *flags):
+        seen.append((block_s, tdk.pick_block_s(kv_k.shape[2], block_s,
+                                               prefer)))
+        return x
+
+    monkeypatch.setattr(tdk, "decode_step_plain", record)
+    H, Dh = 2, 16
+    packed = {"v4": {"wfca": None}, "w4": {"wqp4": None}}.get(name, {})
+    x = torch.zeros(1, 1, H * Dh, dtype=torch.bfloat16)
+    five = name in ("v3", "v4")
+    kv = torch.zeros((1, 1, S) + ((H, Dh) if five else (H * Dh,)),
+                     dtype=torch.int8)
+    fn = getattr(tdk, f"fused_decode_step_{name}")
+    callers = (0, 276, 64, 100) if name in ("v4", "v6", "v7") else (0,)
+    for block_s in callers:
+        seen.clear()
+        kw = {"block_s": block_s} if block_s else {}
+        fn(packed, x, kv, kv.clone(), 0, n_head=H, **kw)
+        [(handed, walked)] = seen
+        want = tdk.pick_block_s(S, block_s, prefer)
+        assert handed == walked == want
+
+
+def test_decode_blocking_is_stable():
+    """`pick_block_s` of its own choice is that choice, for every S up to a
+    full cache and both block lists: handing the chosen rows on as
+    `block_s` changes nothing."""
+    for S in range(1, 2300):
+        for prefer in (tdk.V5_BLOCKS, tdk.V2_BLOCKS):
+            for block_s in (0, 276, 100):
+                bs = tdk.pick_block_s(S, block_s, prefer)
+                assert tdk.pick_block_s(S, bs, prefer) == bs, (S, block_s)

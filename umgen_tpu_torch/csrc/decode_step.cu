@@ -31,12 +31,12 @@
 // per row (absmax/127) to int8.  W8A8: weights int8 per output channel,
 // y = acc·sa·ws (+ b).  W4A8: weights symmetric int4 in [-7, 7] with one
 // scale per (128-row input group, output column); the two groups of a pair
-// (2j, 2j+1) share a byte (low / high nibble).  The GEMV unpacks four bytes
-// at a time in registers into the two groups' sign-extended int8 values,
-// takes __dp4a against the activations of group 2j and 2j+1 into two int32
-// sums, reduces them over the warp, and applies the group scales in float32
-// in the reference's order: y = y + acc_lo·s_lo + acc_hi·s_hi over the
-// pairs, then y·sa (+ b).  The integer part is exact, and built with
+// (2j, 2j+1) share a byte (low / high nibble).  The GEMV gives a thread a
+// pair of a column: it unpacks the pair's 128 bytes once into the two
+// groups' sign-extended int8 values and takes __dp4a against the rows'
+// activations, staged in shared memory, into the two groups' int32 sums;
+// the group scales are applied in float32 in the reference's order: y = y +
+// acc_lo·s_lo + acc_hi·s_hi over the pairs, then y·sa (+ b).  The integer part is exact, and built with
 // --fmad=false the epilogues round where the plain versions do.  The
 // residual stream rounds to bf16 after every add.  The chunk's K/V rows are
 // written into the caches at `cache_len` on the fixed 1/16 int8 grid — in
@@ -47,8 +47,7 @@
 // high nibble, so heads hh and hh + H/2 share the bytes [hh·Dh, (hh+1)·Dh) —
 // with one float32 scale s = max|x| + 1e-12 per (row, head): q = clip(round(
 // x·(7/s)), ±7).  The prefix attention never dequantizes: a (query, head)
-// thread sign-extends its head's nibbles into int8 lanes (the W4 GEMV's
-// __vsub4 trick), takes __dp4a against the int8 query, and folds the scales
+// thread takes its head's nibbles as q + 8 in int8 lanes, takes __dp4a against the int8 query, and folds the scales
 // into the logit, logit = li·ks[row, head]·(sq·scale/7), and into the softmax
 // weight, pv = bf16(p·vs[row, head]·(1/7)), which multiplies the value
 // nibbles as they are.  New rows are quantized from their bf16 rounding by
@@ -67,14 +66,18 @@
 // the hidden state carried in VMEM.  Hopper blocks carry nothing from one
 // grid step to the next, so this version issues the layer sequence from
 // the host (one C call per step, ten small kernels per layer on one
-// stream): the hidden state lives in a global workspace between kernels,
-// and the prefix attention is split over 32-row blocks of the cache whose
-// partial (max, sum, weighted values) are merged by a second pass.  The
-// int8 GEMV tiles the rows 16 at a time (grid y); the W4 GEMV keeps a
-// column's packed weights in registers and loops over all rows, so neither
-// bounds B·Q.  The design is simple and right first; it is launch-bound
-// (~360 launches a step).  Graph capture or a persistent kernel, wgmma/TMA
-// weight streams and wider attention splits are the next steps for speed.
+// stream): the hidden state lives in a global workspace between kernels.
+// The prefix attention on the int8 cache keeps the reference's S-blocks
+// (`_kernel_w4`'s rounding points; see i8_blockmax_kernel): a sub-block of
+// 32 rows a CUDA block for the logits, the maxima, the weights and the value
+// sums, then one thread a lane folds them block by block.  On the int4 cache
+// it is split over 32-row blocks whose partial (max, sum, weighted values) a
+// second pass merges.  The int8 GEMV tiles the rows 16 at a time (grid y);
+// the W4 GEMV stages the rows' activations in shared memory a tile of rows
+// at a time, so neither bounds B·Q.  Ten launches a layer with a prefix
+// (~360 a step; the prep pass rides in the block-max launch): the host's
+// launch rate is the next limit (graph capture or a persistent kernel), then
+// wgmma/TMA weight streams.
 // A bf16 cache doubles the KV stream (2 x 1536 B a cached row a layer a scene,
 // up to 244 MB a scene at 2208 rows), fp8 equals int8's; the dense step
 // launches twelve kernels a layer (~430 a step) and is launch-bound
@@ -92,6 +95,7 @@ constexpr int TILE_ROWS = 16;     // rows of one int8 GEMV block (grid y)
 constexpr int W4_MAX_PAIRS = 12;  // W4 GEMV input groups / 2 (K <= 3072)
 constexpr int SPLIT_ROWS = 32;    // cache rows per split-attention block
 constexpr int ATT_THREADS = 128;  // >= Q * H pairs (Q * H <= 128)
+constexpr int MAX_Q = 8;          // rows a scene of one step
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -126,6 +130,27 @@ __device__ float block_max(float v, float* red) {
   return s;
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// n bytes (a multiple of 16, both ends 16-byte aligned) into shared memory:
+// every copy in flight at once; cp.async.wait_all and a barrier complete them
+__device__ __forceinline__ void stage_async(void* dst, const void* src,
+                                            int n) {
+  int4* d = reinterpret_cast<int4*>(dst);
+  const int4* s = reinterpret_cast<const int4*>(src);
+  for (int i = threadIdx.x; i < n / 16; i += blockDim.x) cp_async16(d + i, s + i);
+}
+
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
 // the reference kernel's erf (A&S 7.1.26) and exact-form GELU
 __device__ float erf_as(float x) {
   const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f;
@@ -155,40 +180,56 @@ __global__ void out_bf16_kernel(const float* h, __nv_bfloat16* out, int n) {
 }
 
 // per row: a = LN(h)·w (w null: a = h), then sa = max|a|/127 + 1e-12 and
-// aq = clip(round(a / sa)); one block per row, the row staged in smem
-__global__ void ln_quant_kernel(const float* __restrict__ h,
-                                const float* __restrict__ w,
-                                int8_t* __restrict__ aq,
-                                float* __restrict__ sa, int n) {
-  extern __shared__ float row[];
+// aq = clip(round(a / sa)); one block of 256 threads per row, the row in
+// registers (thread t holds elements t, t + 256, ...: the sums' order is the
+// plain version's `_block_sum`)
+__global__ void __launch_bounds__(256)
+ln_quant_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                int8_t* __restrict__ aq, float* __restrict__ sa, int n) {
+  constexpr int PER = 12;           // elements a thread: n <= 12·256 = 3072
   __shared__ float red[32];
   const float* x = h + (long long)blockIdx.x * n;
+  float v[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    v[k] = i < n ? x[i] : 0.f;
+  }
   float amax = 0.f;
   if (w != nullptr) {
     float s = 0.f;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) s += x[i];
+#pragma unroll
+    for (int k = 0; k < PER; ++k)
+      if (threadIdx.x + k * blockDim.x < n) s += v[k];
     const float mu = block_sum(s, red) / (float)n;
     float s2 = 0.f;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const float c = x[i] - mu;
-      s2 += c * c;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      if (threadIdx.x + k * blockDim.x < n) {
+        const float c = v[k] - mu;
+        s2 += c * c;
+      }
     }
     const float var = block_sum(s2, red) / (float)n;
     const float r = 1.f / sqrtf(var + 1e-5f);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const float a = (x[i] - mu) * r * w[i];
-      row[i] = a;
-      amax = fmaxf(amax, fabsf(a));
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < n) {
+        v[k] = (v[k] - mu) * r * w[i];
+        amax = fmaxf(amax, fabsf(v[k]));
+      }
     }
   } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      row[i] = x[i];
-      amax = fmaxf(amax, fabsf(x[i]));
-    }
+#pragma unroll
+    for (int k = 0; k < PER; ++k) amax = fmaxf(amax, fabsf(v[k]));
   }
   const float s = block_max(amax, red) / 127.f + 1e-12f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    aq[(long long)blockIdx.x * n + i] = quant_i8(row[i], s);
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i < n) aq[(long long)blockIdx.x * n + i] = quant_i8(v[k], s);
+  }
   if (threadIdx.x == 0) sa[blockIdx.x] = s;
 }
 
@@ -257,17 +298,6 @@ __global__ void gemv_i8_kernel(const int8_t* __restrict__ aq,
   }
 }
 
-// The four nibbles of one half of a packed word, sign-extended into the
-// four int8 lanes of an int: per byte, ((x ^ 8) - 8) of the nibble x is
-// (x << 4) >> 4 in 8 bits (__vsub4 keeps the bytes apart).
-__device__ __forceinline__ int nibbles_lo(int w) {
-  return __vsub4((w & 0x0F0F0F0F) ^ 0x08080808, 0x08080808);
-}
-
-__device__ __forceinline__ int nibbles_hi(int w) {
-  return __vsub4(((w >> 4) & 0x0F0F0F0F) ^ 0x08080808, 0x08080808);
-}
-
 // 16 bytes of an int4 cache row: the chosen nibble x of each byte as the
 // unsigned value x ^ 8 = q + 8 in [1, 15] (q the stored value in [-7, 7]),
 // one per int8 lane.  The attention takes its products against q + 8 and
@@ -283,55 +313,100 @@ __device__ __forceinline__ int4 biased_nibbles(int4 w, int shift) {
                    biased_nibbles(w.z, shift), biased_nibbles(w.w, shift));
 }
 
-// W4A8 GEMV over all R rows.  wt [N, K/2] output-major: column n's byte
-// j·128 + i holds input row (2j)·128 + i in its low nibble and (2j+1)·128 + i
-// in its high nibble; sc [N, K/128] its group scales.  One warp per output
-// column; lane l holds word l of every 128-byte pair block in registers
-// (bytes i = 4l .. 4l+3), so one row's group is one dp4a per lane.  A row's
-// 2·NP group sums are taken and reduced over the warp side by side (NP =
-// K/256 is a template constant), so their 2·NP shuffle chains overlap —
-// feeding the float sum pair by pair would make the row one dependent
-// chain.  Lane 0 then applies y = Σ_j (acc_lo·s_lo + acc_hi·s_hi) in pair
-// order, y·sa (+ b), and the epilogue.
+// The four nibbles of one half of a packed word sign-extended into int8
+// lanes without a borrow between bytes: x | (x & 8)·0x1E sets the high
+// nibble of every byte whose bit 3 is set (8·0x1E = 0xF0).
+__device__ __forceinline__ int sext_nibbles(int x) {
+  return x | ((x & 0x08080808) * 0x1E);
+}
+
+// W4A8 GEMV.  wt [N, K/2] output-major: column n's byte j·128 + i holds input
+// row (2j)·128 + i in its low nibble and (2j+1)·128 + i in its high nibble;
+// sc [N, K/128] its group scales.  A block takes `ncol` columns, chosen by
+// the host so that N = 768 still gives 132 SMs work, and `rs` slices of the
+// rows; a thread takes a (row slice, pair block j, column): it holds the
+// pair's 128 weight bytes, unpacked once into the two groups' sign-extended
+// int8 words, so a weight word loaded once serves all its rows, and it takes
+// each row's two group sums whole (32 __dp4a each, in four independent
+// chains: no shuffles).  The rows' int8 activations are staged in shared
+// memory by cp.async, `rt` rows at a time (the host's budget; w4mq at B = 10
+// has 60 rows); the threads of a warp share j, so their reads are
+// broadcasts.  A thread writes its two products acc_lo·s_lo and
+// acc_hi·s_hi; then one thread a (row, column) adds them in the reference's
+// pair order, y = y + acc_lo·s_lo + acc_hi·s_hi, and applies y·sa (+ b) and
+// the epilogue — the bits of a serial walk, under --fmad=false.
 template <int NP>
 __global__ void gemv_w4_kernel(const int8_t* __restrict__ aq,
                                const float* __restrict__ sa, int R,
                                const int8_t* __restrict__ wt, int K, int N,
                                const float* __restrict__ sc,
                                const float* __restrict__ bias, int epi,
-                               float* __restrict__ out) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (n >= N) return;
-  const int* wrow = reinterpret_cast<const int*>(wt + (long long)n * (K / 2));
-  const float* s = sc + (long long)n * 2 * NP;
-  int w[NP];
+                               float* __restrict__ out, int ncol, int rt) {
+  extern __shared__ int4 act[];                 // [rt][K] int8, then terms
+  float* terms = reinterpret_cast<float*>(act + rt * (K / 16));
+  const int per_slice = ncol * NP;
+  const int rs = blockDim.x / per_slice;        // row slices
+  const int slice = threadIdx.x / per_slice;
+  const int c = threadIdx.x % ncol, j = threadIdx.x % per_slice / ncol;
+  const int n = blockIdx.x * ncol + c;
+  const bool live = n < N;
+  int wl[32], wh[32];
+  float s_lo = 0.f, s_hi = 0.f;
+  if (live) {
+    const int4* wp =
+        reinterpret_cast<const int4*>(wt + (long long)n * (K / 2) + j * 128);
 #pragma unroll
-  for (int j = 0; j < NP; ++j) w[j] = __ldg(wrow + j * 32 + lane);
-  for (int r = 0; r < R; ++r) {
-    const int* arow = reinterpret_cast<const int*>(aq + (long long)r * K);
-    int acc[2 * NP];
+    for (int k = 0; k < 8; ++k) {
+      const int4 v = __ldg(wp + k);
+      const int x[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int j = 0; j < NP; ++j) {
-      acc[2 * j] = __dp4a(nibbles_lo(w[j]), __ldg(arow + 2 * j * 32 + lane), 0);
-      acc[2 * j + 1] =
-          __dp4a(nibbles_hi(w[j]), __ldg(arow + (2 * j + 1) * 32 + lane), 0);
+      for (int u = 0; u < 4; ++u) {
+        wl[4 * k + u] = sext_nibbles(x[u] & 0x0F0F0F0F);
+        wh[4 * k + u] = sext_nibbles((x[u] >> 4) & 0x0F0F0F0F);
+      }
     }
+    s_lo = __ldg(sc + (long long)n * 2 * NP + 2 * j);
+    s_hi = __ldg(sc + (long long)n * 2 * NP + 2 * j + 1);
+  }
+  const int kc = K / 16;                        // int4 chunks of a row
+  for (int r0 = 0; r0 < R; r0 += rt) {
+    const int rows = min(rt, R - r0);
+    __syncthreads();                            // the last tile is done
+    stage_async(act, aq + (long long)r0 * K, rows * K);
+    stage_wait();
+    if (live) {
+      for (int r = slice; r < rows; r += rs) {
+        const int4* alo = act + r * kc + 2 * j * 8;
+        const int4* ahi = alo + 8;
+        int lo[4] = {0, 0, 0, 0}, hi[4] = {0, 0, 0, 0};
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-      for (int g = 0; g < 2 * NP; ++g)
-        acc[g] += __shfl_xor_sync(0xffffffffu, acc[g], o);
+        for (int k = 0; k < 8; ++k) {
+          const int4 a = alo[k], b = ahi[k];
+          lo[0] = __dp4a(wl[4 * k + 0], a.x, lo[0]);
+          lo[1] = __dp4a(wl[4 * k + 1], a.y, lo[1]);
+          lo[2] = __dp4a(wl[4 * k + 2], a.z, lo[2]);
+          lo[3] = __dp4a(wl[4 * k + 3], a.w, lo[3]);
+          hi[0] = __dp4a(wh[4 * k + 0], b.x, hi[0]);
+          hi[1] = __dp4a(wh[4 * k + 1], b.y, hi[1]);
+          hi[2] = __dp4a(wh[4 * k + 2], b.z, hi[2]);
+          hi[3] = __dp4a(wh[4 * k + 3], b.w, hi[3]);
+        }
+        float* t = terms + ((long long)r * ncol + c) * 2 * NP + 2 * j;
+        t[0] = (float)(lo[0] + lo[1] + lo[2] + lo[3]) * s_lo;
+        t[1] = (float)(hi[0] + hi[1] + hi[2] + hi[3]) * s_hi;
+      }
     }
-    if (lane == 0) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < rows * ncol; i += blockDim.x) {
+      const int r = i / ncol, nn = blockIdx.x * ncol + i % ncol;
+      if (nn >= N) continue;
+      const float* t = terms + (long long)i * 2 * NP;
       float y = 0.f;
 #pragma unroll
-      for (int j = 0; j < NP; ++j)
-        y = y + (float)acc[2 * j] * s[2 * j] +
-            (float)acc[2 * j + 1] * s[2 * j + 1];
-      y = y * sa[r];
-      if (bias != nullptr) y = y + bias[n];
-      store_epi(out + (long long)r * N + n, y, epi);
+      for (int g = 0; g < NP; ++g) y = y + t[2 * g] + t[2 * g + 1];
+      y = y * sa[r0 + r];
+      if (bias != nullptr) y = y + bias[nn];
+      store_epi(out + (long long)(r0 + r) * N + nn, y, epi);
     }
   }
 }
@@ -366,17 +441,44 @@ __device__ __forceinline__ int quant_i4(float xb, float inv) {
 constexpr int STEP_HEAD_SCALE = 1;
 constexpr int STEP_ROWS_F32 = 2;
 
-__global__ void attn_prep_kernel(const float* __restrict__ qkv, int Q, int H,
-                                 int Dh, Cache c, int cl, float scale,
-                                 float cq, int flags,
-                                 int8_t* __restrict__ qp,
-                                 float* __restrict__ factor,
-                                 float* __restrict__ m0,
-                                 float* __restrict__ den0,
-                                 float* __restrict__ acc0) {
+// The scene's Q queries on the int8 grid: one scale a scene, sq = max|q|/127
+// + 1e-12 (amax: this thread's part of max|q|), or one a (scene, head) with
+// STEP_HEAD_SCALE; sqh [H] (shared) gets the scales, f [H] the factors s·cq,
+// qdst [Q·HD] the int8 queries.  base: the scene's qkv rows.
+__device__ void quantize_queries(const float* base, int Q, int H, int Dh,
+                                 int flags, float cq, float amax, float* red,
+                                 float* sqh, float* f, int8_t* qdst) {
+  const int HD = H * Dh;
+  const float sq = block_max(amax, red) / 127.f + 1e-12f;
+  for (int hh = threadIdx.x; hh < H; hh += blockDim.x) {
+    float s = sq;
+    if (flags & STEP_HEAD_SCALE) {
+      float hmax = 0.f;
+      for (int qi = 0; qi < Q; ++qi)
+        for (int d = 0; d < Dh; ++d)
+          hmax = fmaxf(hmax,
+                       fabsf(base[(long long)qi * 3 * HD + hh * Dh + d]));
+      s = hmax / 127.f + 1e-12f;
+    }
+    sqh[hh] = s;
+    f[hh] = s * cq;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < Q * HD; i += blockDim.x) {
+    const int qi = i / HD, e = i % HD;
+    qdst[i] = quant_i8(base[(long long)qi * 3 * HD + e], sqh[e / Dh]);
+  }
+}
+
+// attn_prep_kernel's work for scene b, by a block of 256 threads
+__device__ void prep_scene(int b, const float* __restrict__ qkv, int Q, int H,
+                           int Dh, const Cache& c, int cl, float scale,
+                           float cq, int flags, int8_t* __restrict__ qp,
+                           float* __restrict__ factor, float* __restrict__ m0,
+                           float* __restrict__ den0,
+                           float* __restrict__ acc0) {
   __shared__ float red[32];
   __shared__ float sqh[ATT_THREADS];   // per-head query scales (H <= 128)
-  const int b = blockIdx.x;
   const int HD = H * Dh;
   const float* base = qkv + (long long)b * Q * 3 * HD;
   const bool rows_f32 = (flags & STEP_ROWS_F32) != 0;
@@ -421,30 +523,15 @@ __global__ void attn_prep_kernel(const float* __restrict__ qkv, int Q, int H,
       sd[hp + H2] = s_hi;
     }
   }
-  const float sq = block_max(amax, red) / 127.f + 1e-12f;
-  for (int hh = threadIdx.x; hh < H; hh += blockDim.x) {
-    float s = sq;
-    if (flags & STEP_HEAD_SCALE) {
-      float hmax = 0.f;
-      for (int qi = 0; qi < Q; ++qi)
-        for (int d = 0; d < Dh; ++d)
-          hmax = fmaxf(hmax,
-                       fabsf(base[(long long)qi * 3 * HD + hh * Dh + d]));
-      s = hmax / 127.f + 1e-12f;
-    }
-    sqh[hh] = s;
-    factor[b * H + hh] = s * cq;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < Q * HD; i += blockDim.x) {
-    const int qi = i / HD, e = i % HD;
-    qp[(long long)b * Q * HD + i] = quant_i8(base[(long long)qi * 3 * HD + e],
-                                             sqh[e / Dh]);
-  }
+  quantize_queries(base, Q, H, Dh, flags, cq, amax, red, sqh, factor + b * H,
+                   qp + (long long)b * Q * HD);
+  // the chunk's causal weights p = exp(l − m) a (query, head), then the
+  // value sums one thread a lane: acc = Σ_j p_j·v_j from 0, in j's order
+  __shared__ float pw[MAX_Q * ATT_THREADS];     // [Q·H][MAX_Q]
   for (int pr = threadIdx.x; pr < Q * H; pr += blockDim.x) {
     const int qi = pr / H, hh = pr % H;
     const float* qrow = base + (long long)qi * 3 * HD + hh * Dh;
-    float lj[8];
+    float lj[MAX_Q];
     float mx = -CUDART_INF_F;
     for (int j = 0; j <= qi; ++j) {
       const float* krow = base + (long long)j * 3 * HD + HD + hh * Dh;
@@ -454,28 +541,44 @@ __global__ void attn_prep_kernel(const float* __restrict__ qkv, int Q, int H,
       mx = fmaxf(mx, lj[j]);
     }
     float den = 0.f;
-    float* acc = acc0 + ((long long)b * Q + qi) * HD + hh * Dh;
-    for (int d = 0; d < Dh; ++d) acc[d] = 0.f;
     for (int j = 0; j <= qi; ++j) {
       const float p = expf(lj[j] - mx);
       den += p;
-      const float* vrow = base + (long long)j * 3 * HD + 2 * HD + hh * Dh;
-      for (int d = 0; d < Dh; ++d) acc[d] += p * vrow[d];
+      pw[pr * MAX_Q + j] = p;
     }
     m0[(long long)b * Q * H + pr] = mx;
     den0[(long long)b * Q * H + pr] = den;
   }
+  __syncthreads();
+  for (int i = threadIdx.x; i < Q * HD; i += blockDim.x) {
+    const int qi = i / HD, e = i % HD;
+    const float* p = pw + (qi * H + e / Dh) * MAX_Q;
+    float a = 0.f;
+    for (int j = 0; j <= qi; ++j)
+      a += p[j] * base[(long long)j * 3 * HD + 2 * HD + e];
+    acc0[(long long)b * Q * HD + i] = a;
+  }
 }
 
-// Split attention over the cached prefix: block (blk, b) takes cache rows
-// [blk·32, min(cl, blk·32 + 32)); thread pr = (query, head) keeps an online
-// softmax over those rows and writes its partial (max, sum, Σ p·v).  I4: the
-// head's DH bytes hold its nibbles (low for hh < H/2, high otherwise) beside
-// those of head hh ± H/2; they are taken as q + 8 in int8 lanes
+__global__ void __launch_bounds__(256)
+attn_prep_kernel(const float* __restrict__ qkv, int Q, int H, int Dh, Cache c,
+                 int cl, float scale, float cq, int flags,
+                 int8_t* __restrict__ qp, float* __restrict__ factor,
+                 float* __restrict__ m0, float* __restrict__ den0,
+                 float* __restrict__ acc0) {
+  prep_scene(blockIdx.x, qkv, Q, H, Dh, c, cl, scale, cq, flags, qp, factor,
+             m0, den0, acc0);
+}
+
+// Split attention over the int4 cache's prefix: block (blk, b) takes cache
+// rows [blk·32, min(cl, blk·32 + 32)); thread pr = (query, head) keeps an
+// online softmax over those rows and writes its partial (max, sum, Σ p·v).
+// The head's DH bytes hold its nibbles (low for hh < H/2, high otherwise)
+// beside those of head hh ± H/2; they are taken as q + 8 in int8 lanes
 // (biased_nibbles), the integer logit is Σ (q + 8)·a − 8·Σ a with the
 // query's Σ a taken once, and the row's scales enter the logit and the
 // softmax weight.
-template <int DH, bool I4>
+template <int DH>
 __global__ void __launch_bounds__(ATT_THREADS)
 attn_split_kernel(Cache c, int cl, int Q, int H,
                   const int8_t* __restrict__ qp,
@@ -495,19 +598,17 @@ attn_split_kernel(Cache c, int cl, int Q, int H,
 #pragma unroll
   for (int w = 0; w < W; ++w) qv[w] = qsrc[w];
   const float f = factor[b * H + hh];
-  const int shift = (I4 && hh >= H / 2) ? 4 : 0;
+  const int shift = hh >= H / 2 ? 4 : 0;
   int qsum8 = 0;                    // 8·Σ of the head's int8 query values
-  if (I4) {
 #pragma unroll
-    for (int w = 0; w < W; ++w) {
-      qsum8 = __dp4a(0x08080808, qv[w].x, qsum8);
-      qsum8 = __dp4a(0x08080808, qv[w].y, qsum8);
-      qsum8 = __dp4a(0x08080808, qv[w].z, qsum8);
-      qsum8 = __dp4a(0x08080808, qv[w].w, qsum8);
-    }
+  for (int w = 0; w < W; ++w) {
+    qsum8 = __dp4a(0x08080808, qv[w].x, qsum8);
+    qsum8 = __dp4a(0x08080808, qv[w].y, qsum8);
+    qsum8 = __dp4a(0x08080808, qv[w].z, qsum8);
+    qsum8 = __dp4a(0x08080808, qv[w].w, qsum8);
   }
-  const int row_bytes = I4 ? HD / 2 : HD;
-  const int head_off = I4 ? (hh % (H / 2)) * DH : hh * DH;
+  const int row_bytes = HD / 2;
+  const int head_off = (hh % (H / 2)) * DH;
   const float inv7 = (float)(1.0 / 7.0);
   float m = -CUDART_INF_F, l = 0.f, acc[DH];
 #pragma unroll
@@ -520,40 +621,30 @@ attn_split_kernel(Cache c, int cl, int Q, int H,
     int li = -qsum8;
 #pragma unroll
     for (int w = 0; w < W; ++w) {
-      int4 kv = __ldg(krow + w);
-      if (I4) kv = biased_nibbles(kv, shift);
+      const int4 kv = biased_nibbles(__ldg(krow + w), shift);
       li = __dp4a(kv.x, qv[w].x, li);
       li = __dp4a(kv.y, qv[w].y, li);
       li = __dp4a(kv.z, qv[w].z, li);
       li = __dp4a(kv.w, qv[w].w, li);
     }
-    float logit, vscale = 0.f;
-    if (I4) {
-      const long long so = b * c.sc_batch_stride + (long long)s * H + hh;
-      logit = (float)li * __ldg(c.ks + so) * f;
-      vscale = __ldg(c.vs + so);
-    } else {
-      logit = (float)li * f;
-    }
+    const long long so = b * c.sc_batch_stride + (long long)s * H + hh;
+    const float logit = (float)li * __ldg(c.ks + so) * f;
+    const float vscale = __ldg(c.vs + so);
     const float mnew = fmaxf(m, logit);
     const float corr = expf(m - mnew);
     const float p = expf(logit - mnew);
-    // int8: bf16(p) against v/16; int4: the value scale folded into the
-    // weight, bf16(p·vs·(1/7)) against the nibbles
-    const float pb = I4 ? bf16r(p * vscale * inv7) : bf16r(p);
-    const float vgrid = I4 ? 1.f : 0.0625f;
+    // the value scale folded into the weight, bf16(p·vs·(1/7)) against the
+    // nibbles
+    const float pb = bf16r(p * vscale * inv7);
     l = l * corr + p;
     const int4* vrow = reinterpret_cast<const int4*>(c.v + off);
 #pragma unroll
     for (int w = 0; w < W; ++w) {
-      int4 vv = __ldg(vrow + w);
-      if (I4) vv = biased_nibbles(vv, shift);
+      const int4 vv = biased_nibbles(__ldg(vrow + w), shift);
       const int8_t* ve = reinterpret_cast<const int8_t*>(&vv);
-      const int bias = I4 ? 8 : 0;
 #pragma unroll
       for (int j = 0; j < 16; ++j)
-        acc[w * 16 + j] =
-            acc[w * 16 + j] * corr + pb * ((float)(ve[j] - bias) * vgrid);
+        acc[w * 16 + j] = acc[w * 16 + j] * corr + pb * (float)(ve[j] - 8);
     }
     m = mnew;
   }
@@ -851,6 +942,266 @@ __global__ void dense_finish_kernel(const float* __restrict__ qkv, int H,
   if (e == 0) sa[b] = s;
 }
 
+// ---------------------------------------------------------------------------
+// Prefix attention on the int8 cache (integer logits), on the reference's
+// S-blocks: every integer-logit entry on that cache (v5, v5mq, w4, w4mq, v3,
+// v4, v6, v7).  `_kernel_w4` / `decode_step_plain` walk S-blocks of `bs` rows
+// (`pick_block_s`, passed by the wrapper): per block the maximum of the
+// logits li·factor, m' = max(m, block max), p = exp(logit − m'), den = den·
+// exp(m − m') + Σ p, acc = acc·exp(m − m') + Σ bf16(p)·(v/16).  Here the
+// S-blocks are cut into sub-blocks of SUB_ROWS rows, each a CUDA block:
+//   i8_blockmax_kernel — the sub-block's logits (K rows staged in shared
+//     memory, the scene's queries quantized in the block as attn_prep_kernel
+//     does), written out for the next pass, and their maximum per (query,
+//     head); its block x = 0 runs attn_prep_kernel's work for the scene;
+//   i8_mix_kernel — m' of the sub-block's S-block (the maxima of every sub-
+//     block up to the block's end, from the intra-chunk m), the weights p
+//     from the logits (Q·H floats a row, not the row's H·Dh key bytes), their
+//     float32 sum, and the value sums Σ bf16(p)·(v/16), one thread a lane,
+//     on V rows staged in shared memory while the weights are computed;
+//   i8_finish_kernel — one thread a lane of H·Dh a (scene, query): folds the
+//     sub-blocks S-block by S-block from attn_prep_kernel's intra-chunk state,
+//     y = acc / den, the row's maximum by a block reduction, and the int8
+//     quantization of y for the output projection.
+// The products bf16(p)·(v/16) are exact in float32, so only the order of the
+// float32 sums inside an S-block differs from the reference's.
+
+// rows of sub-block k (S-block k / nsub_per, part k % nsub_per) below cl
+__device__ __forceinline__ int sub_rows(int k, int bs, int nsub_per, int cl,
+                                        int* s0) {
+  const int j = k / nsub_per;
+  *s0 = j * bs + (k % nsub_per) * SUB_ROWS;
+  return max(0, min(min(cl, (j + 1) * bs), *s0 + SUB_ROWS) - *s0);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(256)
+i8_blockmax_kernel(Cache c, int cl, int S, int Q, int H, int bs,
+                   int nsub_per, int nsubT, const float* __restrict__ qkv,
+                   float scale, float cq, int flags,
+                   int8_t* __restrict__ qp, float* __restrict__ factor,
+                   float* __restrict__ m0, float* __restrict__ den0,
+                   float* __restrict__ acc0, float* __restrict__ ilog,
+                   float* __restrict__ pmax) {
+  extern __shared__ int4 sm4[];   // [Q·HD] queries, [32·HD] K, [32][QH]
+                                  // logits, [256 / QH][QH] partial maxima
+  __shared__ float red32[32], sqh[ATT_THREADS], fh_s[ATT_THREADS];
+  constexpr int W = DH / 16;
+  const int b = blockIdx.y;
+  if (blockIdx.x == 0) {          // the prep pass of scene b rides along
+    prep_scene(b, qkv, Q, H, DH, c, cl, scale, cq, flags, qp, factor, m0,
+               den0, acc0);
+    return;
+  }
+  const int blk = blockIdx.x - 1;
+  const int HD = H * DH, QH = Q * H;
+  int s0;
+  const int rows = sub_rows(blk, bs, nsub_per, cl, &s0);
+  if (rows == 0) return;
+  int8_t* qs = reinterpret_cast<int8_t*>(sm4);
+  int8_t* ks = qs + Q * HD;
+  float* lg = reinterpret_cast<float*>(ks + SUB_ROWS * HD);
+  stage_async(ks, c.k + b * c.batch_stride + (long long)s0 * HD, rows * HD);
+  // the scene's queries, quantized here as the prep pass quantizes them
+  const float* base = qkv + (long long)b * Q * 3 * HD;
+  float amax = 0.f;
+  for (int i = threadIdx.x; i < Q * HD; i += blockDim.x)
+    amax = fmaxf(amax, fabsf(base[(long long)(i / HD) * 3 * HD + i % HD]));
+  quantize_queries(base, Q, H, DH, flags, cq, amax, red32, sqh, fh_s, qs);
+  stage_wait();
+  // one thread a (row, head): its K slice against the Q queries
+  for (int t = threadIdx.x; t < rows * H; t += blockDim.x) {
+    const int r = t / H, hh = t % H;
+    const int4* krow = reinterpret_cast<const int4*>(ks + r * HD + hh * DH);
+    int4 kv[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) kv[w] = krow[w];
+    const float fh = fh_s[hh];
+    for (int qi = 0; qi < Q; ++qi) {
+      const int4* qv = reinterpret_cast<const int4*>(qs + qi * HD + hh * DH);
+      int li = 0;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const int4 a = qv[w];
+        li = __dp4a(kv[w].x, a.x, li);
+        li = __dp4a(kv[w].y, a.y, li);
+        li = __dp4a(kv[w].z, a.z, li);
+        li = __dp4a(kv[w].w, a.w, li);
+      }
+      lg[r * QH + qi * H + hh] = (float)li * fh;
+    }
+  }
+  __syncthreads();
+  float* dst = ilog + ((long long)b * S + s0) * QH;
+  for (int t = threadIdx.x; t < rows * QH; t += blockDim.x) dst[t] = lg[t];
+  // the maximum over the rows, `parts` threads a (query, head)
+  float* red = lg + SUB_ROWS * QH;              // [parts][QH]
+  const int parts = blockDim.x / QH;
+  if (threadIdx.x < parts * QH) {
+    const int qh = threadIdx.x % QH, pt = threadIdx.x / QH;
+    float mx = -CUDART_INF_F;
+    for (int r = pt; r < rows; r += parts) mx = fmaxf(mx, lg[r * QH + qh]);
+    red[pt * QH + qh] = mx;
+  }
+  __syncthreads();
+  for (int qh = threadIdx.x; qh < QH; qh += blockDim.x) {
+    float mx = -CUDART_INF_F;
+    for (int pt = 0; pt < parts; ++pt) mx = fmaxf(mx, red[pt * QH + qh]);
+    pmax[((long long)b * nsubT + blk) * QH + qh] = mx;
+  }
+}
+
+template <int DH, int MAXQ>
+__global__ void __launch_bounds__(256)
+i8_mix_kernel(Cache c, int cl, int S, int Q, int H, int bs, int nsub_per,
+              int nsubT, const float* __restrict__ ilog,
+              const float* __restrict__ m0, const float* __restrict__ pmax,
+              float* __restrict__ psum, float* __restrict__ pacc) {
+  extern __shared__ int4 sm4[];   // [32·HD] V, [32][QH] weights, [QH] m',
+                                  // [256 / QH][QH] partial maxima
+  const int blk = blockIdx.x, b = blockIdx.y;
+  const int HD = H * DH, QH = Q * H;
+  int s0;
+  const int rows = sub_rows(blk, bs, nsub_per, cl, &s0);
+  if (rows == 0) return;
+  int8_t* vs = reinterpret_cast<int8_t*>(sm4);
+  float* lg = reinterpret_cast<float*>(vs + SUB_ROWS * HD);
+  float* mnew = lg + SUB_ROWS * QH;
+  stage_async(vs, c.v + b * c.batch_stride + (long long)s0 * HD, rows * HD);
+  // m' of this S-block: the intra-chunk maximum and every sub-block's up to
+  // the block's end (the maximum is exact in any order), the sub-blocks
+  // shared out over all threads, `parts` of them a (query, head)
+  float* red = mnew + QH;                       // [parts][QH]
+  const int parts = blockDim.x / QH;
+  const int kend = (blk / nsub_per + 1) * nsub_per;
+  if (threadIdx.x < parts * QH) {
+    const int qh = threadIdx.x % QH, pt = threadIdx.x / QH;
+    const float* pm = pmax + (long long)b * nsubT * QH + qh;
+    float m = -CUDART_INF_F;
+    for (int k = pt; k < kend; k += parts) {
+      int k0;
+      if (sub_rows(k, bs, nsub_per, cl, &k0) > 0) m = fmaxf(m, pm[k * QH]);
+    }
+    red[pt * QH + qh] = m;
+  }
+  __syncthreads();
+  for (int qh = threadIdx.x; qh < QH; qh += blockDim.x) {
+    float m = m0[(long long)b * QH + qh];
+    for (int pt = 0; pt < parts; ++pt) m = fmaxf(m, red[pt * QH + qh]);
+    mnew[qh] = m;
+  }
+  __syncthreads();
+  const float* src = ilog + ((long long)b * S + s0) * QH;
+  for (int t = threadIdx.x; t < rows * QH; t += blockDim.x)
+    lg[t] = expf(src[t] - mnew[t % QH]);
+  __syncthreads();
+  // Σ p in float32 (`parts` threads a (query, head), their partial sums
+  // added in order), then the weights rounded to bf16 in place and divided
+  // by 16 (exact): bf16(p)/16 · v is the reference's bf16(p) · (v/16)
+  if (threadIdx.x < parts * QH) {
+    const int qh = threadIdx.x % QH, pt = threadIdx.x / QH;
+    float ps = 0.f;
+    for (int r = pt; r < rows; r += parts) {
+      const float p = lg[r * QH + qh];
+      ps += p;
+      lg[r * QH + qh] = bf16r(p) * 0.0625f;
+    }
+    red[pt * QH + qh] = ps;
+  }
+  __syncthreads();
+  for (int qh = threadIdx.x; qh < QH; qh += blockDim.x) {
+    float ps = 0.f;
+    for (int pt = 0; pt < parts; ++pt) ps += red[pt * QH + qh];
+    psum[((long long)b * nsubT + blk) * QH + qh] = ps;
+  }
+  stage_wait();
+  // four lanes a thread: one 32-bit word of a V row, one weight a query
+  float* dst = pacc + ((long long)b * nsubT + blk) * Q * HD;
+  for (int e0 = 4 * threadIdx.x; e0 < HD; e0 += 4 * blockDim.x) {
+    const int hh = e0 / DH;
+    float acc[MAXQ][4];
+#pragma unroll
+    for (int qi = 0; qi < MAXQ; ++qi)
+      acc[qi][0] = acc[qi][1] = acc[qi][2] = acc[qi][3] = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const char4 v4 = *reinterpret_cast<const char4*>(vs + r * HD + e0);
+      const float v[4] = {(float)v4.x, (float)v4.y, (float)v4.z,
+                          (float)v4.w};
+      const float* wr = lg + r * QH + hh;
+#pragma unroll
+      for (int qi = 0; qi < MAXQ; ++qi) {
+        if (qi < Q) {
+          const float w = wr[qi * H];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) acc[qi][u] = acc[qi][u] + w * v[u];
+        }
+      }
+    }
+#pragma unroll
+    for (int qi = 0; qi < MAXQ; ++qi)
+      if (qi < Q)
+        *reinterpret_cast<float4*>(dst + (long long)qi * HD + e0) =
+            make_float4(acc[qi][0], acc[qi][1], acc[qi][2], acc[qi][3]);
+  }
+}
+
+// one block a (query qi, scene b), one thread a lane e of H·Dh (up to 1024,
+// so at most 64 registers); the loads of an S-block's sub-blocks are issued
+// FOLD at a time
+constexpr int FOLD = 8;
+__global__ void __launch_bounds__(1024) i8_finish_kernel(int Q, int H, int Dh, int cl, int bs,
+                                 int nb, int nsub_per, int nsubT,
+                                 const float* __restrict__ m0,
+                                 const float* __restrict__ den0,
+                                 const float* __restrict__ acc0,
+                                 const float* __restrict__ pmax,
+                                 const float* __restrict__ psum,
+                                 const float* __restrict__ pacc,
+                                 int8_t* __restrict__ yq,
+                                 float* __restrict__ sa) {
+  __shared__ float red[32];
+  const int qi = blockIdx.x, b = blockIdx.y, e = threadIdx.x;
+  const int HD = H * Dh, QH = Q * H, qh = qi * H + e / Dh;
+  const long long row = (long long)b * Q + qi;
+  float m = m0[(long long)b * QH + qh], den = den0[(long long)b * QH + qh];
+  float acc = acc0[row * HD + e];
+  for (int j = 0; j < nb; ++j) {
+    const int n = (min(cl, (j + 1) * bs) - j * bs + SUB_ROWS - 1) / SUB_ROWS;
+    const long long k0 = (long long)b * nsubT + j * nsub_per;
+    const float* pm = pmax + k0 * QH + qh;      // a sub-block QH floats on
+    const float* pl = psum + k0 * QH + qh;
+    const float* pa = pacc + (k0 * Q + qi) * HD + e;   // Q·HD floats on
+    const int pa_step = Q * HD;
+    float bm = -CUDART_INF_F, ps[4] = {0.f, 0.f, 0.f, 0.f};
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int i0 = 0; i0 < n; i0 += FOLD) {
+      float vm[FOLD], vl[FOLD], va[FOLD];
+#pragma unroll
+      for (int u = 0; u < FOLD; ++u) {
+        const bool in = i0 + u < n;
+        vm[u] = in ? pm[(i0 + u) * QH] : -CUDART_INF_F;
+        vl[u] = in ? pl[(i0 + u) * QH] : 0.f;
+        va[u] = in ? pa[(i0 + u) * pa_step] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < FOLD; ++u) {
+        bm = fmaxf(bm, vm[u]);
+        ps[u % 4] += vl[u];
+        part[u % 4] += va[u];
+      }
+    }
+    const float mnew = fmaxf(m, bm);
+    const float corr = expf(m - mnew);
+    den = den * corr + ((ps[0] + ps[1]) + (ps[2] + ps[3]));
+    acc = acc * corr + ((part[0] + part[1]) + (part[2] + part[3]));
+    m = mnew;
+  }
+  const float y = acc / den;
+  const float s = block_max(fabsf(y), red) / 127.f + 1e-12f;
+  yq[row * HD + e] = quant_i8(y, s);
+  if (e == 0) sa[row] = s;
+}
+
 size_t align_up(size_t x) { return (x + 255) & ~size_t(255); }
 
 struct Workspace {
@@ -869,11 +1220,14 @@ struct Workspace {
   float* hid;     // [R, 4d]
   // the dense-cache steps (Q = 1)
   float* dq;      // [B, d] bf16-rounded queries
-  float* dlog;    // [B, S, H] prefix logits
+  float* dlog;    // [B, S, Q*H] prefix logits (the dense steps: Q = 1)
   float* dm;      // [B, NSB, H] running maximum after each S-block
   float* dcorr;   // [B, NSB, H] bf16 rescale of each S-block (v1: self weight)
   float* dden;    // [B, H] bf16 denominator (v1: float32)
-  float* dpacc;   // [B, NSUB, d] float32 value sums of the 32-row sub-blocks
+  float* dpacc;   // [B, NSUB, Q, d] float32 value sums of the 32-row sub-blocks
+  // the integer-logit steps on the int8 cache, per sub-block and (query, head)
+  float* ipmax;   // [B, NSUB, Q*H] maximum of the logits
+  float* ipsum;   // [B, NSUB, Q*H] sum of the weights
 };
 
 // S-blocks hold at least 64 rows (or all of S), sub-blocks 32 rows
@@ -885,15 +1239,16 @@ size_t workspace_layout(int B, int Q, int d, int H, int S, char* base,
   const size_t R = (size_t)B * Q;
   const size_t nblk = (S + SPLIT_ROWS - 1) / SPLIT_ROWS;
   const size_t nsb = dense_max_blocks(S), nsub = dense_max_subs(S);
-  constexpr int NSLOT = 19;
+  constexpr int NSLOT = 21;
   const size_t sizes[NSLOT] = {
       R * d * 4,        R * 4 * d,        R * 4,
       R * 3 * d * 4,    R * d,            (size_t)B * H * 4,
       R * H * 4,        R * H * 4,        R * d * 4,
       B * nblk * Q * H * 4, B * nblk * Q * H * 4, B * nblk * Q * d * 4,
       R * 4 * d * 4,
-      (size_t)B * d * 4, (size_t)B * S * H * 4, B * nsb * H * 4,
-      B * nsb * H * 4,  (size_t)B * H * 4, B * nsub * d * 4};
+      (size_t)B * d * 4, R * S * H * 4, B * nsb * H * 4,
+      B * nsb * H * 4,  (size_t)B * H * 4, R * nsub * d * 4,
+      B * nsub * Q * H * 4, B * nsub * Q * H * 4};
   void** slots[NSLOT] = {
       (void**)&ws->h,    (void**)&ws->aq,   (void**)&ws->sa,
       (void**)&ws->qkv,  (void**)&ws->qp,   (void**)&ws->factor,
@@ -901,7 +1256,7 @@ size_t workspace_layout(int B, int Q, int d, int H, int S, char* base,
       (void**)&ws->pm,   (void**)&ws->pl,   (void**)&ws->pacc,
       (void**)&ws->hid,  (void**)&ws->dq,   (void**)&ws->dlog,
       (void**)&ws->dm,   (void**)&ws->dcorr, (void**)&ws->dden,
-      (void**)&ws->dpacc};
+      (void**)&ws->dpacc, (void**)&ws->ipmax, (void**)&ws->ipsum};
   size_t off = 0;
   for (int i = 0; i < NSLOT; ++i) {
     if (base != nullptr) *slots[i] = base + off;
@@ -910,16 +1265,16 @@ size_t workspace_layout(int B, int Q, int d, int H, int S, char* base,
   return off;
 }
 
-template <int DH, bool I4>
-cudaError_t attention(const Workspace& w, int B, int Q, int H, const Cache& c,
-                      int cl, float scale, float cq, int flags,
-                      cudaStream_t st) {
-  attn_prep_kernel<<<B, 256, 0, st>>>(w.qkv, Q, H, DH, c, cl, scale, cq,
-                                      flags, w.qp, w.factor, w.m0, w.den0,
-                                      w.acc0);
+// The prefix attention of one layer on the int4 cache (32-row splits).
+template <int DH>
+cudaError_t attention_i4(const Workspace& w, int B, int Q, int H,
+                         const Cache& c, int cl, float scale, float cq,
+                         cudaStream_t st) {
+  attn_prep_kernel<<<B, 256, 0, st>>>(w.qkv, Q, H, DH, c, cl, scale, cq, 0,
+                                      w.qp, w.factor, w.m0, w.den0, w.acc0);
   const int nblk = (cl + SPLIT_ROWS - 1) / SPLIT_ROWS;
   if (nblk > 0)
-    attn_split_kernel<DH, I4><<<dim3(nblk, B), ATT_THREADS, 0, st>>>(
+    attn_split_kernel<DH><<<dim3(nblk, B), ATT_THREADS, 0, st>>>(
         c, cl, Q, H, w.qp, w.factor, nblk, w.pm, w.pl, w.pacc);
   const size_t smem = (size_t)Q * H * DH * sizeof(float);
   attn_combine_kernel<DH><<<B, ATT_THREADS, smem, st>>>(
@@ -927,10 +1282,63 @@ cudaError_t attention(const Workspace& w, int B, int Q, int H, const Cache& c,
   return cudaGetLastError();
 }
 
+// The integer-logit attention of one layer on the int8 cache, on S-blocks
+// of bs rows (see i8_blockmax_kernel above).
+template <int DH>
+cudaError_t attention_i8(const Workspace& w, int B, int Q, int H, int S,
+                         const Cache& c, int cl, int bs, float scale,
+                         float cq, int flags, cudaStream_t st) {
+  const int HD = H * DH, QH = Q * H;
+  const int nb = (cl + bs - 1) / bs;
+  const int nsub_per = (bs + SUB_ROWS - 1) / SUB_ROWS;
+  const int nsubT = (int)dense_max_subs(S);
+  if (nb * nsub_per > nsubT || HD > 1024 || HD % 32)
+    return cudaErrorInvalidValue;
+  if (nb == 0) {
+    attn_prep_kernel<<<B, 256, 0, st>>>(w.qkv, Q, H, DH, c, cl, scale, cq,
+                                        flags, w.qp, w.factor, w.m0, w.den0,
+                                        w.acc0);
+  } else {
+    const size_t lg = SUB_ROWS * QH * sizeof(float);
+    const size_t smem_max =
+        (size_t)Q * HD + SUB_ROWS * HD + lg + 256 * sizeof(float);
+    const size_t smem_mix = SUB_ROWS * HD + lg + (QH + 256) * sizeof(float);
+    static bool configured = false;      // past 48 KB only when asked for
+    if (!configured) {
+      const int most = 96 * 1024;
+      cudaFuncSetAttribute(i8_blockmax_kernel<DH>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+      cudaFuncSetAttribute(i8_mix_kernel<DH, 1>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+      cudaFuncSetAttribute(i8_mix_kernel<DH, MAX_Q>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+      configured = true;
+    }
+    // block x = 0 of each scene runs the prep pass, the others a sub-block
+    i8_blockmax_kernel<DH><<<dim3(nb * nsub_per + 1, B), 256, smem_max, st>>>(
+        c, cl, S, Q, H, bs, nsub_per, nsubT, w.qkv, scale, cq, flags, w.qp,
+        w.factor, w.m0, w.den0, w.acc0, w.dlog, w.ipmax);
+    const dim3 grid(nb * nsub_per, B);
+    // the single-row step (2196 a frame) without the chunk's query loop
+    if (Q == 1)
+      i8_mix_kernel<DH, 1><<<grid, 256, smem_mix, st>>>(
+          c, cl, S, Q, H, bs, nsub_per, nsubT, w.dlog, w.m0, w.ipmax,
+          w.ipsum, w.dpacc);
+    else
+      i8_mix_kernel<DH, MAX_Q><<<grid, 256, smem_mix, st>>>(
+          c, cl, S, Q, H, bs, nsub_per, nsubT, w.dlog, w.m0, w.ipmax,
+          w.ipsum, w.dpacc);
+  }
+  i8_finish_kernel<<<dim3(Q, B), HD, 0, st>>>(
+      Q, H, DH, cl, bs, nb, nsub_per, nsubT, w.m0, w.den0, w.acc0, w.ipmax,
+      w.ipsum, w.dpacc, w.aq, w.sa);
+  return cudaGetLastError();
+}
+
 // The dense-cache attention of one layer (see dense_prep_kernel above).
 struct DenseMode {
   int code;    // DenseType; -1: the integer-logit attention
-  int bs;      // rows of an S-block
+  int bs;      // rows of an S-block (the int4 cache's attention takes none)
   int whole;   // one block over all of S, normalized weights (TPU v1)
 };
 
@@ -979,23 +1387,35 @@ struct Products {
 cudaError_t gemv(const Workspace& w, bool w4, int R, const int8_t* wt,
                  const float* scales, int K, int N, const float* bias,
                  int epi, float* out, cudaStream_t st) {
-  constexpr int WARPS = 8;
-  const int nb = (N + WARPS - 1) / WARPS;
   if (w4) {
-#define W4_CASE(NP)                                                         \
-  case NP:                                                                  \
-    gemv_w4_kernel<NP><<<nb, WARPS * 32, 0, st>>>(w.aq, w.sa, R, wt, K, N,  \
-                                                  scales, bias, epi, out);  \
+    // columns a block: at most 32, fewer while that leaves under 132 blocks;
+    // rows a tile: as many as 48 KB of staged activations and terms hold
+    const int np = K / 256;
+    int ncol = 32;
+    while (ncol > 1 && (N + ncol - 1) / ncol < 132) ncol /= 2;
+    const int row_bytes = K + ncol * 2 * np * (int)sizeof(float);
+    const int rt = min(R, max(1, 49152 / row_bytes));
+    const size_t smem = (size_t)rt * row_bytes;
+    const int nb = (N + ncol - 1) / ncol;
+    // row slices: at least 128 threads a block, at most one slice a row
+    const int rs = max(1, min(128 / (ncol * np), rt));
+#define W4_CASE(NP)                                                       \
+  case NP:                                                                \
+    gemv_w4_kernel<NP><<<nb, ncol * NP * rs, smem, st>>>(                 \
+        w.aq, w.sa, R, wt, K, N, scales, bias, epi, out, ncol, rt);       \
     break;
-    switch (K / 256) {   // K = d or 4d, d in {256, 512, 768} (run_step)
+    switch (np) {   // K = d or 4d, d in {256, 512, 768} (run_step)
       W4_CASE(1) W4_CASE(2) W4_CASE(3) W4_CASE(4) W4_CASE(8) W4_CASE(12)
       default:
         return cudaErrorInvalidValue;
     }
 #undef W4_CASE
   } else {
-    gemv_i8_kernel<<<dim3(nb, (R + TILE_ROWS - 1) / TILE_ROWS), WARPS * 32, 0,
-                     st>>>(w.aq, w.sa, R, wt, K, N, scales, bias, epi, out);
+    constexpr int WARPS = 8;
+    gemv_i8_kernel<<<dim3((N + WARPS - 1) / WARPS,
+                          (R + TILE_ROWS - 1) / TILE_ROWS),
+                     WARPS * 32, 0, st>>>(w.aq, w.sa, R, wt, K, N, scales,
+                                          bias, epi, out);
   }
   return cudaSuccess;
 }
@@ -1010,20 +1430,23 @@ struct StepCache {
 
 // cq: scale/16 for the int8 cache, scale/7 for the int4 one; flags: see
 // attn_prep_kernel; dense.code >= 0: the dense-cache attention (then kv's
-// strides are in bytes of its storage type, Q = 1, and cq and flags unused)
+// strides are in bytes of its storage type, Q = 1, and cq and flags unused);
+// dense.bs: the S-block rows of the int8 cache's and the dense attention
 int run_step(const void* x, void* out, int B, int Q, int d, int H, int L,
              const float* vec, const Products& P, const StepCache& kv, int S,
              int cl, float scale, float cq, void* workspace, cudaStream_t st,
-             int flags = 0, DenseMode dense = DenseMode{-1, 0, 0}) {
+             int flags, DenseMode dense) {
   const int R = B * Q, Dh = d / H;
   const bool i4 = kv.c.ks != nullptr;
-  if (Q > 8 || Q * H > ATT_THREADS || cl + Q > S)
+  if (Q > MAX_Q || Q * H > ATT_THREADS || cl + Q > S)
     return (int)cudaErrorInvalidValue;
+  if (!i4 && dense.bs < 1) return (int)cudaErrorInvalidValue;
   if (dense.code >= 0 && (Q != 1 || i4 || dense.code > KV_I8 || dense.bs < 1))
     return (int)cudaErrorInvalidValue;
   if (flags && (i4 || P.w4 || dense.code >= 0))
     return (int)cudaErrorInvalidValue;
   if (Dh != 16 && Dh != 48) return (int)cudaErrorInvalidValue;
+  if (4 * d > 12 * 256) return (int)cudaErrorInvalidValue;   // ln_quant
   if (i4 && (H % 2 || kv.c.vs == nullptr)) return (int)cudaErrorInvalidValue;
   if (P.w4 && (d % 256 || 4 * d > 256 * W4_MAX_PAIRS))
     return (int)cudaErrorInvalidValue;
@@ -1051,7 +1474,7 @@ int run_step(const void* x, void* out, int B, int Q, int d, int H, int L,
       wt[i] = P.w[i] + l * P.w_stride[i];
       sc[i] = P.w4 ? P.s[i] + l * P.s_stride[i] : vl + vec_ws[i];
     }
-    ln_quant_kernel<<<R, nthr, d * sizeof(float), st>>>(w.h, vl, w.aq, w.sa,
+    ln_quant_kernel<<<R, nthr, 0, st>>>(w.h, vl, w.aq, w.sa,
                                                         d);
     cudaError_t e = gemv(w, P.w4, R, wt[0], sc[0], d, 3 * d, vl + 5 * d,
                          EPI_STORE, w.qkv, st);
@@ -1063,20 +1486,22 @@ int run_step(const void* x, void* out, int B, int Q, int d, int H, int L,
     else if (dense.code == KV_I8)
       e = dense_attention<KV_I8>(w, B, H, Dh, S, c, cl, scale, dense, st);
     else if (Dh == 48)
-      e = i4 ? attention<48, true>(w, B, Q, H, c, cl, scale, cq, 0, st)
-             : attention<48, false>(w, B, Q, H, c, cl, scale, cq, flags, st);
+      e = i4 ? attention_i4<48>(w, B, Q, H, c, cl, scale, cq, st)
+             : attention_i8<48>(w, B, Q, H, S, c, cl, dense.bs, scale, cq,
+                                flags, st);
     else
-      e = i4 ? attention<16, true>(w, B, Q, H, c, cl, scale, cq, 0, st)
-             : attention<16, false>(w, B, Q, H, c, cl, scale, cq, flags, st);
+      e = i4 ? attention_i4<16>(w, B, Q, H, c, cl, scale, cq, st)
+             : attention_i8<16>(w, B, Q, H, S, c, cl, dense.bs, scale, cq,
+                                flags, st);
     if (e != cudaSuccess) return (int)e;
     e = gemv(w, P.w4, R, wt[1], sc[1], d, d, vl + 9 * d, EPI_RESID, w.h, st);
     if (e != cudaSuccess) return (int)e;
-    ln_quant_kernel<<<R, nthr, d * sizeof(float), st>>>(w.h, vl + d, w.aq,
+    ln_quant_kernel<<<R, nthr, 0, st>>>(w.h, vl + d, w.aq,
                                                         w.sa, d);
     e = gemv(w, P.w4, R, wt[2], sc[2], d, 4 * d, nullptr, EPI_GELU, w.hid,
              st);
     if (e != cudaSuccess) return (int)e;
-    ln_quant_kernel<<<R, nthr, 4 * d * sizeof(float), st>>>(
+    ln_quant_kernel<<<R, nthr, 0, st>>>(
         w.hid, nullptr, w.aq, w.sa, 4 * d);
     e = gemv(w, P.w4, R, wt[3], sc[3], 4 * d, d, nullptr, EPI_RESID, w.h, st);
     if (e != cudaSuccess) return (int)e;
@@ -1150,7 +1575,9 @@ extern "C" long long umgen_decode_workspace_bytes(int B, int Q, int d, int H,
 // int8 rows of d bytes; layer l, scene b, row s at l·layer_stride +
 // b·batch_stride + s·d.  c16 = scale/16.  flags: STEP_HEAD_SCALE (TPU v7),
 // STEP_ROWS_F32 (TPU v6); 0 is the v5 / v5mq step, which v3 and v4 are too on
-// the flat view of their 5-D caches.
+// the flat view of their 5-D caches.  bs: rows of the prefix attention's
+// S-blocks (the wrapper's `pick_block_s`; a softmax rescale a block is part
+// of the result).
 extern "C" int umgen_decode_step(const void* x, void* out, int B, int Q,
                                  int d, int H, int L, const void* vec,
                                  const void* wqkv, const void* wproj,
@@ -1158,13 +1585,14 @@ extern "C" int umgen_decode_step(const void* x, void* out, int B, int Q,
                                  void* vc, long long layer_stride,
                                  long long batch_stride, int S, int cl,
                                  float scale, float c16, void* workspace,
-                                 void* stream, int flags) {
+                                 void* stream, int flags, int bs) {
   if (flags & ~(STEP_HEAD_SCALE | STEP_ROWS_F32))
     return (int)cudaErrorInvalidValue;
   return run_step(x, out, B, Q, d, H, L, (const float*)vec,
                   int8_products(d, wqkv, wproj, wfc, wpj),
                   int8_cache(kc, vc, layer_stride, batch_stride), S, cl,
-                  scale, c16, workspace, (cudaStream_t)stream, flags);
+                  scale, c16, workspace, (cudaStream_t)stream, flags,
+                  DenseMode{-1, bs, 0});
 }
 
 // The int8-weight step on a dense cache (TPU v2; v1 with whole != 0): kc/vc
@@ -1188,7 +1616,7 @@ extern "C" int umgen_decode_step_dense(
 }
 
 // The same step with W4A8 weights (w4_products); vec as above, its ws
-// slots unused.
+// slots unused; bs as above.
 extern "C" int umgen_decode_step_w4(const void* x, void* out, int B, int Q,
                                     int d, int H, int L, const void* vec,
                                     const void* w4k, const void* s4k,
@@ -1196,11 +1624,12 @@ extern "C" int umgen_decode_step_w4(const void* x, void* out, int B, int Q,
                                     long long layer_stride,
                                     long long batch_stride, int S, int cl,
                                     float scale, float c16, void* workspace,
-                                    void* stream) {
+                                    void* stream, int bs) {
   return run_step(x, out, B, Q, d, H, L, (const float*)vec,
                   w4_products(d, w4k, s4k),
                   int8_cache(kc, vc, layer_stride, batch_stride), S, cl,
-                  scale, c16, workspace, (cudaStream_t)stream);
+                  scale, c16, workspace, (cudaStream_t)stream, 0,
+                  DenseMode{-1, bs, 0});
 }
 
 // The int8-weight step on the int4 cache.  kc/vc: rows of d/2 nibble-pair
@@ -1219,7 +1648,8 @@ extern "C" int umgen_decode_step_i4(
                   int8_products(d, wqkv, wproj, wfc, wpj),
                   int4_cache(kc, vc, layer_stride, batch_stride, ks, vs,
                              sc_layer_stride, sc_batch_stride),
-                  S, cl, scale, c7, workspace, (cudaStream_t)stream);
+                  S, cl, scale, c7, workspace, (cudaStream_t)stream, 0,
+                  DenseMode{-1, 0, 0});
 }
 
 // The W4A8 step on the int4 cache.
@@ -1233,5 +1663,6 @@ extern "C" int umgen_decode_step_w4_i4(
                   w4_products(d, w4k, s4k),
                   int4_cache(kc, vc, layer_stride, batch_stride, ks, vs,
                              sc_layer_stride, sc_batch_stride),
-                  S, cl, scale, c7, workspace, (cudaStream_t)stream);
+                  S, cl, scale, c7, workspace, (cudaStream_t)stream, 0,
+                  DenseMode{-1, 0, 0});
 }

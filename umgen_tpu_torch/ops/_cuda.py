@@ -1,11 +1,13 @@
 """Build the package's CUDA sources and bind them through ctypes.
 
 The sources under umgen_tpu_torch/csrc/ have a plain C interface (no
-PyTorch headers), so one `nvcc` call builds them into a shared library in
-seconds.  The library is built at first use into umgen_tpu_torch/_build/
-(git-ignored), named by a hash of the sources and flags, so an edit to a
-source rebuilds it and an unchanged tree reuses it.  Nothing here runs at
-import: the CPU tests import every module on machines without nvcc.
+PyTorch headers).  Each is compiled to an object with its own flags (one
+`nvcc` a source, all started together), and the objects are linked into
+one shared library, in seconds.  The library is built at first use into
+umgen_tpu_torch/_build/ (git-ignored), named by a hash of the sources and
+every source's flags, so an edit to a source or a flag rebuilds it and an
+unchanged tree reuses it.  Nothing here runs at import: the CPU tests
+import every module on machines without nvcc.
 
 Every C entry point launches on the stream it is given and returns
 cudaGetLastError(); `check` raises on anything but 0.
@@ -27,12 +29,15 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("flash_attention.cu", "decode_step.cu")
-# --fmad=false keeps the epilogue arithmetic in the order it is written
-# (the plain versions round after every multiply and add)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
+# each source with the flags it adds to NVCC_FLAGS.  decode_step.cu:
+# --fmad=false keeps the epilogue arithmetic in the order it is written (the
+# plain versions round after every multiply and add).  flash_attention.cu
+# rounds where no plain version can follow a contraction anyway (bf16
+# products in the tensor cores), so it lets the compiler fuse.
+SOURCES = {"flash_attention.cu": (),
+           "decode_step.cu": ("--fmad=false",)}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -60,6 +65,8 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name, flags in sorted(SOURCES.items()):
+        h.update(f"{name}: {' '.join(flags)}\n".encode())
     for name in sorted(p.name for p in CSRC_DIR.iterdir()
                        if p.suffix in (".cu", ".cuh")):
         h.update(name.encode())
@@ -72,20 +79,47 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless it exists; the
-    compiler's register/spill report goes to build.log beside it."""
+    """Compile each source of SOURCES to an object with its own flags (the
+    compilers run side by side), link the objects into the shared library,
+    unless it exists; the compilers' register/spill reports go to build.log
+    beside it."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC_DIR / s) for s in SOURCES]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    nvcc = nvcc_path()
+    tag = f"{os.getpid()}.tmp"
+    jobs = []
+    for name, flags in SOURCES.items():
+        obj = BUILD_DIR / f"{Path(name).stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(obj),
+               str(CSRC_DIR / name)]
+        # each compiler reports into a file of its own: pipes read one
+        # after another could fill and stall the other compiler
+        report = obj.with_suffix(".log")
+        with open(report, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        jobs.append((cmd, obj, report, proc))
+    log, failed = [], []
+    for cmd, _, report, proc in jobs:
+        proc.wait()
+        text = report.read_text()
+        report.unlink()
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{text}")
+    tmp = out.with_suffix(f".{tag}")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *[str(j[1]) for j in jobs]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stderr}")
+    for job in jobs:
+        job[1].unlink(missing_ok=True)
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 

@@ -538,9 +538,11 @@ _DENSE_CODE = {torch.bfloat16: 0, torch.float8_e4m3fn: 1, torch.int8: 2}
 
 
 def _argtypes(w4: bool, int4: bool):
+    """int8 weights on the int8 cache take the flags and the S-block rows,
+    W4A8 ones the S-block rows; the int4 cache's entries neither."""
+    tail = [] if int4 else [_cuda.INT] if w4 else [_cuda.INT, _cuda.INT]
     return (_ARGS_HEAD + [_cuda.VOIDP] * (2 if w4 else 4)
-            + _ARGS_KV * (2 if int4 else 1) + _ARGS_TAIL
-            + ([] if w4 or int4 else [_cuda.INT]))
+            + _ARGS_KV * (2 if int4 else 1) + _ARGS_TAIL + tail)
 
 
 def _require_cache(name: str, k: torch.Tensor, v: torch.Tensor,
@@ -566,11 +568,13 @@ def decode_step_cuda(packed: Params, x: torch.Tensor, kv_k: torch.Tensor,
                      kv_v: torch.Tensor, cache_len: int, n_head: int,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None,
-                     flags: int = 0) -> torch.Tensor:
+                     flags: int = 0, block_s: int = 0) -> torch.Tensor:
     """Launch csrc/decode_step.cu (int8 or W4A8 weights, as packed; int8
     caches, or int4 ones when the scale planes are given); new rows written
     in place.  `flags` (FLAG_HEAD_SCALE, FLAG_ROWS_F32) exist for int8
-    weights on the int8 cache only."""
+    weights on the int8 cache only.  `block_s`: the rows of the int8
+    cache's S-blocks (`pick_block_s` of it; 0: v5's); the int4 cache's
+    attention takes none."""
     int4 = k_scale is not None
     L, B, S, row = kv_k.shape
     HD = 2 * row if int4 else row
@@ -582,7 +586,7 @@ def decode_step_cuda(packed: Params, x: torch.Tensor, kv_k: torch.Tensor,
         raise ValueError("decode kernel: the per-head query scale and the "
                          "float32 row store exist for int8 weights on the "
                          "int8 cache only")
-    if HD != d or d % H or (d // H) not in (16, 48) or d % 16:
+    if HD != d or d % H or (d // H) not in (16, 48) or d % 16 or d > 768:
         raise ValueError(f"decode kernel: unsupported widths d={d}, "
                          f"H={H}, cache row {row}")
     if int4 and H % 2:
@@ -616,11 +620,13 @@ def decode_step_cuda(packed: Params, x: torch.Tensor, kv_k: torch.Tensor,
     ws = _workspace(B, Q, d, H, S, x.device)
     out = torch.empty_like(x)
     scale = 1.0 / math.sqrt(d // H)
+    bs = pick_block_s(S, block_s)
+    tail = [] if int4 else [bs] if w4 else [flags, bs]
     fn = _cuda.function(_ENTRIES[w4, int4], _argtypes(w4, int4))
     err = fn(x.data_ptr(), out.data_ptr(), B, Q, d, H, L, vec.data_ptr(),
              *(t.data_ptr() for t in weights), *kv_args, S, cl, scale,
              scale / (7.0 if int4 else KV_INT8_SCALE), ws.data_ptr(),
-             _cuda.stream_ptr(x), *([] if w4 or int4 else [flags]))
+             _cuda.stream_ptr(x), *tail)
     _cuda.check(err, "fused decode step")
     return out
 
@@ -679,7 +685,7 @@ def decode_step_dense_cuda(packed: Params, x: torch.Tensor,
     if Q != 1:
         raise ValueError(f"dense decode kernel takes one row per scene, got "
                          f"Q={Q}")
-    if HD != d or d % H or (d // H) not in (16, 48) or d % 16 or d > 1024:
+    if HD != d or d % H or (d // H) not in (16, 48) or d % 16 or d > 768:
         raise ValueError(f"dense decode kernel: unsupported widths d={d}, "
                          f"H={H}, cache row {HD}")
     if not 0 <= cl <= S - 1:
@@ -755,14 +761,17 @@ def _step(name: str, packed: Params, x: torch.Tensor, kv_k: torch.Tensor,
     if kv_k.dtype != torch.int8:
         raise ValueError(f"{name} requires int8 KV storage, got "
                          f"{kv_k.dtype}")
+    # one blocking for both sides: `pick_block_s` of its own choice is that
+    # choice, so the plain version, handed it as block_s, walks these blocks
+    bs = pick_block_s(kv_k.shape[2], block_s, prefer)
     if x.is_cuda:
         flags = FLAG_HEAD_SCALE * head_scale + FLAG_ROWS_F32 * rows_f32
         h = decode_step_cuda(packed.get("kernel", packed), x, kv_k, kv_v,
-                             cache_len, n_head, k_scale, v_scale, flags)
+                             cache_len, n_head, k_scale, v_scale, flags, bs)
         LAUNCHES[name] += 1
     else:
         h = decode_step_plain(packed, x, kv_k, kv_v, cache_len, n_head,
-                              k_scale, v_scale, block_s, prefer, head_scale,
+                              k_scale, v_scale, bs, prefer, head_scale,
                               rows_f32)
     if k_scale is None:
         return h, kv_k, kv_v

@@ -2,10 +2,11 @@
 
 Replaces the TPU kernel `flash_attention` (umgen_tpu/ops/flash_attention.py:
 79, its `pallas_call` at :106) with the hand-written CUDA kernel in
-csrc/flash_attention.cu (mma.sync bf16 tiles, online softmax; see the
-source's header for what bounds it on the H100 and how the design answers
-that).  The kernel takes bf16 tensors with head_dim 48 — the model's width
-at every scale the port serves on the card.
+csrc/flash_attention.cu (wgmma products on K/V tiles that a producer
+warp streams with TMA, online softmax in base 2; see the source's header
+for what bounds it on the H100 and how the design answers that).  The
+kernel takes bf16 tensors with head_dim 48 — the model's width at every
+scale the port serves on the card.
 
 `flash_attention(q, k, v, causal)` launches the kernel for CUDA tensors and
 raises for anything the kernel does not take; for CPU tensors it runs
@@ -55,7 +56,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = []
     for name, t in (("q", q), ("k", k), ("v", v)):
         # views of a fused qkv projection are taken as they are: heads
-        # Dh apart, dims contiguous, 16-byte aligned rows
+        # Dh apart, dims contiguous, 16-byte aligned rows (the K/V tensor
+        # maps need 16-byte aligned bases and strides)
         if not t.is_cuda or t.dtype != torch.bfloat16:
             raise ValueError(f"flash_attention {name}: expected a CUDA "
                              f"bf16 tensor, got {t.dtype} on {t.device}")
