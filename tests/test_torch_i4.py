@@ -283,7 +283,9 @@ def test_init_kv_and_segment_views_int4():
 
 def test_i4_wrappers_check_their_arguments(packs):
     """An int4 wrapper refuses the other weight format, a Q outside its
-    range and a call without scale planes."""
+    range and a call without scale planes; its C entry takes the int8
+    cache's arguments plus the scale planes, the S-block rows last (the
+    flags exist on the int8 cache only)."""
     cfg, both = packs
     H, d = cfg.n_head, cfg.n_embd
     x = torch.zeros(2, 2, d, dtype=torch.bfloat16)
@@ -305,3 +307,8 @@ def test_i4_wrappers_check_their_arguments(packs):
     with pytest.raises(ValueError, match="scale planes"):
         tdk._step("fused_decode_step_v5i4", v5, x[:, :1], kv, kv.clone(), 0,
                   H)
+    for w4_ in (False, True):
+        i8 = tdk._argtypes(w4_, False)
+        cut = len(tdk._ARGS_HEAD) + (2 if w4_ else 4) + len(tdk._ARGS_KV)
+        rest = i8[cut:] if w4_ else i8[cut:-2] + i8[-1:]      # no flags
+        assert tdk._argtypes(w4_, True) == i8[:cut] + tdk._ARGS_KV + rest

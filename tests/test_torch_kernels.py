@@ -7,6 +7,8 @@ held against the plain versions in tests/test_torch_cuda.py, on a card.
 """
 
 import functools as ft
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +26,7 @@ from umgen_tpu.ops import flash_attention as jfa
 from umgen_tpu.runtime.quantize import quantize_params_int8 as j_quantize
 from umgen_tpu_torch.models.rollout import Rollout
 from umgen_tpu_torch.models.umgen import UMGen
+from umgen_tpu_torch.ops import _cuda
 from umgen_tpu_torch.ops import attention as tattn
 from umgen_tpu_torch.ops import decode_kernel as tdk
 from umgen_tpu_torch.ops import flash_attention as tfa
@@ -241,38 +244,71 @@ def test_plain_division_is_correctly_rounded():
 @pytest.mark.parametrize("S", [256, 1032, 2208])
 @pytest.mark.parametrize("name,prefer", [
     ("v5", tdk.V5_BLOCKS), ("w4", tdk.V5_BLOCKS), ("v6", tdk.V5_BLOCKS),
-    ("v7", tdk.V5_BLOCKS), ("v3", tdk.V2_BLOCKS), ("v4", tdk.V2_BLOCKS)])
+    ("v7", tdk.V5_BLOCKS), ("v3", tdk.V2_BLOCKS), ("v4", tdk.V2_BLOCKS),
+    ("v5i4", tdk.V5_BLOCKS), ("w4i4", tdk.V5_BLOCKS),
+    ("v5mqi4", tdk.V5_BLOCKS), ("w4mqi4", tdk.V5_BLOCKS)])
 def test_decode_wrappers_pass_the_plain_blocking(monkeypatch, name, prefer,
                                                  S):
     """The S-block rows a wrapper hands on (the same value goes to the
     kernel on a card and to the plain version here) are the ones
     `decode_step_plain` would pick by itself for that entry: V5_BLOCKS for
-    v5 / w4 (and v6, v7), V2_BLOCKS for v3 / v4, or a caller's block_s; and
-    the plain version, handed them, walks those blocks."""
+    v5 / w4 (and v6, v7, and the four int4-cache steps, which hand on their
+    scale planes with them), V2_BLOCKS for v3 / v4, or a caller's block_s;
+    and the plain version, handed them, walks those blocks."""
     seen = []
 
     def record(packed, x, kv_k, kv_v, cache_len, n_head, k_scale=None,
                v_scale=None, block_s=0, prefer=tdk.V5_BLOCKS, *flags):
         seen.append((block_s, tdk.pick_block_s(kv_k.shape[2], block_s,
-                                               prefer)))
+                                               prefer), k_scale, v_scale))
         return x
 
     monkeypatch.setattr(tdk, "decode_step_plain", record)
     H, Dh = 2, 16
-    packed = {"v4": {"wfca": None}, "w4": {"wqp4": None}}.get(name, {})
-    x = torch.zeros(1, 1, H * Dh, dtype=torch.bfloat16)
+    int4 = name.endswith("i4")
+    packed = {"wqp4": None} if name.startswith("w4") else \
+        {"wfca": None} if name == "v4" else {}
+    x = torch.zeros(1, 2 if "mq" in name else 1, H * Dh,
+                    dtype=torch.bfloat16)
     five = name in ("v3", "v4")
-    kv = torch.zeros((1, 1, S) + ((H, Dh) if five else (H * Dh,)),
+    kv = torch.zeros((1, 1, S) + ((H, Dh) if five else
+                                  (H * Dh // 2 if int4 else H * Dh,)),
                      dtype=torch.int8)
+    scales = [torch.full((1, 1, S, H), v) for v in (1.0, 2.0)] if int4 \
+        else []
     fn = getattr(tdk, f"fused_decode_step_{name}")
     callers = (0, 276, 64, 100) if name in ("v4", "v6", "v7") else (0,)
     for block_s in callers:
         seen.clear()
         kw = {"block_s": block_s} if block_s else {}
-        fn(packed, x, kv, kv.clone(), 0, n_head=H, **kw)
-        [(handed, walked)] = seen
+        fn(packed, x, kv, kv.clone(), *scales, 0, n_head=H, **kw)
+        [(handed, walked, ks, vs)] = seen
         want = tdk.pick_block_s(S, block_s, prefer)
         assert handed == walked == want
+        if int4:
+            assert ks is scales[0] and vs is scales[1]
+        else:
+            assert ks is None and vs is None
+
+
+@pytest.mark.parametrize("w4,int4", [(False, False), (True, False),
+                                     (False, True), (True, True)])
+def test_c_entries_take_the_wrappers_arguments(w4, int4):
+    """The ctypes argument list of each integer-logit C entry is the one
+    csrc/decode_step.cu declares, type for type (ctypes would pass a
+    missing trailing int as garbage, and no CPU run reaches the entry)."""
+    src = (Path(tdk.__file__).resolve().parents[1] / "csrc"
+           / "decode_step.cu").read_text()
+    name = tdk._ENTRIES[w4, int4]
+    [params] = re.findall(r'extern "C" int ' + name + r"\((.*?)\)\s*\{", src,
+                          re.S)
+    scalar = {"int": _cuda.INT, "long long": _cuda.INT64,
+              "float": _cuda.FLOAT}
+    declared = [_cuda.VOIDP if "*" in p else scalar[p.split()[0] if
+                                                     p.split()[0] != "long"
+                                                     else "long long"]
+                for p in (q.strip() for q in params.split(","))]
+    assert declared == tdk._argtypes(w4, int4)
 
 
 def test_decode_blocking_is_stable():

@@ -46,14 +46,16 @@
 // layout — byte j holds value j in its low nibble and value j + H·Dh/2 in its
 // high nibble, so heads hh and hh + H/2 share the bytes [hh·Dh, (hh+1)·Dh) —
 // with one float32 scale s = max|x| + 1e-12 per (row, head): q = clip(round(
-// x·(7/s)), ±7).  The prefix attention never dequantizes: a (query, head)
-// thread takes its head's nibbles as q + 8 in int8 lanes, takes __dp4a against the int8 query, and folds the scales
-// into the logit, logit = li·ks[row, head]·(sq·scale/7), and into the softmax
-// weight, pv = bf16(p·vs[row, head]·(1/7)), which multiplies the value
-// nibbles as they are.  New rows are quantized from their bf16 rounding by
-// the step's prep kernel: one thread owns a pair of heads that share bytes,
-// so every byte has one writer.  The int4 rows halve the KV stream (2 x 384 B
-// of nibbles + 2 x 64 B of scales per cached row per layer per scene at
+// x·(7/s)), ±7).  The prefix attention never dequantizes: a (row, head)
+// thread sign-extends its head's nibbles into int8 lanes, takes __dp4a
+// against the int8 queries, and folds the scales into the logit, logit =
+// (li·ks[row, head])·(sq·scale/7), and into the softmax weight, pv =
+// bf16(p·vs[row, head]·(1/7)), which multiplies the value nibbles as they
+// are — on the same S-block passes as the int8 cache (i8_blockmax_kernel).
+// New rows are quantized from their bf16 rounding by the step's prep pass:
+// one warp owns a pair of heads that share bytes, a lane a byte, so every
+// byte has one writer.  The int4 rows halve the KV stream (2 x 384 B of
+// nibbles + 2 x 64 B of scales per cached row per layer per scene at
 // d = 768, H = 16, against 2 x 768 B).
 //
 // What bounds it on the H100: a step reads every layer's weights — int8
@@ -67,12 +69,11 @@
 // grid step to the next, so this version issues the layer sequence from
 // the host (one C call per step, ten small kernels per layer on one
 // stream): the hidden state lives in a global workspace between kernels.
-// The prefix attention on the int8 cache keeps the reference's S-blocks
-// (`_kernel_w4`'s rounding points; see i8_blockmax_kernel): a sub-block of
-// 32 rows a CUDA block for the logits, the maxima, the weights and the value
-// sums, then one thread a lane folds them block by block.  On the int4 cache
-// it is split over 32-row blocks whose partial (max, sum, weighted values) a
-// second pass merges.  The int8 GEMV tiles the rows 16 at a time (grid y);
+// The prefix attention on the int8 and the int4 cache keeps the reference's
+// S-blocks (`_kernel_w4`'s and `_kernel_v5i4`'s rounding points; see
+// i8_blockmax_kernel): a sub-block of 32 rows a CUDA block for the logits,
+// the maxima, the weights and the value sums, then one thread a lane folds
+// them block by block.  The int8 GEMV tiles the rows 16 at a time (grid y);
 // the W4 GEMV stages the rows' activations in shared memory a tile of rows
 // at a time, so neither bounds B·Q.  Ten launches a layer with a prefix
 // (~360 a step; the prep pass rides in the block-max launch): the host's
@@ -93,7 +94,6 @@ namespace {
 
 constexpr int TILE_ROWS = 16;     // rows of one int8 GEMV block (grid y)
 constexpr int W4_MAX_PAIRS = 12;  // W4 GEMV input groups / 2 (K <= 3072)
-constexpr int SPLIT_ROWS = 32;    // cache rows per split-attention block
 constexpr int ATT_THREADS = 128;  // >= Q * H pairs (Q * H <= 128)
 constexpr int MAX_Q = 8;          // rows a scene of one step
 
@@ -144,6 +144,24 @@ __device__ __forceinline__ void stage_async(void* dst, const void* src,
   int4* d = reinterpret_cast<int4*>(dst);
   const int4* s = reinterpret_cast<const int4*>(src);
   for (int i = threadIdx.x; i < n / 16; i += blockDim.x) cp_async16(d + i, s + i);
+}
+
+// n floats (4-byte aligned) into shared memory, as one commit group: a later
+// stage_wait_but_last() completes it while the copies issued after it fly on
+__device__ __forceinline__ void stage_async_f32(float* dst, const float* src,
+                                                int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(dst + i)),
+                 "l"(src + i)
+                 : "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void stage_wait_but_last() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  __syncthreads();
 }
 
 __device__ __forceinline__ void stage_wait() {
@@ -298,26 +316,20 @@ __global__ void gemv_i8_kernel(const int8_t* __restrict__ aq,
   }
 }
 
-// 16 bytes of an int4 cache row: the chosen nibble x of each byte as the
-// unsigned value x ^ 8 = q + 8 in [1, 15] (q the stored value in [-7, 7]),
-// one per int8 lane.  The attention takes its products against q + 8 and
-// removes the 8 afterwards, which is exact in integers and costs a shift, an
-// and and an xor a word where a per-byte sign extension (__vsub4, emulated
-// on this card) costs a dozen instructions.
-__device__ __forceinline__ int biased_nibbles(int w, int shift) {
-  return ((w >> shift) & 0x0F0F0F0F) ^ 0x08080808;
-}
-
-__device__ __forceinline__ int4 biased_nibbles(int4 w, int shift) {
-  return make_int4(biased_nibbles(w.x, shift), biased_nibbles(w.y, shift),
-                   biased_nibbles(w.z, shift), biased_nibbles(w.w, shift));
-}
-
 // The four nibbles of one half of a packed word sign-extended into int8
 // lanes without a borrow between bytes: x | (x & 8)·0x1E sets the high
-// nibble of every byte whose bit 3 is set (8·0x1E = 0xF0).
+// nibble of every byte whose bit 3 is set (8·0x1E = 0xF0).  Unsigned: the
+// top byte's product passes 2^31, which in int arithmetic would be an
+// overflow the compiler may assume away (and then read lane 3 as unsigned).
 __device__ __forceinline__ int sext_nibbles(int x) {
-  return x | ((x & 0x08080808) * 0x1E);
+  const unsigned u = (unsigned)x;
+  return (int)(u | ((u & 0x08080808u) * 0x1Eu));
+}
+
+// the low (shift 0) or high (shift 4) nibbles of a packed word as four
+// sign-extended int8 lanes
+__device__ __forceinline__ int nibble_lanes(int w, int shift) {
+  return sext_nibbles((w >> shift) & 0x0F0F0F0F);
 }
 
 // W4A8 GEMV.  wt [N, K/2] output-major: column n's byte j·128 + i holds input
@@ -497,30 +509,38 @@ __device__ void prep_scene(int b, const float* __restrict__ qkv, int Q, int H,
     amax = fmaxf(amax, fabsf(row[e]));
   }
   if (c.ks != nullptr) {
-    // task t: (row qi, head pair hp = heads hp and hp + H/2, K or V)
-    const int H2 = H / 2;
-    for (int t = threadIdx.x; t < Q * H; t += blockDim.x) {
+    // task t, one warp: (row qi, head pair hp = heads hp and hp + H/2, K or
+    // V); its lanes take the head's values d = lane, lane + 32 (Dh <= 64),
+    // and the absmax goes round the warp (a maximum in any order is exact)
+    const int H2 = H / 2, lane = threadIdx.x & 31;
+    for (int t = threadIdx.x >> 5; t < Q * H; t += blockDim.x >> 5) {
       const int isv = t & 1, hp = (t >> 1) % H2, qi = (t >> 1) / H2;
       const float* lo = base + (long long)qi * 3 * HD + (isv + 1) * HD +
                         hp * Dh;
       const float* hi = lo + H2 * Dh;
       float s_lo = 0.f, s_hi = 0.f;
-      for (int d = 0; d < Dh; ++d) {
+      for (int d = lane; d < Dh; d += 32) {
         s_lo = fmaxf(s_lo, fabsf(bf16r(lo[d])));
         s_hi = fmaxf(s_hi, fabsf(bf16r(hi[d])));
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        s_lo = fmaxf(s_lo, __shfl_xor_sync(0xffffffffu, s_lo, o));
+        s_hi = fmaxf(s_hi, __shfl_xor_sync(0xffffffffu, s_hi, o));
       }
       s_lo = s_lo + 1e-12f;
       s_hi = s_hi + 1e-12f;
       const float i_lo = 7.f / s_lo, i_hi = 7.f / s_hi;
       int8_t* dst = (isv ? c.v : c.k) + b * c.batch_stride +
                     (long long)(cl + qi) * (HD / 2) + hp * Dh;
-      for (int d = 0; d < Dh; ++d)
+      for (int d = lane; d < Dh; d += 32)
         dst[d] = (int8_t)((quant_i4(bf16r(hi[d]), i_hi) * 16) |
                           (quant_i4(bf16r(lo[d]), i_lo) & 0xF));
-      float* sd = (isv ? c.vs : c.ks) + b * c.sc_batch_stride +
-                  (long long)(cl + qi) * H;
-      sd[hp] = s_lo;
-      sd[hp + H2] = s_hi;
+      if (lane == 0) {
+        float* sd = (isv ? c.vs : c.ks) + b * c.sc_batch_stride +
+                    (long long)(cl + qi) * H;
+        sd[hp] = s_lo;
+        sd[hp + H2] = s_hi;
+      }
     }
   }
   quantize_queries(base, Q, H, Dh, flags, cq, amax, red, sqh, factor + b * H,
@@ -570,145 +590,10 @@ attn_prep_kernel(const float* __restrict__ qkv, int Q, int H, int Dh, Cache c,
              m0, den0, acc0);
 }
 
-// Split attention over the int4 cache's prefix: block (blk, b) takes cache
-// rows [blk·32, min(cl, blk·32 + 32)); thread pr = (query, head) keeps an
-// online softmax over those rows and writes its partial (max, sum, Σ p·v).
-// The head's DH bytes hold its nibbles (low for hh < H/2, high otherwise)
-// beside those of head hh ± H/2; they are taken as q + 8 in int8 lanes
-// (biased_nibbles), the integer logit is Σ (q + 8)·a − 8·Σ a with the
-// query's Σ a taken once, and the row's scales enter the logit and the
-// softmax weight.
-template <int DH>
-__global__ void __launch_bounds__(ATT_THREADS)
-attn_split_kernel(Cache c, int cl, int Q, int H,
-                  const int8_t* __restrict__ qp,
-                  const float* __restrict__ factor, int nblk,
-                  float* __restrict__ pm, float* __restrict__ pl,
-                  float* __restrict__ pacc) {
-  const int blk = blockIdx.x, b = blockIdx.y;
-  const int pr = threadIdx.x;
-  if (pr >= Q * H) return;
-  const int qi = pr / H, hh = pr % H;
-  const int HD = H * DH;
-  constexpr int W = DH / 16;        // int4 chunks per head
-  int4 qv[W];
-  const int4* qsrc =
-      reinterpret_cast<const int4*>(qp + ((long long)b * Q + qi) * HD +
-                                    hh * DH);
-#pragma unroll
-  for (int w = 0; w < W; ++w) qv[w] = qsrc[w];
-  const float f = factor[b * H + hh];
-  const int shift = hh >= H / 2 ? 4 : 0;
-  int qsum8 = 0;                    // 8·Σ of the head's int8 query values
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    qsum8 = __dp4a(0x08080808, qv[w].x, qsum8);
-    qsum8 = __dp4a(0x08080808, qv[w].y, qsum8);
-    qsum8 = __dp4a(0x08080808, qv[w].z, qsum8);
-    qsum8 = __dp4a(0x08080808, qv[w].w, qsum8);
-  }
-  const int row_bytes = HD / 2;
-  const int head_off = (hh % (H / 2)) * DH;
-  const float inv7 = (float)(1.0 / 7.0);
-  float m = -CUDART_INF_F, l = 0.f, acc[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
-  const int s0 = blk * SPLIT_ROWS, s1 = min(cl, s0 + SPLIT_ROWS);
-  for (int s = s0; s < s1; ++s) {
-    const long long off =
-        b * c.batch_stride + (long long)s * row_bytes + head_off;
-    const int4* krow = reinterpret_cast<const int4*>(c.k + off);
-    int li = -qsum8;
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      const int4 kv = biased_nibbles(__ldg(krow + w), shift);
-      li = __dp4a(kv.x, qv[w].x, li);
-      li = __dp4a(kv.y, qv[w].y, li);
-      li = __dp4a(kv.z, qv[w].z, li);
-      li = __dp4a(kv.w, qv[w].w, li);
-    }
-    const long long so = b * c.sc_batch_stride + (long long)s * H + hh;
-    const float logit = (float)li * __ldg(c.ks + so) * f;
-    const float vscale = __ldg(c.vs + so);
-    const float mnew = fmaxf(m, logit);
-    const float corr = expf(m - mnew);
-    const float p = expf(logit - mnew);
-    // the value scale folded into the weight, bf16(p·vs·(1/7)) against the
-    // nibbles
-    const float pb = bf16r(p * vscale * inv7);
-    l = l * corr + p;
-    const int4* vrow = reinterpret_cast<const int4*>(c.v + off);
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      const int4 vv = biased_nibbles(__ldg(vrow + w), shift);
-      const int8_t* ve = reinterpret_cast<const int8_t*>(&vv);
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        acc[w * 16 + j] = acc[w * 16 + j] * corr + pb * (float)(ve[j] - 8);
-    }
-    m = mnew;
-  }
-  const long long pidx = ((long long)b * nblk + blk) * Q * H + pr;
-  pm[pidx] = m;
-  pl[pidx] = l;
-  float* dst = pacc + pidx * DH;
-#pragma unroll
-  for (int d = 0; d < DH; ++d) dst[d] = acc[d];
-}
-
-// Merge the intra-chunk state with the prefix partials, y = acc / den, then
-// quantize each of the scene's Q rows for the output projection.
-template <int DH>
-__global__ void __launch_bounds__(ATT_THREADS)
-attn_combine_kernel(int Q, int H, int nblk, const float* __restrict__ m0,
-                    const float* __restrict__ den0,
-                    const float* __restrict__ acc0,
-                    const float* __restrict__ pm,
-                    const float* __restrict__ pl,
-                    const float* __restrict__ pacc, int8_t* __restrict__ yq,
-                    float* __restrict__ sa) {
-  extern __shared__ float ys[];   // [Q][HD]
-  __shared__ float rmax[8];
-  const int b = blockIdx.x;
-  const int HD = H * DH;
-  const int pr = threadIdx.x;
-  if (pr < Q * H) {
-    const int qi = pr / H, hh = pr % H;
-    const long long i0 = (long long)b * Q * H + pr;
-    float m = m0[i0], l = den0[i0], acc[DH];
-    const float* a0 = acc0 + ((long long)b * Q + qi) * HD + hh * DH;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] = a0[d];
-    for (int blk = 0; blk < nblk; ++blk) {
-      const long long pidx = ((long long)b * nblk + blk) * Q * H + pr;
-      const float mb = pm[pidx];
-      const float mnew = fmaxf(m, mb);
-      const float c1 = expf(m - mnew), c2 = expf(mb - mnew);
-      l = l * c1 + pl[pidx] * c2;
-      const float* ab = pacc + pidx * DH;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] = acc[d] * c1 + ab[d] * c2;
-      m = mnew;
-    }
-#pragma unroll
-    for (int d = 0; d < DH; ++d) ys[qi * HD + hh * DH + d] = acc[d] / l;
-  }
-  __syncthreads();
-  if (pr < Q) {
-    float amax = 0.f;
-    for (int c = 0; c < HD; ++c) amax = fmaxf(amax, fabsf(ys[pr * HD + c]));
-    rmax[pr] = amax / 127.f + 1e-12f;
-    sa[b * Q + pr] = rmax[pr];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < Q * HD; i += blockDim.x)
-    yq[(long long)b * Q * HD + i] = quant_i8(ys[i], rmax[i / HD]);
-}
-
 // ---------------------------------------------------------------------------
 // Dense-cache attention (TPU v2, and v1 with `whole`): the cache holds bf16,
 // fp8 (e4m3) or int8-grid rows that are read as bf16 — not the integer
-// logits of the steps above.  One new row a scene (Q = 1).  The reference's
+// logits of the other steps.  One new row a scene (Q = 1).  The reference's
 // rounding points are kept: q to bf16; every product k·q to bf16, a head's
 // sum in float32, × scale; the self logit from bf16(k_new·q); per S-block of
 // `bs` rows the unnormalized weight p = exp(logit − m') to bf16, bf16(p)·v to
@@ -943,28 +828,46 @@ __global__ void dense_finish_kernel(const float* __restrict__ qkv, int H,
 }
 
 // ---------------------------------------------------------------------------
-// Prefix attention on the int8 cache (integer logits), on the reference's
-// S-blocks: every integer-logit entry on that cache (v5, v5mq, w4, w4mq, v3,
-// v4, v6, v7).  `_kernel_w4` / `decode_step_plain` walk S-blocks of `bs` rows
-// (`pick_block_s`, passed by the wrapper): per block the maximum of the
-// logits li·factor, m' = max(m, block max), p = exp(logit − m'), den = den·
-// exp(m − m') + Σ p, acc = acc·exp(m − m') + Σ bf16(p)·(v/16).  Here the
-// S-blocks are cut into sub-blocks of SUB_ROWS rows, each a CUDA block:
-//   i8_blockmax_kernel — the sub-block's logits (K rows staged in shared
-//     memory, the scene's queries quantized in the block as attn_prep_kernel
-//     does), written out for the next pass, and their maximum per (query,
-//     head); its block x = 0 runs attn_prep_kernel's work for the scene;
+// Prefix attention with integer logits on the reference's S-blocks: every
+// integer-logit entry (v5, v5mq, w4, w4mq, v3, v4, v6, v7 on the int8 cache;
+// v5i4, v5mqi4, w4i4, w4mqi4 on the int4 cache — "i8" names the int8
+// queries both take).  `_kernel_w4` / `_kernel_v5i4` / `decode_step_plain`
+// walk S-blocks of `bs` rows (`pick_block_s`, passed by the wrapper): per
+// block the maximum of the logits, m' = max(m, block max), p = exp(logit −
+// m'), den = den·exp(m − m') + Σ p, acc = acc·exp(m − m') + Σ w·v, where on
+// the int8 cache logit = li·factor and w·v = bf16(p)·(v/16), and on the int4
+// cache logit = (li·ks[row, head])·factor and w·v = bf16(p·vs[row, head]·
+// (1/7))·q with q the value nibble.  Here the S-blocks are cut into
+// sub-blocks of SUB_ROWS rows, each a CUDA block, and the two caches differ
+// only in how a staged row is read (the template's KIND):
+//   i8_blockmax_kernel — the sub-block's logits (K rows, and on the int4
+//     cache their scales, staged in shared memory; the scene's queries
+//     quantized in the block as attn_prep_kernel does), written out for the
+//     next pass, and their maximum per (query, head); its block x = 0 runs
+//     attn_prep_kernel's work for the scene;
 //   i8_mix_kernel — m' of the sub-block's S-block (the maxima of every sub-
 //     block up to the block's end, from the intra-chunk m), the weights p
-//     from the logits (Q·H floats a row, not the row's H·Dh key bytes), their
-//     float32 sum, and the value sums Σ bf16(p)·(v/16), one thread a lane,
-//     on V rows staged in shared memory while the weights are computed;
+//     from the logits (Q·H floats a row, not the row's key bytes), their
+//     float32 sum, the rounded weights w, and the value sums Σ w·v, one
+//     thread four lanes, on V rows staged in shared memory while the weights
+//     are computed;
 //   i8_finish_kernel — one thread a lane of H·Dh a (scene, query): folds the
 //     sub-blocks S-block by S-block from attn_prep_kernel's intra-chunk state,
 //     y = acc / den, the row's maximum by a block reduction, and the int8
 //     quantization of y for the output projection.
-// The products bf16(p)·(v/16) are exact in float32, so only the order of the
-// float32 sums inside an S-block differs from the reference's.
+// The products w·v are exact in float32 (a bf16 value times an integer of at
+// most 8 bits), so only the order of the float32 sums inside an S-block can
+// differ from the reference's.  The plain version sums in PyTorch's order,
+// so y's int8 quantization can flip at a near tie (pinned by
+// tests/test_torch_cuda.py::test_w4mq_flip_is_a_near_tie).
+constexpr int CACHE_INT8 = 0;     // rows of H·Dh bytes on the 1/16 grid
+constexpr int CACHE_INT4 = 1;     // rows of H·Dh/2 nibble pairs + scale planes
+
+// bytes of one cached row of H·Dh values
+template <int KIND>
+__host__ __device__ __forceinline__ int cache_row_bytes(int HD) {
+  return KIND == CACHE_INT4 ? HD / 2 : HD;
+}
 
 // rows of sub-block k (S-block k / nsub_per, part k % nsub_per) below cl
 __device__ __forceinline__ int sub_rows(int k, int bs, int nsub_per, int cl,
@@ -974,7 +877,7 @@ __device__ __forceinline__ int sub_rows(int k, int bs, int nsub_per, int cl,
   return max(0, min(min(cl, (j + 1) * bs), *s0 + SUB_ROWS) - *s0);
 }
 
-template <int DH>
+template <int KIND, int DH>
 __global__ void __launch_bounds__(256)
 i8_blockmax_kernel(Cache c, int cl, int S, int Q, int H, int bs,
                    int nsub_per, int nsubT, const float* __restrict__ qkv,
@@ -983,8 +886,9 @@ i8_blockmax_kernel(Cache c, int cl, int S, int Q, int H, int bs,
                    float* __restrict__ m0, float* __restrict__ den0,
                    float* __restrict__ acc0, float* __restrict__ ilog,
                    float* __restrict__ pmax) {
-  extern __shared__ int4 sm4[];   // [Q·HD] queries, [32·HD] K, [32][QH]
-                                  // logits, [256 / QH][QH] partial maxima
+  extern __shared__ int4 sm4[];   // [Q·HD] queries, [32][RB] K rows, int4:
+                                  // [32][H] K scales; [32][QH] logits,
+                                  // [256 / QH][QH] partial maxima
   __shared__ float red32[32], sqh[ATT_THREADS], fh_s[ATT_THREADS];
   constexpr int W = DH / 16;
   const int b = blockIdx.y;
@@ -994,14 +898,18 @@ i8_blockmax_kernel(Cache c, int cl, int S, int Q, int H, int bs,
     return;
   }
   const int blk = blockIdx.x - 1;
-  const int HD = H * DH, QH = Q * H;
+  const int HD = H * DH, QH = Q * H, RB = cache_row_bytes<KIND>(HD);
   int s0;
   const int rows = sub_rows(blk, bs, nsub_per, cl, &s0);
   if (rows == 0) return;
   int8_t* qs = reinterpret_cast<int8_t*>(sm4);
-  int8_t* ks = qs + Q * HD;
-  float* lg = reinterpret_cast<float*>(ks + SUB_ROWS * HD);
-  stage_async(ks, c.k + b * c.batch_stride + (long long)s0 * HD, rows * HD);
+  int8_t* kb = qs + Q * HD;
+  float* ksc = reinterpret_cast<float*>(kb + SUB_ROWS * RB);
+  float* lg = ksc + (KIND == CACHE_INT4 ? SUB_ROWS * H : 0);
+  if (KIND == CACHE_INT4)
+    stage_async_f32(ksc, c.ks + b * c.sc_batch_stride + (long long)s0 * H,
+                    rows * H);
+  stage_async(kb, c.k + b * c.batch_stride + (long long)s0 * RB, rows * RB);
   // the scene's queries, quantized here as the prep pass quantizes them
   const float* base = qkv + (long long)b * Q * 3 * HD;
   float amax = 0.f;
@@ -1009,14 +917,29 @@ i8_blockmax_kernel(Cache c, int cl, int S, int Q, int H, int bs,
     amax = fmaxf(amax, fabsf(base[(long long)(i / HD) * 3 * HD + i % HD]));
   quantize_queries(base, Q, H, DH, flags, cq, amax, red32, sqh, fh_s, qs);
   stage_wait();
-  // one thread a (row, head): its K slice against the Q queries
+  // one thread a (row, head): its K slice against the Q queries.  int4: the
+  // head's DH values are bytes (hh mod H/2)·DH.. of the row, in the low
+  // nibbles for hh < H/2 and the high ones otherwise (the halves layout)
   for (int t = threadIdx.x; t < rows * H; t += blockDim.x) {
     const int r = t / H, hh = t % H;
-    const int4* krow = reinterpret_cast<const int4*>(ks + r * HD + hh * DH);
     int4 kv[W];
+    if (KIND == CACHE_INT4) {
+      const int4* krow = reinterpret_cast<const int4*>(
+          kb + r * RB + (hh % (H / 2)) * DH);
+      const int shift = hh < H / 2 ? 0 : 4;
 #pragma unroll
-    for (int w = 0; w < W; ++w) kv[w] = krow[w];
+      for (int w = 0; w < W; ++w) {
+        const int4 p = krow[w];
+        kv[w] = make_int4(nibble_lanes(p.x, shift), nibble_lanes(p.y, shift),
+                          nibble_lanes(p.z, shift), nibble_lanes(p.w, shift));
+      }
+    } else {
+      const int4* krow = reinterpret_cast<const int4*>(kb + r * HD + hh * DH);
+#pragma unroll
+      for (int w = 0; w < W; ++w) kv[w] = krow[w];
+    }
     const float fh = fh_s[hh];
+    const float ksr = KIND == CACHE_INT4 ? ksc[r * H + hh] : 1.f;
     for (int qi = 0; qi < Q; ++qi) {
       const int4* qv = reinterpret_cast<const int4*>(qs + qi * HD + hh * DH);
       int li = 0;
@@ -1028,7 +951,9 @@ i8_blockmax_kernel(Cache c, int cl, int S, int Q, int H, int bs,
         li = __dp4a(kv[w].z, a.z, li);
         li = __dp4a(kv[w].w, a.w, li);
       }
-      lg[r * QH + qi * H + hh] = (float)li * fh;
+      // int4: (li·ks)·factor, the plain version's li·ksb·fac
+      lg[r * QH + qi * H + hh] =
+          KIND == CACHE_INT4 ? ((float)li * ksr) * fh : (float)li * fh;
     }
   }
   __syncthreads();
@@ -1051,23 +976,30 @@ i8_blockmax_kernel(Cache c, int cl, int S, int Q, int H, int bs,
   }
 }
 
-template <int DH, int MAXQ>
+template <int KIND, int DH, int MAXQ>
 __global__ void __launch_bounds__(256)
 i8_mix_kernel(Cache c, int cl, int S, int Q, int H, int bs, int nsub_per,
               int nsubT, const float* __restrict__ ilog,
               const float* __restrict__ m0, const float* __restrict__ pmax,
               float* __restrict__ psum, float* __restrict__ pacc) {
-  extern __shared__ int4 sm4[];   // [32·HD] V, [32][QH] weights, [QH] m',
-                                  // [256 / QH][QH] partial maxima
+  extern __shared__ int4 sm4[];   // [32][RB] V rows, int4: [32][H] V scales;
+                                  // [32][QH] weights, [QH] m',
+                                  // [256 / QH][QH] partial maxima and sums
   const int blk = blockIdx.x, b = blockIdx.y;
-  const int HD = H * DH, QH = Q * H;
+  const int HD = H * DH, QH = Q * H, RB = cache_row_bytes<KIND>(HD);
   int s0;
   const int rows = sub_rows(blk, bs, nsub_per, cl, &s0);
   if (rows == 0) return;
-  int8_t* vs = reinterpret_cast<int8_t*>(sm4);
-  float* lg = reinterpret_cast<float*>(vs + SUB_ROWS * HD);
+  int8_t* vb = reinterpret_cast<int8_t*>(sm4);
+  float* vsc = reinterpret_cast<float*>(vb + SUB_ROWS * RB);
+  float* lg = vsc + (KIND == CACHE_INT4 ? SUB_ROWS * H : 0);
   float* mnew = lg + SUB_ROWS * QH;
-  stage_async(vs, c.v + b * c.batch_stride + (long long)s0 * HD, rows * HD);
+  // int4: the V scales first, in a commit group of their own (the weights
+  // need them), then the V rows, which the value sums need last
+  if (KIND == CACHE_INT4)
+    stage_async_f32(vsc, c.vs + b * c.sc_batch_stride + (long long)s0 * H,
+                    rows * H);
+  stage_async(vb, c.v + b * c.batch_stride + (long long)s0 * RB, rows * RB);
   // m' of this S-block: the intra-chunk maximum and every sub-block's up to
   // the block's end (the maximum is exact in any order), the sub-blocks
   // shared out over all threads, `parts` of them a (query, head)
@@ -1094,17 +1026,23 @@ i8_mix_kernel(Cache c, int cl, int S, int Q, int H, int bs, int nsub_per,
   const float* src = ilog + ((long long)b * S + s0) * QH;
   for (int t = threadIdx.x; t < rows * QH; t += blockDim.x)
     lg[t] = expf(src[t] - mnew[t % QH]);
-  __syncthreads();
-  // Σ p in float32 (`parts` threads a (query, head), their partial sums
-  // added in order), then the weights rounded to bf16 in place and divided
-  // by 16 (exact): bf16(p)/16 · v is the reference's bf16(p) · (v/16)
+  if (KIND == CACHE_INT4)
+    stage_wait_but_last();                      // the V scales are in
+  else
+    __syncthreads();
+  // Σ p in float32 (`parts` threads a (query, head), row r to part r mod
+  // parts, their partial sums added in order), then the weights rounded to
+  // bf16 in place: int8 bf16(p)/16 (exact: bf16(p)/16 · v is the
+  // reference's bf16(p) · (v/16)), int4 bf16(p·vs·(1/7)) from the unrounded p
+  const float inv7 = (float)(1.0 / 7.0);
   if (threadIdx.x < parts * QH) {
-    const int qh = threadIdx.x % QH, pt = threadIdx.x / QH;
+    const int qh = threadIdx.x % QH, pt = threadIdx.x / QH, hh = qh % H;
     float ps = 0.f;
     for (int r = pt; r < rows; r += parts) {
       const float p = lg[r * QH + qh];
       ps += p;
-      lg[r * QH + qh] = bf16r(p) * 0.0625f;
+      lg[r * QH + qh] = KIND == CACHE_INT4 ? bf16r(p * vsc[r * H + hh] * inv7)
+                                           : bf16r(p) * 0.0625f;
     }
     red[pt * QH + qh] = ps;
   }
@@ -1115,18 +1053,23 @@ i8_mix_kernel(Cache c, int cl, int S, int Q, int H, int bs, int nsub_per,
     psum[((long long)b * nsubT + blk) * QH + qh] = ps;
   }
   stage_wait();
-  // four lanes a thread: one 32-bit word of a V row, one weight a query
+  // four lanes a thread: one 32-bit word of a V row (int4: of the row's
+  // low-nibble half for lanes below HD/2, of its high-nibble half above),
+  // one weight a query
   float* dst = pacc + ((long long)b * nsubT + blk) * Q * HD;
   for (int e0 = 4 * threadIdx.x; e0 < HD; e0 += 4 * blockDim.x) {
     const int hh = e0 / DH;
+    const bool high = KIND == CACHE_INT4 && e0 >= HD / 2;
+    const int8_t* vcol = vb + (high ? e0 - HD / 2 : e0);
     float acc[MAXQ][4];
 #pragma unroll
     for (int qi = 0; qi < MAXQ; ++qi)
       acc[qi][0] = acc[qi][1] = acc[qi][2] = acc[qi][3] = 0.f;
     for (int r = 0; r < rows; ++r) {
-      const char4 v4 = *reinterpret_cast<const char4*>(vs + r * HD + e0);
-      const float v[4] = {(float)v4.x, (float)v4.y, (float)v4.z,
-                          (float)v4.w};
+      int x = *reinterpret_cast<const int*>(vcol + r * RB);
+      if (KIND == CACHE_INT4) x = nibble_lanes(x, high ? 4 : 0);
+      const float v[4] = {(float)(int8_t)x, (float)(int8_t)(x >> 8),
+                          (float)(int8_t)(x >> 16), (float)(int8_t)(x >> 24)};
       const float* wr = lg + r * QH + hh;
 #pragma unroll
       for (int qi = 0; qi < MAXQ; ++qi) {
@@ -1214,9 +1157,6 @@ struct Workspace {
   float* m0;      // [B, Q*H]
   float* den0;    // [B, Q*H]
   float* acc0;    // [B, Q, d]
-  float* pm;      // [B, nblk, Q*H]
-  float* pl;      // [B, nblk, Q*H]
-  float* pacc;    // [B, nblk, Q, d]
   float* hid;     // [R, 4d]
   // the dense-cache steps (Q = 1)
   float* dq;      // [B, d] bf16-rounded queries
@@ -1225,7 +1165,7 @@ struct Workspace {
   float* dcorr;   // [B, NSB, H] bf16 rescale of each S-block (v1: self weight)
   float* dden;    // [B, H] bf16 denominator (v1: float32)
   float* dpacc;   // [B, NSUB, Q, d] float32 value sums of the 32-row sub-blocks
-  // the integer-logit steps on the int8 cache, per sub-block and (query, head)
+  // the integer-logit steps, per sub-block and (query, head)
   float* ipmax;   // [B, NSUB, Q*H] maximum of the logits
   float* ipsum;   // [B, NSUB, Q*H] sum of the weights
 };
@@ -1237,14 +1177,12 @@ size_t dense_max_subs(int S) { return (size_t)S / 32 + dense_max_blocks(S) + 1; 
 size_t workspace_layout(int B, int Q, int d, int H, int S, char* base,
                         Workspace* ws) {
   const size_t R = (size_t)B * Q;
-  const size_t nblk = (S + SPLIT_ROWS - 1) / SPLIT_ROWS;
   const size_t nsb = dense_max_blocks(S), nsub = dense_max_subs(S);
-  constexpr int NSLOT = 21;
+  constexpr int NSLOT = 18;
   const size_t sizes[NSLOT] = {
       R * d * 4,        R * 4 * d,        R * 4,
       R * 3 * d * 4,    R * d,            (size_t)B * H * 4,
       R * H * 4,        R * H * 4,        R * d * 4,
-      B * nblk * Q * H * 4, B * nblk * Q * H * 4, B * nblk * Q * d * 4,
       R * 4 * d * 4,
       (size_t)B * d * 4, R * S * H * 4, B * nsb * H * 4,
       B * nsb * H * 4,  (size_t)B * H * 4, R * nsub * d * 4,
@@ -1253,7 +1191,6 @@ size_t workspace_layout(int B, int Q, int d, int H, int S, char* base,
       (void**)&ws->h,    (void**)&ws->aq,   (void**)&ws->sa,
       (void**)&ws->qkv,  (void**)&ws->qp,   (void**)&ws->factor,
       (void**)&ws->m0,   (void**)&ws->den0, (void**)&ws->acc0,
-      (void**)&ws->pm,   (void**)&ws->pl,   (void**)&ws->pacc,
       (void**)&ws->hid,  (void**)&ws->dq,   (void**)&ws->dlog,
       (void**)&ws->dm,   (void**)&ws->dcorr, (void**)&ws->dden,
       (void**)&ws->dpacc, (void**)&ws->ipmax, (void**)&ws->ipsum};
@@ -1265,26 +1202,9 @@ size_t workspace_layout(int B, int Q, int d, int H, int S, char* base,
   return off;
 }
 
-// The prefix attention of one layer on the int4 cache (32-row splits).
-template <int DH>
-cudaError_t attention_i4(const Workspace& w, int B, int Q, int H,
-                         const Cache& c, int cl, float scale, float cq,
-                         cudaStream_t st) {
-  attn_prep_kernel<<<B, 256, 0, st>>>(w.qkv, Q, H, DH, c, cl, scale, cq, 0,
-                                      w.qp, w.factor, w.m0, w.den0, w.acc0);
-  const int nblk = (cl + SPLIT_ROWS - 1) / SPLIT_ROWS;
-  if (nblk > 0)
-    attn_split_kernel<DH><<<dim3(nblk, B), ATT_THREADS, 0, st>>>(
-        c, cl, Q, H, w.qp, w.factor, nblk, w.pm, w.pl, w.pacc);
-  const size_t smem = (size_t)Q * H * DH * sizeof(float);
-  attn_combine_kernel<DH><<<B, ATT_THREADS, smem, st>>>(
-      Q, H, nblk, w.m0, w.den0, w.acc0, w.pm, w.pl, w.pacc, w.aq, w.sa);
-  return cudaGetLastError();
-}
-
-// The integer-logit attention of one layer on the int8 cache, on S-blocks
-// of bs rows (see i8_blockmax_kernel above).
-template <int DH>
+// The integer-logit attention of one layer on the int8 or the int4 cache
+// (KIND), on S-blocks of bs rows (see i8_blockmax_kernel above).
+template <int KIND, int DH>
 cudaError_t attention_i8(const Workspace& w, int B, int Q, int H, int S,
                          const Cache& c, int cl, int bs, float scale,
                          float cq, int flags, cudaStream_t st) {
@@ -1299,33 +1219,38 @@ cudaError_t attention_i8(const Workspace& w, int B, int Q, int H, int S,
                                         flags, w.qp, w.factor, w.m0, w.den0,
                                         w.acc0);
   } else {
+    // a sub-block's rows, and on the int4 cache their scales, then the
+    // weights (see the kernels' shared-memory maps)
+    const size_t rows = SUB_ROWS * (size_t)cache_row_bytes<KIND>(HD) +
+                        (KIND == CACHE_INT4 ? SUB_ROWS * H * sizeof(float)
+                                            : 0);
     const size_t lg = SUB_ROWS * QH * sizeof(float);
-    const size_t smem_max =
-        (size_t)Q * HD + SUB_ROWS * HD + lg + 256 * sizeof(float);
-    const size_t smem_mix = SUB_ROWS * HD + lg + (QH + 256) * sizeof(float);
+    const size_t smem_max = (size_t)Q * HD + rows + lg + 256 * sizeof(float);
+    const size_t smem_mix = rows + lg + (QH + 256) * sizeof(float);
     static bool configured = false;      // past 48 KB only when asked for
     if (!configured) {
       const int most = 96 * 1024;
-      cudaFuncSetAttribute(i8_blockmax_kernel<DH>,
+      cudaFuncSetAttribute(i8_blockmax_kernel<KIND, DH>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-      cudaFuncSetAttribute(i8_mix_kernel<DH, 1>,
+      cudaFuncSetAttribute(i8_mix_kernel<KIND, DH, 1>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-      cudaFuncSetAttribute(i8_mix_kernel<DH, MAX_Q>,
+      cudaFuncSetAttribute(i8_mix_kernel<KIND, DH, MAX_Q>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, most);
       configured = true;
     }
     // block x = 0 of each scene runs the prep pass, the others a sub-block
-    i8_blockmax_kernel<DH><<<dim3(nb * nsub_per + 1, B), 256, smem_max, st>>>(
-        c, cl, S, Q, H, bs, nsub_per, nsubT, w.qkv, scale, cq, flags, w.qp,
-        w.factor, w.m0, w.den0, w.acc0, w.dlog, w.ipmax);
+    i8_blockmax_kernel<KIND, DH>
+        <<<dim3(nb * nsub_per + 1, B), 256, smem_max, st>>>(
+            c, cl, S, Q, H, bs, nsub_per, nsubT, w.qkv, scale, cq, flags,
+            w.qp, w.factor, w.m0, w.den0, w.acc0, w.dlog, w.ipmax);
     const dim3 grid(nb * nsub_per, B);
     // the single-row step (2196 a frame) without the chunk's query loop
     if (Q == 1)
-      i8_mix_kernel<DH, 1><<<grid, 256, smem_mix, st>>>(
+      i8_mix_kernel<KIND, DH, 1><<<grid, 256, smem_mix, st>>>(
           c, cl, S, Q, H, bs, nsub_per, nsubT, w.dlog, w.m0, w.ipmax,
           w.ipsum, w.dpacc);
     else
-      i8_mix_kernel<DH, MAX_Q><<<grid, 256, smem_mix, st>>>(
+      i8_mix_kernel<KIND, DH, MAX_Q><<<grid, 256, smem_mix, st>>>(
           c, cl, S, Q, H, bs, nsub_per, nsubT, w.dlog, w.m0, w.ipmax,
           w.ipsum, w.dpacc);
   }
@@ -1338,7 +1263,7 @@ cudaError_t attention_i8(const Workspace& w, int B, int Q, int H, int S,
 // The dense-cache attention of one layer (see dense_prep_kernel above).
 struct DenseMode {
   int code;    // DenseType; -1: the integer-logit attention
-  int bs;      // rows of an S-block (the int4 cache's attention takes none)
+  int bs;      // rows of an S-block
   int whole;   // one block over all of S, normalized weights (TPU v1)
 };
 
@@ -1431,7 +1356,7 @@ struct StepCache {
 // cq: scale/16 for the int8 cache, scale/7 for the int4 one; flags: see
 // attn_prep_kernel; dense.code >= 0: the dense-cache attention (then kv's
 // strides are in bytes of its storage type, Q = 1, and cq and flags unused);
-// dense.bs: the S-block rows of the int8 cache's and the dense attention
+// dense.bs: the S-block rows of every prefix attention
 int run_step(const void* x, void* out, int B, int Q, int d, int H, int L,
              const float* vec, const Products& P, const StepCache& kv, int S,
              int cl, float scale, float cq, void* workspace, cudaStream_t st,
@@ -1440,8 +1365,8 @@ int run_step(const void* x, void* out, int B, int Q, int d, int H, int L,
   const bool i4 = kv.c.ks != nullptr;
   if (Q > MAX_Q || Q * H > ATT_THREADS || cl + Q > S)
     return (int)cudaErrorInvalidValue;
-  if (!i4 && dense.bs < 1) return (int)cudaErrorInvalidValue;
-  if (dense.code >= 0 && (Q != 1 || i4 || dense.code > KV_I8 || dense.bs < 1))
+  if (dense.bs < 1) return (int)cudaErrorInvalidValue;
+  if (dense.code >= 0 && (Q != 1 || i4 || dense.code > KV_I8))
     return (int)cudaErrorInvalidValue;
   if (flags && (i4 || P.w4 || dense.code >= 0))
     return (int)cudaErrorInvalidValue;
@@ -1486,13 +1411,15 @@ int run_step(const void* x, void* out, int B, int Q, int d, int H, int L,
     else if (dense.code == KV_I8)
       e = dense_attention<KV_I8>(w, B, H, Dh, S, c, cl, scale, dense, st);
     else if (Dh == 48)
-      e = i4 ? attention_i4<48>(w, B, Q, H, c, cl, scale, cq, st)
-             : attention_i8<48>(w, B, Q, H, S, c, cl, dense.bs, scale, cq,
-                                flags, st);
+      e = i4 ? attention_i8<CACHE_INT4, 48>(w, B, Q, H, S, c, cl, dense.bs,
+                                            scale, cq, flags, st)
+             : attention_i8<CACHE_INT8, 48>(w, B, Q, H, S, c, cl, dense.bs,
+                                            scale, cq, flags, st);
     else
-      e = i4 ? attention_i4<16>(w, B, Q, H, c, cl, scale, cq, st)
-             : attention_i8<16>(w, B, Q, H, S, c, cl, dense.bs, scale, cq,
-                                flags, st);
+      e = i4 ? attention_i8<CACHE_INT4, 16>(w, B, Q, H, S, c, cl, dense.bs,
+                                            scale, cq, flags, st)
+             : attention_i8<CACHE_INT8, 16>(w, B, Q, H, S, c, cl, dense.bs,
+                                            scale, cq, flags, st);
     if (e != cudaSuccess) return (int)e;
     e = gemv(w, P.w4, R, wt[1], sc[1], d, d, vl + 9 * d, EPI_RESID, w.h, st);
     if (e != cudaSuccess) return (int)e;
@@ -1636,20 +1563,20 @@ extern "C" int umgen_decode_step_w4(const void* x, void* out, int B, int Q,
 // bytes (halves layout), layer l, scene b, row s at l·layer_stride +
 // b·batch_stride + s·d/2; ks/vs: float32 scales, H per row, at
 // l·sc_layer_stride + b·sc_batch_stride + s·H (strides in floats).
-// c7 = scale/7.
+// c7 = scale/7; bs as above.
 extern "C" int umgen_decode_step_i4(
     const void* x, void* out, int B, int Q, int d, int H, int L,
     const void* vec, const void* wqkv, const void* wproj, const void* wfc,
     const void* wpj, void* kc, void* vc, long long layer_stride,
     long long batch_stride, void* ks, void* vs, long long sc_layer_stride,
     long long sc_batch_stride, int S, int cl, float scale, float c7,
-    void* workspace, void* stream) {
+    void* workspace, void* stream, int bs) {
   return run_step(x, out, B, Q, d, H, L, (const float*)vec,
                   int8_products(d, wqkv, wproj, wfc, wpj),
                   int4_cache(kc, vc, layer_stride, batch_stride, ks, vs,
                              sc_layer_stride, sc_batch_stride),
                   S, cl, scale, c7, workspace, (cudaStream_t)stream, 0,
-                  DenseMode{-1, 0, 0});
+                  DenseMode{-1, bs, 0});
 }
 
 // The W4A8 step on the int4 cache.
@@ -1658,11 +1585,11 @@ extern "C" int umgen_decode_step_w4_i4(
     const void* vec, const void* w4k, const void* s4k, void* kc, void* vc,
     long long layer_stride, long long batch_stride, void* ks, void* vs,
     long long sc_layer_stride, long long sc_batch_stride, int S, int cl,
-    float scale, float c7, void* workspace, void* stream) {
+    float scale, float c7, void* workspace, void* stream, int bs) {
   return run_step(x, out, B, Q, d, H, L, (const float*)vec,
                   w4_products(d, w4k, s4k),
                   int4_cache(kc, vc, layer_stride, batch_stride, ks, vs,
                              sc_layer_stride, sc_batch_stride),
                   S, cl, scale, c7, workspace, (cudaStream_t)stream, 0,
-                  DenseMode{-1, 0, 0});
+                  DenseMode{-1, bs, 0});
 }

@@ -539,8 +539,8 @@ _DENSE_CODE = {torch.bfloat16: 0, torch.float8_e4m3fn: 1, torch.int8: 2}
 
 def _argtypes(w4: bool, int4: bool):
     """int8 weights on the int8 cache take the flags and the S-block rows,
-    W4A8 ones the S-block rows; the int4 cache's entries neither."""
-    tail = [] if int4 else [_cuda.INT] if w4 else [_cuda.INT, _cuda.INT]
+    the other three entries the S-block rows."""
+    tail = [_cuda.INT] if w4 or int4 else [_cuda.INT, _cuda.INT]
     return (_ARGS_HEAD + [_cuda.VOIDP] * (2 if w4 else 4)
             + _ARGS_KV * (2 if int4 else 1) + _ARGS_TAIL + tail)
 
@@ -572,9 +572,8 @@ def decode_step_cuda(packed: Params, x: torch.Tensor, kv_k: torch.Tensor,
     """Launch csrc/decode_step.cu (int8 or W4A8 weights, as packed; int8
     caches, or int4 ones when the scale planes are given); new rows written
     in place.  `flags` (FLAG_HEAD_SCALE, FLAG_ROWS_F32) exist for int8
-    weights on the int8 cache only.  `block_s`: the rows of the int8
-    cache's S-blocks (`pick_block_s` of it; 0: v5's); the int4 cache's
-    attention takes none."""
+    weights on the int8 cache only.  `block_s`: the rows of the prefix
+    attention's S-blocks (`pick_block_s` of it; 0: v5's)."""
     int4 = k_scale is not None
     L, B, S, row = kv_k.shape
     HD = 2 * row if int4 else row
@@ -621,7 +620,7 @@ def decode_step_cuda(packed: Params, x: torch.Tensor, kv_k: torch.Tensor,
     out = torch.empty_like(x)
     scale = 1.0 / math.sqrt(d // H)
     bs = pick_block_s(S, block_s)
-    tail = [] if int4 else [bs] if w4 else [flags, bs]
+    tail = [bs] if w4 or int4 else [flags, bs]
     fn = _cuda.function(_ENTRIES[w4, int4], _argtypes(w4, int4))
     err = fn(x.data_ptr(), out.data_ptr(), B, Q, d, H, L, vec.data_ptr(),
              *(t.data_ptr() for t in weights), *kv_args, S, cl, scale,
