@@ -17,8 +17,11 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
       head's, a dropped 32-row block); v3 and v4 must equal v5 bit for bit,
       v6's h too; time `scaled_dot_product_attention` beside the flash
       kernel, for the record only; `torch.profiler` tables
-      (µs a call by kernel, the device's busy share) of 20 w4 and 20 w4i4
-      steps at B = 10, cache_len 1100, and of 20 flash calls at B·T = 10;
+      (µs a call by kernel, the device's busy share, launches a layer) of
+      20 w4 and 20 w4i4 steps at B = 10, of 20 v5, v2 and v1 steps at B = 1
+      (v2, v1 on a bf16 cache), all at cache_len 1100, and of 20 flash calls
+      at B·T = 10; v5 and v2 at B = 1 with the layer norm inside the int8
+      products and by ln_quant_kernel, in turns, h equal bit for bit;
   (c) run the UMGen_Large cached video rollout (36-layer stacks, d = 768,
       seeded random weights on the card, one synthetic scene, B = 1, bf16
       rings, int8 decode weights) through the CLI's code path
@@ -137,7 +140,7 @@ FLASH_RTOL_MEAN = 2.0 ** -8
 #   than one int8 step and two bf16 ulps of the largest, 2e-2 of max |y|,
 #   and a mean error within 2^-10 of the mean |y| for phase b's first half
 #   (v5, v5mq, w4, w4mq and the int4-cache steps v5i4, w4i4, v5mqi4,
-#   w4mqi4), 2^-7 for its second half.  The phase also checks that the
+#   w4mqi4) and for v1 and v2, 2^-7 for v7.  The phase also checks that the
 #   looser bounds reject five planted int4 faults, made through the plain
 #   version's inputs at cache_len 1100: the K and V scale planes swapped,
 #   the low nibble read for the heads >= H/2, a dropped 32-row block, and
@@ -150,15 +153,18 @@ FLASH_RTOL_MEAN = 2.0 ** -8
 #   cache_len (h and rows); v6's h must equal v5's and its new rows (from
 #   float32) lie at most one grid step from v5's and equal the plain
 #   version's at layer 0.  v1 and v2 (a dense bf16 / fp8 / int8-grid cache
-#   read as bf16): the kernel keeps the plain version's S-blocks and every
-#   rounding point of it, and differs in the order of the float32 sums
-#   inside a block only, so the same bounds hold with room; at cache_len 0
-#   the attention is the new row's own value: bit for bit, h and rows in
-#   the cache's type; layer 0's rows equal at every cache_len.  The prefix
-#   attention by itself for v1, v2 and v7, with planted faults at cache_len
-#   1100 that must fail: the bf16 cache read at fp8 precision (v1, v2 on
-#   bf16), the scene's query scale in place of the (scene, head) one (v7),
-#   a dropped 32-row block (all).
+#   read as bf16) run on the S-block passes of the integer caches: the
+#   kernel keeps the plain version's S-blocks and every rounding point of it
+#   (bf16(w·v) for each product, bf16 for the block sum, the rescale and the
+#   denominator), and differs in the order of the float32 sums inside a
+#   block only; at cache_len 0 the attention is the new row's own value:
+#   bit for bit, h and rows in the cache's type; layer 0's rows equal at
+#   every cache_len.  The prefix attention by itself for v1, v2 and v7:
+#   v1 and v2 held to 2^-10 of the mean |y| as the first half, v7 to 2^-7;
+#   planted faults at cache_len 1100 must fail the looser bounds (2^-7):
+#   the bf16 cache read at fp8 precision (v1, v2 on bf16), the scene's
+#   query scale in place of the (scene, head) one (v7), a dropped 32-row
+#   block (all).
 DECODE_RTOL_1 = 2e-2
 DECODE_RTOL_36 = 0.15
 KV_LAYER0_ATOL = 1
@@ -246,6 +252,18 @@ def _print_profile(what, prof):
     for name, r in prof["kernels"].items():
         print(f"      {r['us_per_call']:9.2f}  ({r['launches_per_call']:g}, "
               f"{r['us_per_launch']:.2f})  {name[:90]}")
+
+
+def _step_profile(fn, L, what) -> dict:
+    """`_kernel_profile` of 20 decode steps of L layers, printed, with the
+    kernels a layer: a step launches two besides its layers' (the residual
+    stream in and out)."""
+    prof = _kernel_profile(fn, 20)
+    per_step = sum(r["launches_per_call"] for r in prof["kernels"].values())
+    prof["launches_per_layer"] = (per_step - 2) / L
+    _print_profile(what, prof)
+    print(f"(b) {what}: {prof['launches_per_layer']:g} launches a layer")
+    return prof
 
 
 def _bound(nbytes: float, ops_s: float) -> dict:
@@ -531,8 +549,8 @@ def attention_summary(rows):
     a prefix: the largest max and mean errors (of max |y|, of mean |y|) and
     how many cases are not bit for bit.  The kernel keeps the reference's
     S-blocks and every rounding point, so these sit far below the bounds
-    (ATTN_RTOL_MAX, and ATTN_RTOL_MEAN_SBLOCKS for phase b's first half,
-    ATTN_RTOL_MEAN for its second)."""
+    (ATTN_RTOL_MAX, and ATTN_RTOL_MEAN_SBLOCKS for phase b's first half
+    and for v1 and v2, ATTN_RTOL_MEAN for v7)."""
     out = {}
     for name, cases in rows.items():
         seen = [c for c in cases if c["attn_read"]]
@@ -661,12 +679,12 @@ def phase_decode(dev, cfg, packs, visible):
                 f"{dsc0} / {dsc.max().item()}; rest of the caches "
                 f"untouched: {untouched}")
         ms = _time_ms(lambda: fn(packed, x, *ck, cl, n_head=H), 20)
-        if (B, Q, cl) == (10, 1, 1100) and name in ("w4", "w4i4"):
-            # the serving and the serving-i4 step
-            profiles[name] = _kernel_profile(
-                lambda: fn(packed, x, *ck, cl, n_head=H), 20)
-            _print_profile(f"{name} steps, B = 10, cache_len 1100",
-                           profiles[name])
+        if (name, B, Q, cl) in (("w4", 10, 1, 1100), ("w4i4", 10, 1, 1100),
+                                ("v5", 1, 1, 1100)):
+            # the serving, the serving-i4 and the slice's step
+            profiles[name] = _step_profile(
+                lambda: fn(packed, x, *ck, cl, n_head=H), L,
+                f"{name} steps, B = {B}, cache_len 1100")
         # the plain step is no yardstick of speed: one run, already warm
         pms = _time_ms(lambda: plain(packed, cp), 1, warmup=0)
         rows.setdefault(name, []).append({
@@ -721,7 +739,7 @@ def phase_variants(dev, cfg, packs, visible):
     g.manual_seed(5)
     tdt = {"bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn,
            "int8": torch.int8}
-    rows = {}
+    rows, profiles = {}, {}
     for name, kv, B, cl in VARIANT_CASES:
         dense = name in ("v1", "v2")
         fn = dk.fused_decode_step if name == "v1" else \
@@ -787,14 +805,17 @@ def phase_variants(dev, cfg, packs, visible):
                 if name == "v7":
                     faults["scene_scale_for_head_scale"] = readings(
                         y_plain(c0, head_scale=False))
+            # v1 and v2 keep every rounding point of the plain version on
+            # its S-blocks: held as phase b's first half; the planted faults
+            # are judged against the looser bound
+            mean = ATTN_RTOL_MEAN_SBLOCKS if dense else ATTN_RTOL_MEAN
             passed = [k for k, e in faults.items() if attn_ok(e)]
-            if not attn_ok(attn) or passed:
+            if not attn_ok(attn, mean) or passed:
                 raise AssertionError(
                     f"{name} {kv} B={B} cache_len={cl}: attention output max "
                     f"err {attn[0]:.3g} of max |y| (bound {ATTN_RTOL_MAX:.3g})"
-                    f", mean {attn[1]:.3g} of mean |y| (bound "
-                    f"{ATTN_RTOL_MEAN:.3g}); planted faults that pass: "
-                    f"{passed} of {faults}")
+                    f", mean {attn[1]:.3g} of mean |y| (bound {mean:.3g}); "
+                    f"planted faults that pass: {passed} of {faults}")
 
         h1 = call(_first_layer(packs[key_k]), layer0(ck))
         h1ref = plain(_first_layer(packs[key_p]), layer0(cp))
@@ -835,6 +856,12 @@ def phase_variants(dev, cfg, packs, visible):
                 f"err {dkv0} at layer 0, {dkv.max().item()} at any; rest of "
                 f"the caches untouched: {untouched}{against_v5}")
         ms = _time_ms(lambda: call(packs[key_k], ck), 20)
+        if (name in ("v1", "v2") and kv == "bfloat16" and B == 1
+                and cl == 1100):
+            # the slice-bf16kv and the slice-v1 step
+            profiles[name] = _step_profile(
+                lambda: call(packs[key_k], ck), L,
+                f"{name} steps, bf16 cache, B = 1, cache_len 1100")
         rows.setdefault(name, []).append({
             "kv": kv, "B": B, "Q": 1, "cache_len": cl, "max_abs_err": err,
             "rel_err": rel, "rel_err_1_layer": rel1,
@@ -857,7 +884,7 @@ def phase_variants(dev, cfg, packs, visible):
               f"{rows[name][-1]['bound_ms']:.4f} ms "
               f"({rows[name][-1]['bound_by']})")
         del cache, ck, cp
-    return rows
+    return rows, profiles
 
 
 def _first_frame(ro, params, inputs, device, chunked):
@@ -1064,13 +1091,19 @@ def _reset_launches():
 _ATTN_I8 = "the int8 cache's attention on the reference's S-blocks"
 _ATTN_I4 = ("the int4 cache's attention on the reference's S-blocks (the "
             "int8 cache's passes, templated on the cache's kind)")
+_ATTN_DENSE = ("the dense cache's attention on the reference's S-blocks (the "
+               "integer passes' instances)")
 _GEMV_W4 = "the staged W4 GEMV"
+_GEMV_I8 = ("the staged int8 GEMV (at B·Q <= 2 with the layer norm and "
+            "quantization in its blocks)")
 REDESIGNED = {
     "flash_attention": "wgmma products, TMA loads by a producer warp",
     "w4": f"{_ATTN_I8}; {_GEMV_W4}", "w4mq": f"{_ATTN_I8}; {_GEMV_W4}",
-    **{k: _ATTN_I8 for k in ("v5", "v5mq", "v3", "v4", "v6", "v7")},
-    "v5i4": _ATTN_I4, "v5mqi4": _ATTN_I4,
-    "w4i4": f"{_ATTN_I4}; {_GEMV_W4}", "w4mqi4": f"{_ATTN_I4}; {_GEMV_W4}"}
+    **{k: f"{_ATTN_I8}; {_GEMV_I8}"
+       for k in ("v5", "v5mq", "v3", "v4", "v6", "v7")},
+    "v5i4": f"{_ATTN_I4}; {_GEMV_I8}", "v5mqi4": f"{_ATTN_I4}; {_GEMV_I8}",
+    "w4i4": f"{_ATTN_I4}; {_GEMV_W4}", "w4mqi4": f"{_ATTN_I4}; {_GEMV_W4}",
+    "v1": f"{_ATTN_DENSE}; {_GEMV_I8}", "v2": f"{_ATTN_DENSE}; {_GEMV_I8}"}
 
 
 def _kernel_name(kind):
@@ -1432,8 +1465,12 @@ def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
         report["decode"].update(rows)
         report["w4_profile"] = profiles["w4"]
         report["w4i4_profile"] = profiles["w4i4"]
+        report["v5_profile"] = profiles["v5"]
     if want("variants"):
-        report["decode"].update(phase_variants(dev, cfg, packs, visible))
+        rows, profiles = phase_variants(dev, cfg, packs, visible)
+        report["decode"].update(rows)
+        report["v2_profile"] = profiles["v2"]
+        report["v1_profile"] = profiles["v1"]
     report["attention_alone"] = attention_summary(report["decode"])
     torch.cuda.empty_cache()
     if want("step_loops"):

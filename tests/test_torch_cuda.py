@@ -684,3 +684,143 @@ def test_fp8_rows_saturate_as_the_plain_version(cuda_device):
     tdk.decode_step_dense_plain(v5, x, kc, vc, 5, 16)
     assert torch.equal(kk.view(torch.uint8), kc.view(torch.uint8))
     assert kk[0, 0, 5].float().max().item() == 448.0
+
+
+# ---------------------------------------------------------------------------
+# the int8 GEMV by itself, and v2 / v1 at the edges of their blocks
+# ---------------------------------------------------------------------------
+# (K, N) of a layer's four products: qkv, proj, fc, pj
+GEMV_SHAPES = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
+EPI_STORE, EPI_GELU, EPI_RESID = 0, 1, 2
+
+
+def _gemv_i8(R, wt, ws, bias, epi, out, aq=None, sa=None, x=None, lnw=None):
+    """`umgen_gemv_i8` of csrc/decode_step.cu: the steps' int8 product on
+    quantized rows (aq, sa) or on float rows x that it normalizes (lnw) and
+    quantizes in its own blocks; out written (EPI_RESID: updated) in place."""
+    from umgen_tpu_torch.ops import _cuda
+    V = _cuda.VOIDP
+    fn = _cuda.function("umgen_gemv_i8", [V, V, V, V, _cuda.INT, V, _cuda.INT,
+                                          _cuda.INT, V, V, _cuda.INT, V, V])
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    N, K = wt.shape
+    err = fn(ptr(aq), ptr(sa), ptr(x), ptr(lnw), R, wt.data_ptr(), K, N,
+             ws.data_ptr(), ptr(bias), epi, out.data_ptr(),
+             _cuda.stream_ptr(out))
+    _cuda.check(err, "int8 GEMV")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("epi", [EPI_STORE, EPI_GELU, EPI_RESID])
+@pytest.mark.parametrize("K,N", GEMV_SHAPES)
+@pytest.mark.parametrize("R", [1, 2, 6, 10, 60])
+def test_int8_gemv_bit_for_bit(cuda_device, R, K, N, epi):
+    """The int8 GEMV of every int8-weight step, at every row count that
+    reaches it (B·Q = 1, 2, 6, 10, 60), each product of a layer and each
+    epilogue: the integer sums are exact in any order and the epilogue is
+    acc·sa·ws (+ b) in `_qdot`'s order, so the output equals the plain
+    version's bit for bit (the GEMV it replaced was bit for bit too: the
+    steps' cache_len-0 checks).  At one and two rows the GEMV also takes
+    the float rows and normalizes (layer norm for K = 768, none for the MLP's
+    3072) and quantizes them in its own blocks: equal bits again, which
+    holds each row's int8 values and scale to `_ln` + `_quant_rows`."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(1000 * R + K + N + epi)
+    x = torch.randn(R, K, generator=g, device=dev) * 1.7
+    x[:, :4] *= 40            # a few large activations, as GELU's outputs
+    wt = torch.randint(-127, 128, (N, K), generator=g, device=dev,
+                       dtype=torch.int8)
+    ws = 1e-3 * (0.5 + torch.rand(N, generator=g, device=dev))
+    bias = (None if epi == EPI_GELU
+            else 0.02 * torch.randn(N, generator=g, device=dev))
+    lnw = ((1 + 0.1 * torch.randn(K, generator=g, device=dev)).bfloat16()
+           .float() if K == 768 else None)
+    h0 = torch.randn(R, N, generator=g, device=dev).bfloat16().float()
+    a = tdk._ln(x, lnw) if lnw is not None else x
+    aq, sa = tdk._quant_rows(a)
+    y = tdk._qdot(a, wt, ws, bias)
+    want = {EPI_STORE: y, EPI_GELU: tdk._gelu_as(y),
+            EPI_RESID: tdk._bf16_add(h0, y)}[epi]
+    out = h0.clone()
+    _gemv_i8(R, wt, ws, bias, epi, out, aq=aq.to(torch.int8).contiguous(),
+             sa=sa.reshape(R).contiguous())
+    assert torch.equal(out, want)
+    if R <= 2:
+        out = h0.clone()
+        _gemv_i8(R, wt, ws, bias, epi, out, x=x, lnw=lnw)
+        assert torch.equal(out, want)
+
+
+def _dense_visible_v5(dev):
+    """One int8 layer that shows its attention (see `_visible_packs`), as
+    pack_decode_weights' blocks and the unpacked int8 tree v1 takes."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    oar = _Init(g, dev, torch.bfloat16).block_oar(768, 1)
+    oar["attn"]["proj"]["w"] = torch.eye(768, device=dev).bfloat16()[None]
+    oar["mlp"]["proj"]["w"] = torch.zeros_like(oar["mlp"]["proj"]["w"])
+    oar_q = quantize_params_int8({"oar": oar})["oar"]
+    return pack_decode_weights(oar_q), oar_q
+
+
+def _check_dense_step(dev, name, dtype, B, cache_len):
+    """One layer of v2 / v1 against `decode_step_dense_plain`: h within 2e-2
+    of its scale and bit for bit at cache_len 0, the caches' bytes equal
+    after the step (the new row in the cache's type, the rest untouched);
+    then the prefix attention by itself, through the layer that shows it:
+    no element beyond 2e-2 of max |y|, a mean error within 2^-10 of mean
+    |y| (the S-block steps' bounds: only the order of the float32 sums
+    inside a block differs from the plain version)."""
+    whole = name == "fused_decode_step"
+    g = torch.Generator(device=dev).manual_seed(0)
+    oar_q = quantize_params_int8(
+        {"oar": _Init(g, dev, torch.bfloat16).block_oar(768, 1)})["oar"]
+    v5 = pack_decode_weights(oar_q)
+    (kc, vc), x = _dense_caches(dev, dtype, 1, B, seed=cache_len + 7)
+    kk, vv = kc.clone(), vc.clone()
+    n0 = tdk.LAUNCHES[name]
+    h = _dense_call(name, v5, oar_q, x, kk, vv, cache_len)[0]
+    assert tdk.LAUNCHES[name] == n0 + 1
+    ref = tdk.decode_step_dense_plain(v5, x, kc, vc, cache_len, 16,
+                                      whole_s=whole)
+    rel = ((h.float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    assert math.isfinite(rel) and rel <= 2e-2
+    assert cache_len or torch.equal(h, ref)
+    for got, want in ((kk, kc), (vv, vc)):
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    if cache_len == 0:
+        return
+    vis, vis_q = _dense_visible_v5(dev)
+    xs = (x.float() * 2.0 ** -6).bfloat16()
+    (kc, vc), _ = _dense_caches(dev, dtype, 1, B, seed=cache_len + 8)
+    y = _dense_call(name, vis, vis_q, xs, kc.clone(), vc.clone(),
+                    cache_len)[0].float() - xs.float()
+    ref = tdk.decode_step_dense_plain(vis, xs, kc.clone(), vc.clone(),
+                                      cache_len, 16, whole_s=whole
+                                      ).float() - xs.float()
+    d, r = (y - ref).abs(), ref.abs()
+    assert d.max().item() <= 2e-2 * r.max().item()
+    assert d.mean().item() <= 2.0 ** -10 * r.mean().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn,
+                                   torch.int8])
+@pytest.mark.parametrize("cache_len", [31, 32, 33, 551, 552, 553, 2207])
+@pytest.mark.parametrize("B", [1, 3])
+def test_v2_on_block_edges(cuda_device, dtype, cache_len, B):
+    """v2 on its three storage types, at the edges of its 32-row sub-blocks
+    and its 552-row S-blocks (S = 2208) and at a full cache, one and three
+    scenes (see `_check_dense_step`)."""
+    _check_dense_step(cuda_device, "fused_decode_step_v2", dtype, B,
+                      cache_len)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("cache_len", [0, 1, 1100, 2207])
+def test_v1_on_its_one_block(cuda_device, dtype, cache_len):
+    """v1 (one block over all of S, normalized weights): an empty cache,
+    one row, half and all of it (69 sub-blocks under one denominator)."""
+    _check_dense_step(cuda_device, "fused_decode_step", dtype, 1, cache_len)

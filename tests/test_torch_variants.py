@@ -120,10 +120,10 @@ def packs():
                               **tq.w4_kernel_layout(from_jax(jw4))})}
 
 
-def _caches(rng, kv_dtype, B, d, five_d, H):
-    """Random K/V caches ~N(0, 0.5²) in `kv_dtype` on both sides: JAX's in
-    its layout (5-D or flat), the port's flat, or the 5-D view where
-    `five_d`."""
+def _caches(rng, kv_dtype, B, d, five_d, H, S=S):
+    """Random K/V caches ~N(0, 0.5²) of S rows in `kv_dtype` on both sides:
+    JAX's in its layout (5-D or flat), the port's flat, or the 5-D view
+    where `five_d`."""
     kvf = rng.normal(0, 0.5, (2, L, B, S, d)).astype(np.float32)
     if kv_dtype == "int8":
         jkv = [jnp.asarray(np.clip(np.round(k * 16), -127, 127), jnp.int8)
@@ -137,7 +137,7 @@ def _caches(rng, kv_dtype, B, d, five_d, H):
     return jkv, tkv
 
 
-def _compare_rows(ref, got, cl, Q, kv_dtype, what, fused=True):
+def _compare_rows(ref, got, cl, Q, kv_dtype, what, fused=True, S=S):
     """JAX's and the port's caches after a step: everything but the new
     rows untouched; the new rows at most one step of the storage type apart
     (int8: one grid step; bf16 / fp8: one ulp of the rows' largest value).
@@ -202,6 +202,41 @@ def test_variant_plain_matches_jax(packs, interpret_kernels, name, kv_dtype,
     a, b = _f32(ref[0]), _f32(out[0])
     assert np.abs(a - b).max() <= 4 * 2.0 ** -8 * np.abs(a).max()
     _compare_rows(ref[1:], out[1:], cache_len, 1, kv_dtype, name)
+    assert not any(tdk.LAUNCHES.values())
+
+
+# S = 768: v2's S-blocks are 384 rows (`pick_block_s` with V2_BLOCKS, as
+# `_kernel_v2` picks them), so these cache lengths end a row before, on and
+# a row after the first block's edge; v1 over all but the last row
+MULTI_BLOCK_CASES = (
+    [("fused_decode_step_v2", dt, cl)
+     for dt in ("bfloat16", "float8_e4m3fn", "int8") for cl in (383, 384, 385)]
+    + [("fused_decode_step", dt, 767) for dt in ("bfloat16", "float8_e4m3fn")])
+
+
+@pytest.mark.parametrize("name,kv_dtype,cache_len", MULTI_BLOCK_CASES)
+def test_dense_steps_over_several_s_blocks(packs, interpret_kernels, name,
+                                           kv_dtype, cache_len):
+    """v2 and v1 with the cache over several S-blocks (S = 768), the plain
+    steps against JAX's kernels in interpret mode: the rounding points the
+    card kernel is held to — the bf16 rescale of the flash state and the bf16
+    block sums at a block edge, v1's one denominator — as in
+    `test_variant_plain_matches_jax`, whose cases have one S-block."""
+    cfg, both = packs
+    H, d, B, S2 = cfg.n_head, cfg.n_embd, 1, 768
+    assert tdk.pick_block_s(S2, prefer=tdk.V2_BLOCKS) == 384
+    jpacked, tpacked = both["qoar" if name == "fused_decode_step" else "v3"]
+    rng = np.random.default_rng(cache_len)
+    jkv, tkv = _caches(rng, kv_dtype, B, d, True, H, S=S2)
+    x = jnp.asarray(rng.normal(0, 1, (B, 1, d)), jnp.bfloat16)
+    ref = exact(getattr(jdk, name), jpacked, x, *jkv, jnp.int32(cache_len),
+                n_head=H)
+    out = getattr(tdk, name)(tpacked, _torch(x, torch.bfloat16), *tkv,
+                             cache_len, n_head=H)
+    assert out[1] is tkv[0] and out[2] is tkv[1]
+    a, b = _f32(ref[0]), _f32(out[0])
+    assert np.abs(a - b).max() <= 4 * 2.0 ** -8 * np.abs(a).max()
+    _compare_rows(ref[1:], out[1:], cache_len, 1, kv_dtype, name, S=S2)
     assert not any(tdk.LAUNCHES.values())
 
 

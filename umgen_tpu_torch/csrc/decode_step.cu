@@ -23,7 +23,7 @@
 //     (scene, head) (flag STEP_HEAD_SCALE), any B;
 //   * `fused_decode_step_v2` (`_kernel_v2`) and `fused_decode_step` (v1,
 //     `_kernel`): int8 weights on a bf16 / fp8 (e4m3) / int8-grid cache read
-//     as bf16, entry `umgen_decode_step_dense` (see "Dense-cache attention"
+//     as bf16, entry `umgen_decode_step_dense` (see "Prefix attention"
 //     below).
 // Per layer: LN1 → QKV → attention over the int8 KV prefix plus the chunk's
 // own rows (causal within the chunk) → proj + residual → LN2 → fc → GELU
@@ -67,22 +67,23 @@
 // 3.35 TB/s.  The TPU kernel ran the 36 layers as one sequential grid with
 // the hidden state carried in VMEM.  Hopper blocks carry nothing from one
 // grid step to the next, so this version issues the layer sequence from
-// the host (one C call per step, ten small kernels per layer on one
-// stream): the hidden state lives in a global workspace between kernels.
-// The prefix attention on the int8 and the int4 cache keeps the reference's
-// S-blocks (`_kernel_w4`'s and `_kernel_v5i4`'s rounding points; see
+// the host (one C call per step, seven to ten small kernels per layer on
+// one stream): the hidden state lives in a global workspace between kernels.
+// The prefix attention on every cache keeps the reference's S-blocks
+// (`_kernel_w4`'s, `_kernel_v5i4`'s and `_kernel_v2`'s rounding points; see
 // i8_blockmax_kernel): a sub-block of 32 rows a CUDA block for the logits,
 // the maxima, the weights and the value sums, then one thread a lane folds
-// them block by block.  The int8 GEMV tiles the rows 16 at a time (grid y);
-// the W4 GEMV stages the rows' activations in shared memory a tile of rows
-// at a time, so neither bounds B·Q.  Ten launches a layer with a prefix
-// (~360 a step; the prep pass rides in the block-max launch): the host's
-// launch rate is the next limit (graph capture or a persistent kernel), then
-// wgmma/TMA weight streams.
+// them block by block; the dense caches (bf16, fp8, int8 read as bf16) are
+// instances of the same passes.  Both GEMVs stage the rows' activations in
+// shared memory a tile of rows at a time, so neither bounds B·Q; the int8
+// GEMV puts every weight chunk of a lane in flight before anything else and,
+// at one or two rows, normalizes and quantizes the rows in its own blocks
+// (ln_quant_kernel's launch gone).  Launches a layer with a prefix: seven for
+// int8 weights at B·Q <= 2, ten otherwise (the prep pass rides in the
+// block-max launch): the host's launch rate is the next limit (graph capture
+// or a persistent kernel), then wgmma/TMA weight streams.
 // A bf16 cache doubles the KV stream (2 x 1536 B a cached row a layer a scene,
-// up to 244 MB a scene at 2208 rows), fp8 equals int8's; the dense step
-// launches twelve kernels a layer (~430 a step) and is launch-bound
-// like the others.
+// up to 244 MB a scene at 2208 rows), fp8 equals int8's.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -92,7 +93,6 @@
 
 namespace {
 
-constexpr int TILE_ROWS = 16;     // rows of one int8 GEMV block (grid y)
 constexpr int W4_MAX_PAIRS = 12;  // W4 GEMV input groups / 2 (K <= 3072)
 constexpr int ATT_THREADS = 128;  // >= Q * H pairs (Q * H <= 128)
 constexpr int MAX_Q = 8;          // rows a scene of one step
@@ -106,18 +106,7 @@ __device__ __forceinline__ int8_t quant_i8(float x, float s) {
   return (int8_t)fminf(fmaxf(r, -127.f), 127.f);
 }
 
-// block-wide reductions over blockDim.x threads (a multiple of 32, <= 1024)
-__device__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int w = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[w] = v;
-  __syncthreads();
-  float s = 0.f;
-  for (int i = 0; i < nw; ++i) s += red[i];
-  return s;
-}
-
+// block-wide maximum over blockDim.x threads (a multiple of 32, <= 1024)
 __device__ float block_max(float v, float* red) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -197,60 +186,6 @@ __global__ void out_bf16_kernel(const float* h, __nv_bfloat16* out, int n) {
   if (i < n) out[i] = __float2bfloat16_rn(h[i]);
 }
 
-// per row: a = LN(h)·w (w null: a = h), then sa = max|a|/127 + 1e-12 and
-// aq = clip(round(a / sa)); one block of 256 threads per row, the row in
-// registers (thread t holds elements t, t + 256, ...: the sums' order is the
-// plain version's `_block_sum`)
-__global__ void __launch_bounds__(256)
-ln_quant_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                int8_t* __restrict__ aq, float* __restrict__ sa, int n) {
-  constexpr int PER = 12;           // elements a thread: n <= 12·256 = 3072
-  __shared__ float red[32];
-  const float* x = h + (long long)blockIdx.x * n;
-  float v[PER];
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int i = threadIdx.x + k * blockDim.x;
-    v[k] = i < n ? x[i] : 0.f;
-  }
-  float amax = 0.f;
-  if (w != nullptr) {
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < PER; ++k)
-      if (threadIdx.x + k * blockDim.x < n) s += v[k];
-    const float mu = block_sum(s, red) / (float)n;
-    float s2 = 0.f;
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      if (threadIdx.x + k * blockDim.x < n) {
-        const float c = v[k] - mu;
-        s2 += c * c;
-      }
-    }
-    const float var = block_sum(s2, red) / (float)n;
-    const float r = 1.f / sqrtf(var + 1e-5f);
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int i = threadIdx.x + k * blockDim.x;
-      if (i < n) {
-        v[k] = (v[k] - mu) * r * w[i];
-        amax = fmaxf(amax, fabsf(v[k]));
-      }
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < PER; ++k) amax = fmaxf(amax, fabsf(v[k]));
-  }
-  const float s = block_max(amax, red) / 127.f + 1e-12f;
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int i = threadIdx.x + k * blockDim.x;
-    if (i < n) aq[(long long)blockIdx.x * n + i] = quant_i8(v[k], s);
-  }
-  if (threadIdx.x == 0) sa[blockIdx.x] = s;
-}
-
 enum Epilogue { EPI_STORE = 0, EPI_GELU = 1, EPI_RESID = 2 };
 
 __device__ __forceinline__ void store_epi(float* dst, float y, int epi) {
@@ -264,55 +199,167 @@ __device__ __forceinline__ void store_epi(float* dst, float y, int epi) {
   }
 }
 
-// y[r, n] = (Σ_k aq[r, k]·wt[n, k]) · sa[r] · ws[n] (+ b[n]) for rows
-// [blockIdx.y·16, +16) of R; one warp per output column, lanes stride over
-// K in 16-byte chunks (dp4a)
-__global__ void gemv_i8_kernel(const int8_t* __restrict__ aq,
-                               const float* __restrict__ sa, int R,
-                               const int8_t* __restrict__ wt, int K, int N,
-                               const float* __restrict__ ws,
-                               const float* __restrict__ bias, int epi,
-                               float* __restrict__ out) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (n >= N) return;
-  const int r0 = blockIdx.y * TILE_ROWS;
-  const int RT = min(TILE_ROWS, R - r0);
-  aq += (long long)r0 * K;
-  int acc[TILE_ROWS];
-#pragma unroll
-  for (int r = 0; r < TILE_ROWS; ++r) acc[r] = 0;
-  const int nchunk = K / 16;
-  const int4* wrow = reinterpret_cast<const int4*>(wt + (long long)n * K);
-  for (int c = lane; c < nchunk; c += 32) {
-    const int4 wv = __ldg(wrow + c);
-#pragma unroll
-    for (int r = 0; r < TILE_ROWS; ++r) {
-      if (r < RT) {
-        const int4 av =
-            __ldg(reinterpret_cast<const int4*>(aq + (long long)r * K) + c);
-        int a = acc[r];
-        a = __dp4a(wv.x, av.x, a);
-        a = __dp4a(wv.y, av.y, a);
-        a = __dp4a(wv.z, av.z, a);
-        a = __dp4a(wv.w, av.w, a);
-        acc[r] = a;
+// A sum over 256 threads in the plain version's `_block_sum` order, by a
+// block of any blockDim.x that is a multiple of 32 and divides 256: thread t
+// stands in for threads t, t + blockDim.x, ... of the 256, each of which adds
+// elements v, v + 256, ... of x [n] in turn ((x − mu)² where sq), then each
+// warp folds by the xor butterfly and the eight warp totals are added in
+// order
+__device__ float sum256(const float* x, int n, bool sq, float mu, float* red) {
+  __syncthreads();                              // red is free
+  for (int v = threadIdx.x; v < 256; v += blockDim.x) {
+    float s = 0.f;
+    for (int i = v; i < n; i += 256) {
+      if (sq) {
+        const float c = x[i] - mu;
+        s += c * c;
+      } else {
+        s += x[i];
       }
     }
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if ((threadIdx.x & 31) == 0) red[v >> 5] = s;
   }
-#pragma unroll
-  for (int r = 0; r < TILE_ROWS; ++r) {
-    if (r < RT) {
-      int a = acc[r];
-      for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-      acc[r] = a;
+  __syncthreads();
+  float s = 0.f;
+  for (int i = 0; i < 8; ++i) s += red[i];
+  return s;
+}
+
+// One row x [n] in shared memory to int8, by the whole block: a = LN(x)·w
+// (x normalized in place; w null: a = x), then the scale s = max|a|/127 +
+// 1e-12 (returned) and q [n] = clip(round(a / s)) — `_ln` + `_quant_rows`
+__device__ float ln_quant_row(float* x, const float* __restrict__ w, int n,
+                              int8_t* q, float* red) {
+  float amax = 0.f;
+  if (w != nullptr) {
+    const float mu = sum256(x, n, false, 0.f, red) / (float)n;
+    const float var = sum256(x, n, true, mu, red) / (float)n;
+    const float r = 1.f / sqrtf(var + 1e-5f);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      x[i] = (x[i] - mu) * r * __ldg(w + i);
+      amax = fmaxf(amax, fabsf(x[i]));
     }
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      amax = fmaxf(amax, fabsf(x[i]));
   }
-  if (lane != 0) return;
-  for (int r = 0; r < RT; ++r) {
-    float y = (float)acc[r] * sa[r0 + r] * ws[n];
-    if (bias != nullptr) y = y + bias[n];
-    store_epi(out + (long long)(r0 + r) * N + n, y, epi);
+  const float s = block_max(amax, red) / 127.f + 1e-12f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) q[i] = quant_i8(x[i], s);
+  return s;
+}
+
+// ln_quant_row of each row of h [R, n] into aq [R, n] and sa [R]: one block
+// of 256 threads a row, staged in shared memory (n <= 3072)
+__global__ void __launch_bounds__(256)
+ln_quant_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                int8_t* __restrict__ aq, float* __restrict__ sa, int n) {
+  __shared__ float red[32];
+  __shared__ __align__(16) float x[3072];
+  stage_async(x, h + (long long)blockIdx.x * n, n * 4);
+  stage_wait();
+  const float s = ln_quant_row(x, w, n, aq + (long long)blockIdx.x * n, red);
+  if (threadIdx.x == 0) sa[blockIdx.x] = s;
+}
+
+// The rows an int8 product takes: quantized already (aq [R, K] int8, sa [R],
+// by ln_quant_kernel or the attention's finish pass), or — x != null — float
+// rows x [R, K] that every block of the product normalizes (layer norm with
+// weight w; w null: none) and quantizes itself, as ln_quant_kernel would
+struct Rows {
+  const int8_t* aq;
+  const float* sa;
+  const float* x;
+  const float* w;
+};
+
+// int8 GEMV: y[r, n] = (Σ_k aq[r, k]·wt[n, k]) · sa[r] · ws[n] (+ b[n]), then
+// the epilogue.  A group of `lpc` lanes (a power of two <= 32) takes a
+// column: lane j holds the column's 16-byte chunks j, j + lpc, ... (CH of
+// them), loaded before anything else, so that the whole matrix is in flight
+// while the rows are staged; a block takes blockDim / lpc columns, sized by
+// the host so that every N of a layer fills the 132 SMs.  The rows' int8
+// activations are staged in shared memory by cp.async, `rt` rows at a time
+// (48 KB), or quantized in the block from rows.x (see Rows), which saves
+// ln_quant_kernel's launch where R is small — the weights' fetch hides the
+// block's normalization.  A row's sum: __dp4a over a lane's chunks, then the
+// xor butterfly over the group (integers: exact in any order); lane r mod lpc
+// keeps row r's sum, and the group's lanes run the epilogues of lpc rows at
+// once: acc·sa·ws (+ b) in this order and store_epi, the plain version's
+// `_qdot` bits under --fmad=false.
+template <int CH>
+__global__ void __launch_bounds__(256)
+gemv_i8_staged_kernel(Rows rows, int R, const int8_t* __restrict__ wt,
+                      int K, int N, const float* __restrict__ ws,
+                      const float* __restrict__ bias, int epi,
+                      float* __restrict__ out, int lpc, int rt) {
+  extern __shared__ int4 sm_g[];  // [rt][K] int8 rows, [rt] scales (padded
+                                  // to 16 bytes), rows.x: [rt][K] floats
+  __shared__ float red[32];
+  int8_t* act = reinterpret_cast<int8_t*>(sm_g);
+  float* sa_s = reinterpret_cast<float*>(act + (long long)rt * K);
+  float* xs = sa_s + ((rt + 3) & ~3);
+  const int lane = threadIdx.x % lpc;
+  const int n = blockIdx.x * (blockDim.x / lpc) + threadIdx.x / lpc;
+  const bool live = n < N;
+  const int nchunk = K / 16;
+  // a column past N holds zero weights: its lanes still take part in the
+  // shuffles, and store nothing
+  const int4* wrow =
+      reinterpret_cast<const int4*>(wt + (long long)(live ? n : 0) * K);
+  int4 wv[CH];
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    const int ch = lane + i * lpc;
+    wv[i] = live && ch < nchunk ? __ldg(wrow + ch) : make_int4(0, 0, 0, 0);
+  }
+  const float wsn = live ? __ldg(ws + n) : 0.f;
+  const float bn = live && bias != nullptr ? __ldg(bias + n) : 0.f;
+  for (int r0 = 0; r0 < R; r0 += rt) {
+    const int nr = min(rt, R - r0);
+    __syncthreads();                            // the last tile is done
+    if (rows.x != nullptr) {
+      stage_async(xs, rows.x + (long long)r0 * K, nr * K * 4);
+      stage_wait();
+      for (int r = 0; r < nr; ++r) {
+        const float s = ln_quant_row(xs + r * K, rows.w, K, act + r * K, red);
+        if (threadIdx.x == 0) sa_s[r] = s;
+      }
+      __syncthreads();
+    } else {
+      stage_async(act, rows.aq + (long long)r0 * K, nr * K);
+      for (int r = threadIdx.x; r < nr; r += blockDim.x)
+        sa_s[r] = rows.sa[r0 + r];
+      stage_wait();
+    }
+    for (int g0 = 0; g0 < nr; g0 += lpc) {
+      const int ng = min(lpc, nr - g0);
+      int mine = 0;
+      for (int rr = 0; rr < ng; ++rr) {
+        const int4* a = reinterpret_cast<const int4*>(act + (g0 + rr) * K);
+        int s0 = 0, s1 = 0;
+#pragma unroll
+        for (int i = 0; i < CH; ++i) {
+          const int ch = lane + i * lpc;
+          if (ch < nchunk) {
+            const int4 av = a[ch];
+            s0 = __dp4a(wv[i].x, av.x, s0);
+            s1 = __dp4a(wv[i].y, av.y, s1);
+            s0 = __dp4a(wv[i].z, av.z, s0);
+            s1 = __dp4a(wv[i].w, av.w, s1);
+          }
+        }
+        int s = s0 + s1;
+        for (int o = lpc >> 1; o > 0; o >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (lane == rr) mine = s;
+      }
+      if (live && lane < ng) {
+        float y = (float)mine * sa_s[g0 + lane] * wsn;
+        if (bias != nullptr) y = y + bn;
+        store_epi(out + (long long)(r0 + g0 + lane) * N + n, y, epi);
+      }
+    }
   }
 }
 
@@ -482,7 +529,7 @@ __device__ void quantize_queries(const float* base, int Q, int H, int Dh,
   }
 }
 
-// attn_prep_kernel's work for scene b, by a block of 256 threads
+// The prep pass of the integer caches for scene b, by a block of 256 threads
 __device__ void prep_scene(int b, const float* __restrict__ qkv, int Q, int H,
                            int Dh, const Cache& c, int cl, float scale,
                            float cq, int flags, int8_t* __restrict__ qp,
@@ -580,293 +627,144 @@ __device__ void prep_scene(int b, const float* __restrict__ qkv, int Q, int H,
   }
 }
 
-__global__ void __launch_bounds__(256)
-attn_prep_kernel(const float* __restrict__ qkv, int Q, int H, int Dh, Cache c,
-                 int cl, float scale, float cq, int flags,
-                 int8_t* __restrict__ qp, float* __restrict__ factor,
-                 float* __restrict__ m0, float* __restrict__ den0,
-                 float* __restrict__ acc0) {
-  prep_scene(blockIdx.x, qkv, Q, H, Dh, c, cl, scale, cq, flags, qp, factor,
-             m0, den0, acc0);
+// ---------------------------------------------------------------------------
+// Prefix attention on the reference's S-blocks, for every entry: integer
+// logits on the int8 and the int4 cache (v5, v5mq, w4, w4mq, v3, v4, v6, v7;
+// v5i4, v5mqi4, w4i4, w4mqi4) and float logits on the dense caches read as
+// bf16 (TPU v2, and v1 with `whole`; one new row a scene, Q = 1).  `_kernel_w4` / `_kernel_v5i4` / `_kernel_v2` and the plain versions
+// walk S-blocks of `bs` rows (`pick_block_s`, passed by the wrapper): per block
+// the maximum of the logits, m' = max(m, block max), p = exp(logit − m'), den =
+// den·exp(m − m') + Σ p, acc = acc·exp(m − m') + Σ w·v.
+//   * int8 cache: logit = li·factor, w·v = bf16(p)·(v/16);
+//   * int4 cache: logit = (li·ks[row, head])·factor, w·v = bf16(p·vs[row,
+//     head]·(1/7))·q with q the value nibble;
+//   * dense (v2): q rounded to bf16, logit = Σ_d bf16(k_d·q_d) in float32 ×
+//     scale, the self logit from bf16(k_new·q) seeding the state (m = self
+//     logit, den = 1, acc = v_new), w·v = bf16(bf16(p)·v), the block's sum
+//     of w·v rounded to bf16, the rescale exp(m − m') rounded to bf16 where it
+//     multiplies acc, and y = acc / bf16(den);
+//   * dense, `whole` (v1): one block over all of S, m the maximum of every
+//     logit and the self logit, denom = Σ exp(logit − m) + exp(self − m), w·v
+//     = bf16(bf16(exp(logit − m) / denom)·v), y = bf16(Σ w·v) + bf16(es /
+//     denom)·v_new with es = exp(self − m).
+// Here the S-blocks are cut into sub-blocks of SUB_ROWS rows, each a CUDA
+// block, and the caches differ only in how a staged row is read and where the
+// roundings fall (the template's KIND):
+//   i8_blockmax_kernel — the sub-block's logits (K rows, and on the int4
+//     cache their scales, staged in shared memory; the scene's queries
+//     quantized, or rounded to bf16, in the block), written out for the next
+//     pass, and their maximum per (query, head); its block x = 0 runs the
+//     scene's prep pass (the new rows into the cache; the intra-chunk causal
+//     state, or the dense self term);
+//   i8_mix_kernel — m' of the sub-block's S-block (the maxima of every sub-
+//     block up to the block's end, from the intra-chunk or self m), the
+//     weights p from the logits (Q·H floats a row, not the row's key bytes),
+//     their float32 sum (v1: the denominator, taken again in every block from
+//     exp(logit − m) of every row, so that it is the reference's sum of the
+//     reference's terms), the rounded weights w, and the value sums Σ w·v, one
+//     thread four lanes, on V rows staged in shared memory while the weights
+//     are computed;
+//   i8_finish_kernel — one thread a lane of H·Dh a (scene, query): folds the
+//     sub-blocks S-block by S-block from the prep pass's state, y, the row's
+//     maximum by a block reduction, and the int8 quantization of y for the
+//     output projection.
+// Integer caches: the products w·v are exact in float32 (a bf16 value times an
+// integer of at most 8 bits).  Dense: each w·v is rounded to bf16 as the
+// reference rounds it.  Either way only the order of the float32 sums inside an
+// S-block (and of a logit's Dh products) differs from the reference's.  The
+// plain version sums in PyTorch's order, so y's int8 quantization can flip at
+// a near tie (pinned by tests/test_torch_cuda.py::test_w4mq_flip_is_a_near_tie).
+constexpr int CACHE_INT8 = 0;     // rows of H·Dh bytes on the 1/16 grid
+constexpr int CACHE_INT4 = 1;     // rows of H·Dh/2 nibble pairs + scale planes
+constexpr int CACHE_BF16 = 2;     // dense: bf16 rows
+constexpr int CACHE_FP8 = 3;      // dense: fp8 (e4m3) rows, read as bf16
+constexpr int CACHE_GRID8 = 4;    // dense: int8 rows on the 1/16 grid, read
+                                  // as bf16 (TPU v2, not v5's integer logits)
+constexpr int SUB_ROWS = 32;      // cache rows of one sub-block
+
+__host__ __device__ constexpr bool dense_kind(int kind) {
+  return kind >= CACHE_BF16;
 }
 
-// ---------------------------------------------------------------------------
-// Dense-cache attention (TPU v2, and v1 with `whole`): the cache holds bf16,
-// fp8 (e4m3) or int8-grid rows that are read as bf16 — not the integer
-// logits of the other steps.  One new row a scene (Q = 1).  The reference's
-// rounding points are kept: q to bf16; every product k·q to bf16, a head's
-// sum in float32, × scale; the self logit from bf16(k_new·q); per S-block of
-// `bs` rows the unnormalized weight p = exp(logit − m') to bf16, bf16(p)·v to
-// bf16, the block's rows summed in float32 and the sum rounded to bf16, the
-// rescale exp(m − m') and the final denominator rounded to bf16; the self term
-// seeds the state (m = self logit, den = 1, acc = v_new).  `whole`: one block
-// over all of S, the normalized weights ep / denom rounded to bf16, and the
-// self term added as bf16(es / denom)·v_new.  The TPU kernel walks the
-// S-blocks one after another on one core; here the logits of all rows are
-// taken first (one thread a (row, head)), one warp a (scene, head) then
-// walks the S-blocks for the running maxima and the denominator, the value
-// sums are taken in 32-row sub-blocks of the S-blocks by one thread a lane,
-// and a last pass folds the sub-blocks block by block.  Only the order of
-// the float32 sums inside a block differs from a serial walk.
-enum DenseType { KV_BF16 = 0, KV_FP8 = 1, KV_I8 = 2 };
-constexpr int SUB_ROWS = 32;      // cache rows of one value-sum sub-block
-constexpr int LOGIT_ROWS = 16;    // cache rows of one logits block
+// bytes of one cached value of a dense kind
+__host__ __device__ constexpr int dense_bytes(int kind) {
+  return kind == CACHE_BF16 ? 2 : 1;
+}
 
-template <int CODE>
-__device__ __forceinline__ float kv_elem(const void* row, int i) {
-  if constexpr (CODE == KV_BF16) {
-    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(row)[i]);
-  } else if constexpr (CODE == KV_FP8) {
-    const __half_raw hr = __nv_cvt_fp8_to_halfraw(
-        reinterpret_cast<const __nv_fp8_storage_t*>(row)[i], __NV_E4M3);
-    return __half2float(__half(hr));
+// bytes of one cached row of H·Dh values
+template <int KIND>
+__host__ __device__ __forceinline__ int cache_row_bytes(int HD) {
+  return KIND == CACHE_INT4 ? HD / 2 : dense_kind(KIND) ? HD * dense_bytes(KIND)
+                                                        : HD;
+}
+
+// four consecutive values of a dense row at p (8 or 4 bytes, aligned), as
+// float: bf16 as it is, fp8 through its exact half value, int8 times 1/16
+template <int KIND>
+__device__ __forceinline__ void dense4(const int8_t* p, float v[4]) {
+  if constexpr (KIND == CACHE_BF16) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    v[0] = __uint_as_float(u.x << 16);
+    v[1] = __uint_as_float(u.x & 0xffff0000u);
+    v[2] = __uint_as_float(u.y << 16);
+    v[3] = __uint_as_float(u.y & 0xffff0000u);
   } else {
-    return (float)reinterpret_cast<const int8_t*>(row)[i] * 0.0625f;
+    const int x = *reinterpret_cast<const int*>(p);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int byte = (x >> (8 * u)) & 0xff;
+      if constexpr (KIND == CACHE_FP8) {
+        const __half_raw hr = __nv_cvt_fp8_to_halfraw(
+            (__nv_fp8_storage_t)byte, __NV_E4M3);
+        v[u] = __half2float(__half(hr));
+      } else {
+        v[u] = (float)(int8_t)byte * 0.0625f;
+      }
+    }
   }
 }
 
-// xb: a bf16 value.  fp8: a second rounding, saturating at ±448 as
-// PyTorch's conversion does; int8: round(xb·16), clip.
-template <int CODE>
-__device__ __forceinline__ void kv_put(void* row, int i, float xb) {
-  if constexpr (CODE == KV_BF16) {
+// xb, a bf16 value, into a dense row at i.  fp8: a second rounding, saturating
+// at ±448 as PyTorch's conversion does; int8: round(xb·16), clip.
+template <int KIND>
+__device__ __forceinline__ void dense_put(int8_t* row, int i, float xb) {
+  if constexpr (KIND == CACHE_BF16) {
     reinterpret_cast<__nv_bfloat16*>(row)[i] = __float2bfloat16_rn(xb);
-  } else if constexpr (CODE == KV_FP8) {
+  } else if constexpr (KIND == CACHE_FP8) {
     reinterpret_cast<__nv_fp8_storage_t*>(row)[i] =
         __nv_cvt_float_to_fp8(xb, __NV_SATFINITE, __NV_E4M3);
   } else {
-    reinterpret_cast<int8_t*>(row)[i] =
-        (int8_t)fminf(fmaxf(rintf(xb * 16.f), -127.f), 127.f);
+    row[i] = (int8_t)fminf(fmaxf(rintf(xb * 16.f), -127.f), 127.f);
   }
 }
 
-// bytes of one stored value
-#define KV_BYTES(CODE) ((CODE) == KV_BF16 ? 2 : 1)
-
-// Per scene (one block): the new K/V row into the caches at cl, the bf16
-// queries, and the self logit of each head into m0.
-template <int CODE>
-__global__ void dense_prep_kernel(const float* __restrict__ qkv, int H, int Dh,
-                                  Cache c, int cl, float scale,
-                                  float* __restrict__ dq,
-                                  float* __restrict__ m0) {
-  const int b = blockIdx.x;
+// The dense steps' prep pass for scene b (Q = 1), by one block: the new K/V
+// row into the cache at cl (its bf16 rounding, stored in the cache's type),
+// the self logit Σ_d bf16(k_d·q_d) × scale a head into m0 (a product of two
+// float32 values rounded to bf16: the reference's bf16(k_new·q)), and the
+// state's den0 = 1 and acc0 = v_new (float32)
+template <int KIND>
+__device__ void dense_prep_scene(int b, const float* __restrict__ qkv, int H,
+                                 int Dh, const Cache& c, int cl, float scale,
+                                 float* __restrict__ m0,
+                                 float* __restrict__ den0,
+                                 float* __restrict__ acc0) {
   const int HD = H * Dh;
   const float* row = qkv + (long long)b * 3 * HD;
   const long long dst =
-      b * c.batch_stride + (long long)cl * HD * KV_BYTES(CODE);
+      b * c.batch_stride + (long long)cl * cache_row_bytes<KIND>(HD);
   for (int e = threadIdx.x; e < HD; e += blockDim.x) {
-    kv_put<CODE>(c.k + dst, e, bf16r(row[HD + e]));
-    kv_put<CODE>(c.v + dst, e, bf16r(row[2 * HD + e]));
-    dq[(long long)b * HD + e] = bf16r(row[e]);
+    dense_put<KIND>(c.k + dst, e, bf16r(row[HD + e]));
+    dense_put<KIND>(c.v + dst, e, bf16r(row[2 * HD + e]));
+    acc0[(long long)b * HD + e] = row[2 * HD + e];
   }
   for (int hh = threadIdx.x; hh < H; hh += blockDim.x) {
     float s = 0.f;
     for (int d = 0; d < Dh; ++d)
       s += bf16r(row[HD + hh * Dh + d] * row[hh * Dh + d]);
     m0[b * H + hh] = s * scale;
+    den0[b * H + hh] = 1.f;
   }
-}
-
-// logits [B, S, H] of the rows below cl: block (blk, b) takes LOGIT_ROWS
-// rows, one thread a (row, head); a product of two bf16 values is exact in
-// float32, so bf16r of it is the bf16 product.
-template <int CODE>
-__global__ void dense_logits_kernel(Cache c, int cl, int S, int H, int Dh,
-                                    float scale, const float* __restrict__ dq,
-                                    float* __restrict__ dlog) {
-  extern __shared__ float qs[];   // [HD]
-  const int b = blockIdx.y;
-  const int HD = H * Dh;
-  for (int e = threadIdx.x; e < HD; e += blockDim.x)
-    qs[e] = dq[(long long)b * HD + e];
-  __syncthreads();
-  constexpr int PER16 = 16 / KV_BYTES(CODE);
-  const int s0 = blockIdx.x * LOGIT_ROWS;
-  for (int t = threadIdx.x; t < LOGIT_ROWS * H; t += blockDim.x) {
-    const int s = s0 + t / H, hh = t % H;
-    if (s >= cl) continue;
-    const int8_t* krow = c.k + b * c.batch_stride +
-                         ((long long)s * HD + hh * Dh) * KV_BYTES(CODE);
-    const float* q = qs + hh * Dh;
-    float sum = 0.f;
-    for (int ch = 0; ch < Dh / PER16; ++ch) {
-      const uint4 w = __ldg(reinterpret_cast<const uint4*>(krow) + ch);
-#pragma unroll
-      for (int j = 0; j < PER16; ++j)
-        sum += bf16r(kv_elem<CODE>(&w, j) * q[ch * PER16 + j]);
-    }
-    dlog[((long long)b * S + s) * H + hh] = sum * scale;
-  }
-}
-
-// One warp a (scene, head) walks the S-blocks: running maximum dm[j] after
-// block j, its bf16 rescale dcorr[j] = bf16(exp(m − m')), and the denominator
-// (den·corr + Σ p, from 1), left in dden rounded to bf16.  `whole`: one
-// block, m = max(prefix, self), denom = Σ ep + es left in dden in float32,
-// and the self weight bf16(es / denom) in dcorr[0].
-__global__ void dense_stats_kernel(int cl, int S, int H, int bs, int nb,
-                                   int nsb, int whole,
-                                   const float* __restrict__ dlog,
-                                   const float* __restrict__ m0,
-                                   float* __restrict__ dm,
-                                   float* __restrict__ dcorr,
-                                   float* __restrict__ dden) {
-  const int b = blockIdx.x;
-  const int hh = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (hh >= H) return;
-  const float self = m0[b * H + hh];
-  const float* lg = dlog + (long long)b * S * H + hh;
-  float m = self, den = 1.f;
-  for (int j = 0; j < nb; ++j) {
-    const int s0 = j * bs, s1 = min(cl, s0 + bs);
-    float mx = -CUDART_INF_F;
-    for (int s = s0 + lane; s < s1; s += 32)
-      mx = fmaxf(mx, lg[(long long)s * H]);
-    for (int o = 16; o > 0; o >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    const float mnew = fmaxf(m, mx);
-    float sum = 0.f;
-    for (int s = s0 + lane; s < s1; s += 32)
-      sum += expf(lg[(long long)s * H] - mnew);
-    for (int o = 16; o > 0; o >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float corr = expf(m - mnew);
-    // whole: den = 1 stands for the self term's exp(self − self); rescaled
-    // by corr it is es, so Σ ep + corr is the reference's denominator
-    den = whole ? sum + corr : den * corr + sum;
-    if (lane == 0) {
-      const long long idx = ((long long)b * nsb + j) * H + hh;
-      dm[idx] = mnew;
-      dcorr[idx] = bf16r(whole ? corr / den : corr);
-    }
-    m = mnew;
-  }
-  if (lane == 0) {
-    if (nb == 0 && whole) {
-      const long long idx = (long long)b * nsb * H + hh;
-      dm[idx] = self;
-      dcorr[idx] = 1.f;            // bf16(es / denom), es = denom = 1
-    }
-    dden[b * H + hh] = whole ? den : bf16r(den);
-  }
-}
-
-// Value sums of sub-block blk = (S-block j, part i): rows [j·bs + 32i, +32)
-// inside the block and below cl.  The weights of the sub-block's (row, head)
-// pairs go to shared memory first — bf16(exp(logit − dm[j])), or with `whole`
-// bf16(exp(logit − m) / denom) — then thread e sums bf16(w·v[row, e]) over
-// the rows in float32.
-template <int CODE>
-__global__ void dense_mix_kernel(Cache c, int cl, int S, int H, int Dh,
-                                 int bs, int nsub_per, int nsb, int nsub,
-                                 int whole, const float* __restrict__ dlog,
-                                 const float* __restrict__ dm,
-                                 const float* __restrict__ dden,
-                                 float* __restrict__ dpacc) {
-  extern __shared__ float wsm[];   // [SUB_ROWS][H]
-  const int blk = blockIdx.x, b = blockIdx.y;
-  const int HD = H * Dh;
-  const int j = blk / nsub_per, i = blk % nsub_per;
-  const int s0 = j * bs + i * SUB_ROWS;
-  const int s1 = min(min(cl, (j + 1) * bs), s0 + SUB_ROWS);
-  for (int t = threadIdx.x; t < SUB_ROWS * H; t += blockDim.x) {
-    const int s = s0 + t / H, hh = t % H;
-    if (s >= s1) continue;
-    const float m = dm[((long long)b * nsb + j) * H + hh];
-    const float p = expf(dlog[((long long)b * S + s) * H + hh] - m);
-    wsm[t] = bf16r(whole ? p / dden[b * H + hh] : p);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < HD; e += blockDim.x) {
-    const int hh = e / Dh;
-    float acc = 0.f;
-    for (int s = s0; s < s1; ++s) {
-      const int8_t* vrow = c.v + b * c.batch_stride +
-                           (long long)s * HD * KV_BYTES(CODE);
-      acc += bf16r(wsm[(s - s0) * H + hh] * kv_elem<CODE>(vrow, e));
-    }
-    dpacc[((long long)b * nsub + blk) * HD + e] = acc;
-  }
-}
-
-// Per scene (one block, one thread a lane): fold the sub-blocks S-block by
-// S-block — acc = acc·bf16(corr) + bf16(Σ sub-blocks) from acc = v_new, then
-// y = acc / bf16(den); `whole`: y = bf16(Σ) + bf16(es / denom)·v_new — and
-// quantize the row for the output projection.
-__global__ void dense_finish_kernel(const float* __restrict__ qkv, int H,
-                                    int Dh, int nb, int nsub_per, int nsb,
-                                    int nsub, int whole,
-                                    const float* __restrict__ dcorr,
-                                    const float* __restrict__ dden,
-                                    const float* __restrict__ dpacc,
-                                    int8_t* __restrict__ yq,
-                                    float* __restrict__ sa) {
-  __shared__ float red[32];
-  const int b = blockIdx.x, e = threadIdx.x;
-  const int HD = H * Dh, hh = e / Dh;
-  const float vnew = qkv[(long long)b * 3 * HD + 2 * HD + e];
-  float y;
-  if (whole) {
-    float sum = 0.f;
-    for (int i = 0; i < nb * nsub_per; ++i)
-      sum += dpacc[((long long)b * nsub + i) * HD + e];
-    y = bf16r(sum) + dcorr[(long long)b * nsb * H + hh] * vnew;
-  } else {
-    float acc = vnew;
-    for (int j = 0; j < nb; ++j) {
-      float sum = 0.f;
-      for (int i = 0; i < nsub_per; ++i)
-        sum += dpacc[((long long)b * nsub + j * nsub_per + i) * HD + e];
-      acc = acc * dcorr[((long long)b * nsb + j) * H + hh] + bf16r(sum);
-    }
-    y = acc / dden[b * H + hh];
-  }
-  const float s = block_max(fabsf(y), red) / 127.f + 1e-12f;
-  yq[(long long)b * HD + e] = quant_i8(y, s);
-  if (e == 0) sa[b] = s;
-}
-
-// ---------------------------------------------------------------------------
-// Prefix attention with integer logits on the reference's S-blocks: every
-// integer-logit entry (v5, v5mq, w4, w4mq, v3, v4, v6, v7 on the int8 cache;
-// v5i4, v5mqi4, w4i4, w4mqi4 on the int4 cache — "i8" names the int8
-// queries both take).  `_kernel_w4` / `_kernel_v5i4` / `decode_step_plain`
-// walk S-blocks of `bs` rows (`pick_block_s`, passed by the wrapper): per
-// block the maximum of the logits, m' = max(m, block max), p = exp(logit −
-// m'), den = den·exp(m − m') + Σ p, acc = acc·exp(m − m') + Σ w·v, where on
-// the int8 cache logit = li·factor and w·v = bf16(p)·(v/16), and on the int4
-// cache logit = (li·ks[row, head])·factor and w·v = bf16(p·vs[row, head]·
-// (1/7))·q with q the value nibble.  Here the S-blocks are cut into
-// sub-blocks of SUB_ROWS rows, each a CUDA block, and the two caches differ
-// only in how a staged row is read (the template's KIND):
-//   i8_blockmax_kernel — the sub-block's logits (K rows, and on the int4
-//     cache their scales, staged in shared memory; the scene's queries
-//     quantized in the block as attn_prep_kernel does), written out for the
-//     next pass, and their maximum per (query, head); its block x = 0 runs
-//     attn_prep_kernel's work for the scene;
-//   i8_mix_kernel — m' of the sub-block's S-block (the maxima of every sub-
-//     block up to the block's end, from the intra-chunk m), the weights p
-//     from the logits (Q·H floats a row, not the row's key bytes), their
-//     float32 sum, the rounded weights w, and the value sums Σ w·v, one
-//     thread four lanes, on V rows staged in shared memory while the weights
-//     are computed;
-//   i8_finish_kernel — one thread a lane of H·Dh a (scene, query): folds the
-//     sub-blocks S-block by S-block from attn_prep_kernel's intra-chunk state,
-//     y = acc / den, the row's maximum by a block reduction, and the int8
-//     quantization of y for the output projection.
-// The products w·v are exact in float32 (a bf16 value times an integer of at
-// most 8 bits), so only the order of the float32 sums inside an S-block can
-// differ from the reference's.  The plain version sums in PyTorch's order,
-// so y's int8 quantization can flip at a near tie (pinned by
-// tests/test_torch_cuda.py::test_w4mq_flip_is_a_near_tie).
-constexpr int CACHE_INT8 = 0;     // rows of H·Dh bytes on the 1/16 grid
-constexpr int CACHE_INT4 = 1;     // rows of H·Dh/2 nibble pairs + scale planes
-
-// bytes of one cached row of H·Dh values
-template <int KIND>
-__host__ __device__ __forceinline__ int cache_row_bytes(int HD) {
-  return KIND == CACHE_INT4 ? HD / 2 : HD;
 }
 
 // rows of sub-block k (S-block k / nsub_per, part k % nsub_per) below cl
@@ -886,15 +784,20 @@ i8_blockmax_kernel(Cache c, int cl, int S, int Q, int H, int bs,
                    float* __restrict__ m0, float* __restrict__ den0,
                    float* __restrict__ acc0, float* __restrict__ ilog,
                    float* __restrict__ pmax) {
-  extern __shared__ int4 sm4[];   // [Q·HD] queries, [32][RB] K rows, int4:
+  extern __shared__ int4 sm4[];   // [Q·HD] int8 queries (dense: [HD] bf16
+                                  // queries as float), [32][RB] K rows, int4:
                                   // [32][H] K scales; [32][QH] logits,
                                   // [256 / QH][QH] partial maxima
   __shared__ float red32[32], sqh[ATT_THREADS], fh_s[ATT_THREADS];
   constexpr int W = DH / 16;
+  constexpr bool DENSE = dense_kind(KIND);
   const int b = blockIdx.y;
   if (blockIdx.x == 0) {          // the prep pass of scene b rides along
-    prep_scene(b, qkv, Q, H, DH, c, cl, scale, cq, flags, qp, factor, m0,
-               den0, acc0);
+    if constexpr (DENSE)
+      dense_prep_scene<KIND>(b, qkv, H, DH, c, cl, scale, m0, den0, acc0);
+    else
+      prep_scene(b, qkv, Q, H, DH, c, cl, scale, cq, flags, qp, factor, m0,
+                 den0, acc0);
     return;
   }
   const int blk = blockIdx.x - 1;
@@ -903,57 +806,79 @@ i8_blockmax_kernel(Cache c, int cl, int S, int Q, int H, int bs,
   const int rows = sub_rows(blk, bs, nsub_per, cl, &s0);
   if (rows == 0) return;
   int8_t* qs = reinterpret_cast<int8_t*>(sm4);
-  int8_t* kb = qs + Q * HD;
+  float* qf = reinterpret_cast<float*>(sm4);
+  int8_t* kb = qs + (DENSE ? HD * 4 : Q * HD);
   float* ksc = reinterpret_cast<float*>(kb + SUB_ROWS * RB);
   float* lg = ksc + (KIND == CACHE_INT4 ? SUB_ROWS * H : 0);
   if (KIND == CACHE_INT4)
     stage_async_f32(ksc, c.ks + b * c.sc_batch_stride + (long long)s0 * H,
                     rows * H);
   stage_async(kb, c.k + b * c.batch_stride + (long long)s0 * RB, rows * RB);
-  // the scene's queries, quantized here as the prep pass quantizes them
   const float* base = qkv + (long long)b * Q * 3 * HD;
-  float amax = 0.f;
-  for (int i = threadIdx.x; i < Q * HD; i += blockDim.x)
-    amax = fmaxf(amax, fabsf(base[(long long)(i / HD) * 3 * HD + i % HD]));
-  quantize_queries(base, Q, H, DH, flags, cq, amax, red32, sqh, fh_s, qs);
+  if constexpr (DENSE) {
+    for (int e = threadIdx.x; e < HD; e += blockDim.x) qf[e] = bf16r(base[e]);
+  } else {
+    // the scene's queries, quantized here as the prep pass quantizes them
+    float amax = 0.f;
+    for (int i = threadIdx.x; i < Q * HD; i += blockDim.x)
+      amax = fmaxf(amax, fabsf(base[(long long)(i / HD) * 3 * HD + i % HD]));
+    quantize_queries(base, Q, H, DH, flags, cq, amax, red32, sqh, fh_s, qs);
+  }
   stage_wait();
-  // one thread a (row, head): its K slice against the Q queries.  int4: the
-  // head's DH values are bytes (hh mod H/2)·DH.. of the row, in the low
-  // nibbles for hh < H/2 and the high ones otherwise (the halves layout)
+  // one thread a (row, head): its K slice against the Q queries
   for (int t = threadIdx.x; t < rows * H; t += blockDim.x) {
     const int r = t / H, hh = t % H;
-    int4 kv[W];
-    if (KIND == CACHE_INT4) {
-      const int4* krow = reinterpret_cast<const int4*>(
-          kb + r * RB + (hh % (H / 2)) * DH);
-      const int shift = hh < H / 2 ? 0 : 4;
+    if constexpr (DENSE) {
+      // a product of two bf16 values is exact in float32, so bf16r of it is
+      // the reference's bf16 product
+      const int8_t* krow = kb + r * RB + hh * DH * dense_bytes(KIND);
+      const float* q = qf + hh * DH;
+      float s = 0.f;
 #pragma unroll
-      for (int w = 0; w < W; ++w) {
-        const int4 p = krow[w];
-        kv[w] = make_int4(nibble_lanes(p.x, shift), nibble_lanes(p.y, shift),
-                          nibble_lanes(p.z, shift), nibble_lanes(p.w, shift));
+      for (int g = 0; g < DH / 4; ++g) {
+        float kv[4];
+        dense4<KIND>(krow + 4 * g * dense_bytes(KIND), kv);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) s += bf16r(kv[u] * q[4 * g + u]);
       }
+      lg[r * QH + hh] = s * scale;
     } else {
-      const int4* krow = reinterpret_cast<const int4*>(kb + r * HD + hh * DH);
+      // int4: the head's DH values are bytes (hh mod H/2)·DH.. of the row, in
+      // the low nibbles for hh < H/2 and the high ones otherwise (the halves
+      // layout)
+      int4 kv[W];
+      if (KIND == CACHE_INT4) {
+        const int4* krow = reinterpret_cast<const int4*>(
+            kb + r * RB + (hh % (H / 2)) * DH);
+        const int shift = hh < H / 2 ? 0 : 4;
 #pragma unroll
-      for (int w = 0; w < W; ++w) kv[w] = krow[w];
-    }
-    const float fh = fh_s[hh];
-    const float ksr = KIND == CACHE_INT4 ? ksc[r * H + hh] : 1.f;
-    for (int qi = 0; qi < Q; ++qi) {
-      const int4* qv = reinterpret_cast<const int4*>(qs + qi * HD + hh * DH);
-      int li = 0;
+        for (int w = 0; w < W; ++w) {
+          const int4 p = krow[w];
+          kv[w] = make_int4(nibble_lanes(p.x, shift), nibble_lanes(p.y, shift),
+                            nibble_lanes(p.z, shift), nibble_lanes(p.w, shift));
+        }
+      } else {
+        const int4* krow = reinterpret_cast<const int4*>(kb + r * HD + hh * DH);
 #pragma unroll
-      for (int w = 0; w < W; ++w) {
-        const int4 a = qv[w];
-        li = __dp4a(kv[w].x, a.x, li);
-        li = __dp4a(kv[w].y, a.y, li);
-        li = __dp4a(kv[w].z, a.z, li);
-        li = __dp4a(kv[w].w, a.w, li);
+        for (int w = 0; w < W; ++w) kv[w] = krow[w];
       }
-      // int4: (li·ks)·factor, the plain version's li·ksb·fac
-      lg[r * QH + qi * H + hh] =
-          KIND == CACHE_INT4 ? ((float)li * ksr) * fh : (float)li * fh;
+      const float fh = fh_s[hh];
+      const float ksr = KIND == CACHE_INT4 ? ksc[r * H + hh] : 1.f;
+      for (int qi = 0; qi < Q; ++qi) {
+        const int4* qv = reinterpret_cast<const int4*>(qs + qi * HD + hh * DH);
+        int li = 0;
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          const int4 a = qv[w];
+          li = __dp4a(kv[w].x, a.x, li);
+          li = __dp4a(kv[w].y, a.y, li);
+          li = __dp4a(kv[w].z, a.z, li);
+          li = __dp4a(kv[w].w, a.w, li);
+        }
+        // int4: (li·ks)·factor, the plain version's li·ksb·fac
+        lg[r * QH + qi * H + hh] =
+            KIND == CACHE_INT4 ? ((float)li * ksr) * fh : (float)li * fh;
+      }
     }
   }
   __syncthreads();
@@ -979,12 +904,14 @@ i8_blockmax_kernel(Cache c, int cl, int S, int Q, int H, int bs,
 template <int KIND, int DH, int MAXQ>
 __global__ void __launch_bounds__(256)
 i8_mix_kernel(Cache c, int cl, int S, int Q, int H, int bs, int nsub_per,
-              int nsubT, const float* __restrict__ ilog,
+              int nsubT, int whole, const float* __restrict__ ilog,
               const float* __restrict__ m0, const float* __restrict__ pmax,
               float* __restrict__ psum, float* __restrict__ pacc) {
   extern __shared__ int4 sm4[];   // [32][RB] V rows, int4: [32][H] V scales;
-                                  // [32][QH] weights, [QH] m',
-                                  // [256 / QH][QH] partial maxima and sums
+                                  // [32][QH] weights, [QH] m', [QH] v1's
+                                  // denominators, [256 / QH][QH] partial
+                                  // maxima and sums
+  constexpr bool DENSE = dense_kind(KIND);
   const int blk = blockIdx.x, b = blockIdx.y;
   const int HD = H * DH, QH = Q * H, RB = cache_row_bytes<KIND>(HD);
   int s0;
@@ -994,16 +921,18 @@ i8_mix_kernel(Cache c, int cl, int S, int Q, int H, int bs, int nsub_per,
   float* vsc = reinterpret_cast<float*>(vb + SUB_ROWS * RB);
   float* lg = vsc + (KIND == CACHE_INT4 ? SUB_ROWS * H : 0);
   float* mnew = lg + SUB_ROWS * QH;
+  float* dens = mnew + QH;
   // int4: the V scales first, in a commit group of their own (the weights
   // need them), then the V rows, which the value sums need last
   if (KIND == CACHE_INT4)
     stage_async_f32(vsc, c.vs + b * c.sc_batch_stride + (long long)s0 * H,
                     rows * H);
   stage_async(vb, c.v + b * c.batch_stride + (long long)s0 * RB, rows * RB);
-  // m' of this S-block: the intra-chunk maximum and every sub-block's up to
-  // the block's end (the maximum is exact in any order), the sub-blocks
-  // shared out over all threads, `parts` of them a (query, head)
-  float* red = mnew + QH;                       // [parts][QH]
+  // m' of this S-block: the intra-chunk (or self) maximum and every
+  // sub-block's up to the block's end (the maximum is exact in any order),
+  // the sub-blocks shared out over all threads, `parts` of them a (query,
+  // head)
+  float* red = dens + QH;                       // [parts][QH]
   const int parts = blockDim.x / QH;
   const int kend = (blk / nsub_per + 1) * nsub_per;
   if (threadIdx.x < parts * QH) {
@@ -1026,14 +955,62 @@ i8_mix_kernel(Cache c, int cl, int S, int Q, int H, int bs, int nsub_per,
   const float* src = ilog + ((long long)b * S + s0) * QH;
   for (int t = threadIdx.x; t < rows * QH; t += blockDim.x)
     lg[t] = expf(src[t] - mnew[t % QH]);
+  if (DENSE && whole) {
+    // v1: denom = Σ exp(logit − m) over every row below cl, + exp(self − m),
+    // m the maximum of them all (one S-block: m' above); the same float32
+    // sum in every block.  The scene's logits [cl][QH] as float4s, BATCH
+    // loads in flight a thread (the loads' latency, not the exps, bounds
+    // this: at QH = 16 one round covers 1536 rows, two the whole cache);
+    // thread t always meets heads (4t mod QH)..+3
+    // (QH a power of two, 4..32), the lanes that share them fold by the xor
+    // butterfly, then the warps' sums in order
+    constexpr int BATCH = 24;
+    const int n4 = cl * QH / 4, h0 = 4 * threadIdx.x % QH;
+    const float4* la = reinterpret_cast<const float4*>(
+        ilog + (long long)b * S * QH);
+    const float m[4] = {mnew[h0], mnew[h0 + 1], mnew[h0 + 2], mnew[h0 + 3]};
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    const float ninf = -CUDART_INF_F;
+    for (int i0 = threadIdx.x; i0 < n4; i0 += BATCH * blockDim.x) {
+      float4 v[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = i0 + u * blockDim.x;
+        v[u] = i < n4 ? la[i] : make_float4(ninf, ninf, ninf, ninf);
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {    // exp(−inf) adds 0
+        s[0] += expf(v[u].x - m[0]);
+        s[1] += expf(v[u].y - m[1]);
+        s[2] += expf(v[u].z - m[2]);
+        s[3] += expf(v[u].w - m[3]);
+      }
+    }
+    for (int o = 16; o >= QH / 4; o >>= 1)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
+    const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+    if (lane < QH / 4)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) red[wp * QH + h0 + u] = s[u];
+    __syncthreads();
+    for (int qh = threadIdx.x; qh < QH; qh += blockDim.x) {
+      float t = 0.f;
+      for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t += red[w * QH + qh];
+      dens[qh] = t + expf(m0[(long long)b * QH + qh] - mnew[qh]);
+    }
+  }
   if (KIND == CACHE_INT4)
     stage_wait_but_last();                      // the V scales are in
   else
     __syncthreads();
   // Σ p in float32 (`parts` threads a (query, head), row r to part r mod
   // parts, their partial sums added in order), then the weights rounded to
-  // bf16 in place: int8 bf16(p)/16 (exact: bf16(p)/16 · v is the
-  // reference's bf16(p) · (v/16)), int4 bf16(p·vs·(1/7)) from the unrounded p
+  // bf16 in place: int8 bf16(p)/16 (exact: bf16(p)/16 · v is the reference's
+  // bf16(p) · (v/16)), int4 bf16(p·vs·(1/7)) from the unrounded p, dense
+  // bf16(p), v1 bf16(p / denom) (its Σ p unused: the block's denominator
+  // goes out in its place)
   const float inv7 = (float)(1.0 / 7.0);
   if (threadIdx.x < parts * QH) {
     const int qh = threadIdx.x % QH, pt = threadIdx.x / QH, hh = qh % H;
@@ -1041,8 +1018,14 @@ i8_mix_kernel(Cache c, int cl, int S, int Q, int H, int bs, int nsub_per,
     for (int r = pt; r < rows; r += parts) {
       const float p = lg[r * QH + qh];
       ps += p;
-      lg[r * QH + qh] = KIND == CACHE_INT4 ? bf16r(p * vsc[r * H + hh] * inv7)
-                                           : bf16r(p) * 0.0625f;
+      float w;
+      if constexpr (KIND == CACHE_INT4)
+        w = bf16r(p * vsc[r * H + hh] * inv7);
+      else if constexpr (DENSE)
+        w = bf16r(whole ? p / dens[qh] : p);
+      else
+        w = bf16r(p) * 0.0625f;
+      lg[r * QH + qh] = w;
     }
     red[pt * QH + qh] = ps;
   }
@@ -1050,33 +1033,47 @@ i8_mix_kernel(Cache c, int cl, int S, int Q, int H, int bs, int nsub_per,
   for (int qh = threadIdx.x; qh < QH; qh += blockDim.x) {
     float ps = 0.f;
     for (int pt = 0; pt < parts; ++pt) ps += red[pt * QH + qh];
-    psum[((long long)b * nsubT + blk) * QH + qh] = ps;
+    psum[((long long)b * nsubT + blk) * QH + qh] =
+        DENSE && whole ? dens[qh] : ps;
   }
   stage_wait();
   // four lanes a thread: one 32-bit word of a V row (int4: of the row's
-  // low-nibble half for lanes below HD/2, of its high-nibble half above),
-  // one weight a query
+  // low-nibble half for lanes below HD/2, of its high-nibble half above;
+  // bf16: two words), one weight a query
   float* dst = pacc + ((long long)b * nsubT + blk) * Q * HD;
   for (int e0 = 4 * threadIdx.x; e0 < HD; e0 += 4 * blockDim.x) {
     const int hh = e0 / DH;
-    const bool high = KIND == CACHE_INT4 && e0 >= HD / 2;
-    const int8_t* vcol = vb + (high ? e0 - HD / 2 : e0);
     float acc[MAXQ][4];
 #pragma unroll
     for (int qi = 0; qi < MAXQ; ++qi)
       acc[qi][0] = acc[qi][1] = acc[qi][2] = acc[qi][3] = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      int x = *reinterpret_cast<const int*>(vcol + r * RB);
-      if (KIND == CACHE_INT4) x = nibble_lanes(x, high ? 4 : 0);
-      const float v[4] = {(float)(int8_t)x, (float)(int8_t)(x >> 8),
-                          (float)(int8_t)(x >> 16), (float)(int8_t)(x >> 24)};
-      const float* wr = lg + r * QH + hh;
+    if constexpr (DENSE) {
+      // each product w·v rounded to bf16, as the reference rounds it
+      const int8_t* vcol = vb + e0 * dense_bytes(KIND);
+      for (int r = 0; r < rows; ++r) {
+        float v[4];
+        dense4<KIND>(vcol + r * RB, v);
+        const float w = lg[r * QH + hh];
 #pragma unroll
-      for (int qi = 0; qi < MAXQ; ++qi) {
-        if (qi < Q) {
-          const float w = wr[qi * H];
+        for (int u = 0; u < 4; ++u) acc[0][u] = acc[0][u] + bf16r(w * v[u]);
+      }
+    } else {
+      const bool high = KIND == CACHE_INT4 && e0 >= HD / 2;
+      const int8_t* vcol = vb + (high ? e0 - HD / 2 : e0);
+      for (int r = 0; r < rows; ++r) {
+        int x = *reinterpret_cast<const int*>(vcol + r * RB);
+        if (KIND == CACHE_INT4) x = nibble_lanes(x, high ? 4 : 0);
+        const float v[4] = {(float)(int8_t)x, (float)(int8_t)(x >> 8),
+                            (float)(int8_t)(x >> 16),
+                            (float)(int8_t)(x >> 24)};
+        const float* wr = lg + r * QH + hh;
 #pragma unroll
-          for (int u = 0; u < 4; ++u) acc[qi][u] = acc[qi][u] + w * v[u];
+        for (int qi = 0; qi < MAXQ; ++qi) {
+          if (qi < Q) {
+            const float w = wr[qi * H];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) acc[qi][u] = acc[qi][u] + w * v[u];
+          }
         }
       }
     }
@@ -1088,20 +1085,24 @@ i8_mix_kernel(Cache c, int cl, int S, int Q, int H, int bs, int nsub_per,
   }
 }
 
+// the finish pass's roundings (see the section's head)
+constexpr int FOLD_INT = 0;       // integer logits
+constexpr int FOLD_DENSE = 1;     // dense, S-blocks (v2)
+constexpr int FOLD_WHOLE = 2;     // dense, one block, normalized weights (v1)
+
 // one block a (query qi, scene b), one thread a lane e of H·Dh (up to 1024,
 // so at most 64 registers); the loads of an S-block's sub-blocks are issued
 // FOLD at a time
 constexpr int FOLD = 8;
-__global__ void __launch_bounds__(1024) i8_finish_kernel(int Q, int H, int Dh, int cl, int bs,
-                                 int nb, int nsub_per, int nsubT,
-                                 const float* __restrict__ m0,
-                                 const float* __restrict__ den0,
-                                 const float* __restrict__ acc0,
-                                 const float* __restrict__ pmax,
-                                 const float* __restrict__ psum,
-                                 const float* __restrict__ pacc,
-                                 int8_t* __restrict__ yq,
-                                 float* __restrict__ sa) {
+__global__ void __launch_bounds__(1024)
+i8_finish_kernel(int Q, int H, int Dh, int cl, int bs, int nb, int nsub_per,
+                 int nsubT, int mode, const float* __restrict__ m0,
+                 const float* __restrict__ den0,
+                 const float* __restrict__ acc0,
+                 const float* __restrict__ pmax,
+                 const float* __restrict__ psum,
+                 const float* __restrict__ pacc, int8_t* __restrict__ yq,
+                 float* __restrict__ sa) {
   __shared__ float red[32];
   const int qi = blockIdx.x, b = blockIdx.y, e = threadIdx.x;
   const int HD = H * Dh, QH = Q * H, qh = qi * H + e / Dh;
@@ -1135,11 +1136,22 @@ __global__ void __launch_bounds__(1024) i8_finish_kernel(int Q, int H, int Dh, i
     }
     const float mnew = fmaxf(m, bm);
     const float corr = expf(m - mnew);
-    den = den * corr + ((ps[0] + ps[1]) + (ps[2] + ps[3]));
-    acc = acc * corr + ((part[0] + part[1]) + (part[2] + part[3]));
+    const float psj = (ps[0] + ps[1]) + (ps[2] + ps[3]);
+    const float pj = (part[0] + part[1]) + (part[2] + part[3]);
+    if (mode == FOLD_INT) {
+      den = den * corr + psj;
+      acc = acc * corr + pj;
+    } else if (mode == FOLD_DENSE) {
+      den = den * corr + psj;
+      acc = acc * bf16r(corr) + bf16r(pj);
+    } else {      // one block: corr = es, acc = v_new, pl[0] the denominator
+      acc = bf16r(pj) + bf16r(corr / pl[0]) * acc;
+    }
     m = mnew;
   }
-  const float y = acc / den;
+  const float y = mode == FOLD_INT     ? acc / den
+                  : mode == FOLD_DENSE ? acc / bf16r(den)
+                                       : acc;
   const float s = block_max(fabsf(y), red) / 127.f + 1e-12f;
   yq[row * HD + e] = quant_i8(y, s);
   if (e == 0) sa[row] = s;
@@ -1154,46 +1166,37 @@ struct Workspace {
   float* qkv;     // [R, 3d]
   int8_t* qp;     // [B, Q, d] quantized queries
   float* factor;  // [B, H]
-  float* m0;      // [B, Q*H]
-  float* den0;    // [B, Q*H]
-  float* acc0;    // [B, Q, d]
+  float* m0;      // [B, Q*H] the prep pass's state: maximum (dense: self
+  float* den0;    // [B, Q*H]   logit), denominator and value sums (dense:
+  float* acc0;    // [B, Q, d]  1 and v_new)
   float* hid;     // [R, 4d]
-  // the dense-cache steps (Q = 1)
-  float* dq;      // [B, d] bf16-rounded queries
-  float* dlog;    // [B, S, Q*H] prefix logits (the dense steps: Q = 1)
-  float* dm;      // [B, NSB, H] running maximum after each S-block
-  float* dcorr;   // [B, NSB, H] bf16 rescale of each S-block (v1: self weight)
-  float* dden;    // [B, H] bf16 denominator (v1: float32)
-  float* dpacc;   // [B, NSUB, Q, d] float32 value sums of the 32-row sub-blocks
-  // the integer-logit steps, per sub-block and (query, head)
-  float* ipmax;   // [B, NSUB, Q*H] maximum of the logits
-  float* ipsum;   // [B, NSUB, Q*H] sum of the weights
+  // the prefix attention, per sub-block and (query, head)
+  float* lg;      // [B, S, Q*H] logits
+  float* pacc;    // [B, NSUB, Q, d] float32 value sums
+  float* pmax;    // [B, NSUB, Q*H] maximum of the logits
+  float* psum;    // [B, NSUB, Q*H] sum of the weights (v1: the denominator)
 };
 
 // S-blocks hold at least 64 rows (or all of S), sub-blocks 32 rows
-size_t dense_max_blocks(int S) { return (size_t)S / 64 + 2; }
-size_t dense_max_subs(int S) { return (size_t)S / 32 + dense_max_blocks(S) + 1; }
+size_t max_subs(int S) { return (size_t)S / 32 + (size_t)S / 64 + 3; }
 
 size_t workspace_layout(int B, int Q, int d, int H, int S, char* base,
                         Workspace* ws) {
   const size_t R = (size_t)B * Q;
-  const size_t nsb = dense_max_blocks(S), nsub = dense_max_subs(S);
-  constexpr int NSLOT = 18;
+  const size_t nsub = max_subs(S);
+  constexpr int NSLOT = 14;
   const size_t sizes[NSLOT] = {
       R * d * 4,        R * 4 * d,        R * 4,
       R * 3 * d * 4,    R * d,            (size_t)B * H * 4,
       R * H * 4,        R * H * 4,        R * d * 4,
-      R * 4 * d * 4,
-      (size_t)B * d * 4, R * S * H * 4, B * nsb * H * 4,
-      B * nsb * H * 4,  (size_t)B * H * 4, R * nsub * d * 4,
+      R * 4 * d * 4,    R * S * H * 4,    R * nsub * d * 4,
       B * nsub * Q * H * 4, B * nsub * Q * H * 4};
   void** slots[NSLOT] = {
       (void**)&ws->h,    (void**)&ws->aq,   (void**)&ws->sa,
       (void**)&ws->qkv,  (void**)&ws->qp,   (void**)&ws->factor,
       (void**)&ws->m0,   (void**)&ws->den0, (void**)&ws->acc0,
-      (void**)&ws->hid,  (void**)&ws->dq,   (void**)&ws->dlog,
-      (void**)&ws->dm,   (void**)&ws->dcorr, (void**)&ws->dden,
-      (void**)&ws->dpacc, (void**)&ws->ipmax, (void**)&ws->ipsum};
+      (void**)&ws->hid,  (void**)&ws->lg,   (void**)&ws->pacc,
+      (void**)&ws->pmax, (void**)&ws->psum};
   size_t off = 0;
   for (int i = 0; i < NSLOT; ++i) {
     if (base != nullptr) *slots[i] = base + off;
@@ -1202,99 +1205,80 @@ size_t workspace_layout(int B, int Q, int d, int H, int S, char* base,
   return off;
 }
 
-// The integer-logit attention of one layer on the int8 or the int4 cache
-// (KIND), on S-blocks of bs rows (see i8_blockmax_kernel above).
+// The prefix attention of one layer on a cache of kind KIND, on S-blocks of
+// bs rows (see i8_blockmax_kernel above); whole: v1's one normalized block.
+// Three launches; the prep pass alone where there is no prefix.
 template <int KIND, int DH>
-cudaError_t attention_i8(const Workspace& w, int B, int Q, int H, int S,
-                         const Cache& c, int cl, int bs, float scale,
-                         float cq, int flags, cudaStream_t st) {
+cudaError_t attention(const Workspace& w, int B, int Q, int H, int S,
+                      const Cache& c, int cl, int bs, int whole, float scale,
+                      float cq, int flags, cudaStream_t st) {
+  constexpr bool DENSE = dense_kind(KIND);
   const int HD = H * DH, QH = Q * H;
   const int nb = (cl + bs - 1) / bs;
   const int nsub_per = (bs + SUB_ROWS - 1) / SUB_ROWS;
-  const int nsubT = (int)dense_max_subs(S);
-  if (nb * nsub_per > nsubT || HD > 1024 || HD % 32)
+  const int nsubT = (int)max_subs(S);
+  if (nb * nsub_per > nsubT || HD > 1024 || HD % 32 || (DENSE && Q != 1))
     return cudaErrorInvalidValue;
-  if (nb == 0) {
-    attn_prep_kernel<<<B, 256, 0, st>>>(w.qkv, Q, H, DH, c, cl, scale, cq,
-                                        flags, w.qp, w.factor, w.m0, w.den0,
-                                        w.acc0);
-  } else {
-    // a sub-block's rows, and on the int4 cache their scales, then the
-    // weights (see the kernels' shared-memory maps)
-    const size_t rows = SUB_ROWS * (size_t)cache_row_bytes<KIND>(HD) +
-                        (KIND == CACHE_INT4 ? SUB_ROWS * H * sizeof(float)
-                                            : 0);
-    const size_t lg = SUB_ROWS * QH * sizeof(float);
-    const size_t smem_max = (size_t)Q * HD + rows + lg + 256 * sizeof(float);
-    const size_t smem_mix = rows + lg + (QH + 256) * sizeof(float);
-    static bool configured = false;      // past 48 KB only when asked for
-    if (!configured) {
-      const int most = 96 * 1024;
-      cudaFuncSetAttribute(i8_blockmax_kernel<KIND, DH>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-      cudaFuncSetAttribute(i8_mix_kernel<KIND, DH, 1>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  // a sub-block's rows, and on the int4 cache their scales, then the
+  // weights (see the kernels' shared-memory maps)
+  const size_t rows = SUB_ROWS * (size_t)cache_row_bytes<KIND>(HD) +
+                      (KIND == CACHE_INT4 ? SUB_ROWS * H * sizeof(float) : 0);
+  const size_t lg = SUB_ROWS * QH * sizeof(float);
+  const size_t queries = DENSE ? HD * sizeof(float) : (size_t)Q * HD;
+  const size_t smem_max = queries + rows + lg + 256 * sizeof(float);
+  const size_t smem_mix = rows + lg + (2 * QH + 256) * sizeof(float);
+  static bool configured = false;      // past 48 KB only when asked for
+  if (!configured) {
+    const int most = 96 * 1024;
+    cudaFuncSetAttribute(i8_blockmax_kernel<KIND, DH>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    cudaFuncSetAttribute(i8_mix_kernel<KIND, DH, 1>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if constexpr (!DENSE)
       cudaFuncSetAttribute(i8_mix_kernel<KIND, DH, MAX_Q>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-      configured = true;
-    }
-    // block x = 0 of each scene runs the prep pass, the others a sub-block
-    i8_blockmax_kernel<KIND, DH>
-        <<<dim3(nb * nsub_per + 1, B), 256, smem_max, st>>>(
-            c, cl, S, Q, H, bs, nsub_per, nsubT, w.qkv, scale, cq, flags,
-            w.qp, w.factor, w.m0, w.den0, w.acc0, w.dlog, w.ipmax);
+    configured = true;
+  }
+  // block x = 0 of each scene runs the prep pass, the others a sub-block
+  i8_blockmax_kernel<KIND, DH>
+      <<<dim3(nb * nsub_per + 1, B), 256, smem_max, st>>>(
+          c, cl, S, Q, H, bs, nsub_per, nsubT, w.qkv, scale, cq, flags, w.qp,
+          w.factor, w.m0, w.den0, w.acc0, w.lg, w.pmax);
+  if (nb > 0) {
     const dim3 grid(nb * nsub_per, B);
     // the single-row step (2196 a frame) without the chunk's query loop
-    if (Q == 1)
+    if (DENSE || Q == 1)
       i8_mix_kernel<KIND, DH, 1><<<grid, 256, smem_mix, st>>>(
-          c, cl, S, Q, H, bs, nsub_per, nsubT, w.dlog, w.m0, w.ipmax,
-          w.ipsum, w.dpacc);
-    else
+          c, cl, S, Q, H, bs, nsub_per, nsubT, whole, w.lg, w.m0, w.pmax,
+          w.psum, w.pacc);
+    else if constexpr (!DENSE)
       i8_mix_kernel<KIND, DH, MAX_Q><<<grid, 256, smem_mix, st>>>(
-          c, cl, S, Q, H, bs, nsub_per, nsubT, w.dlog, w.m0, w.ipmax,
-          w.ipsum, w.dpacc);
+          c, cl, S, Q, H, bs, nsub_per, nsubT, whole, w.lg, w.m0, w.pmax,
+          w.psum, w.pacc);
   }
+  const int mode = !DENSE ? FOLD_INT : whole ? FOLD_WHOLE : FOLD_DENSE;
   i8_finish_kernel<<<dim3(Q, B), HD, 0, st>>>(
-      Q, H, DH, cl, bs, nb, nsub_per, nsubT, w.m0, w.den0, w.acc0, w.ipmax,
-      w.ipsum, w.dpacc, w.aq, w.sa);
+      Q, H, DH, cl, bs, nb, nsub_per, nsubT, mode, w.m0, w.den0, w.acc0,
+      w.pmax, w.psum, w.pacc, w.aq, w.sa);
   return cudaGetLastError();
 }
 
-// The dense-cache attention of one layer (see dense_prep_kernel above).
-struct DenseMode {
-  int code;    // DenseType; -1: the integer-logit attention
-  int bs;      // rows of an S-block
-  int whole;   // one block over all of S, normalized weights (TPU v1)
-};
-
-template <int CODE>
-cudaError_t dense_attention(const Workspace& w, int B, int H, int Dh, int S,
-                            const Cache& c, int cl, float scale,
-                            const DenseMode& dm, cudaStream_t st) {
-  const int HD = H * Dh;
-  const int nb = (cl + dm.bs - 1) / dm.bs;
-  const int nsub_per = (dm.bs + SUB_ROWS - 1) / SUB_ROWS;
-  const int nsb = (int)dense_max_blocks(S), nsub = (int)dense_max_subs(S);
-  if (nb > nsb || nb * nsub_per > nsub || HD > 1024 || HD % 32 || H > 32)
-    return cudaErrorInvalidValue;
-  dense_prep_kernel<CODE><<<B, 256, 0, st>>>(w.qkv, H, Dh, c, cl, scale, w.dq,
-                                             w.m0);
-  if (cl > 0)
-    dense_logits_kernel<CODE>
-        <<<dim3((cl + LOGIT_ROWS - 1) / LOGIT_ROWS, B), 256,
-           HD * sizeof(float), st>>>(c, cl, S, H, Dh, scale, w.dq, w.dlog);
-  dense_stats_kernel<<<B, 32 * H, 0, st>>>(cl, S, H, dm.bs, nb, nsb, dm.whole,
-                                           w.dlog, w.m0, w.dm, w.dcorr,
-                                           w.dden);
-  if (nb > 0)
-    dense_mix_kernel<CODE><<<dim3(nb * nsub_per, B), 256,
-                             SUB_ROWS * H * sizeof(float), st>>>(
-        c, cl, S, H, Dh, dm.bs, nsub_per, nsb, nsub, dm.whole, w.dlog, w.dm,
-        w.dden, w.dpacc);
-  dense_finish_kernel<<<B, HD, 0, st>>>(w.qkv, H, Dh, nb, nsub_per, nsb, nsub,
-                                        dm.whole, w.dcorr, w.dden, w.dpacc,
-                                        w.aq, w.sa);
-  return cudaGetLastError();
+template <int DH>
+cudaError_t attention_of_kind(int kind, const Workspace& w, int B, int Q,
+                              int H, int S, const Cache& c, int cl, int bs,
+                              int whole, float scale, float cq, int flags,
+                              cudaStream_t st) {
+#define ATTN_CASE(KIND)                                                  \
+  case KIND:                                                             \
+    return attention<KIND, DH>(w, B, Q, H, S, c, cl, bs, whole, scale, cq, \
+                               flags, st);
+  switch (kind) {
+    ATTN_CASE(CACHE_INT8) ATTN_CASE(CACHE_INT4) ATTN_CASE(CACHE_BF16)
+    ATTN_CASE(CACHE_FP8) ATTN_CASE(CACHE_GRID8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef ATTN_CASE
 }
 
 // The four products of a layer, in order qkv, proj, fc, pj: int8 (w4 ==
@@ -1309,10 +1293,17 @@ struct Products {
   long long s_stride[4];
 };
 
-cudaError_t gemv(const Workspace& w, bool w4, int R, const int8_t* wt,
+// The most rows an int8 product normalizes and quantizes itself (Rows.x):
+// every block of the product does all of them, which its weights' fetch
+// hides at a row or two and which would cost more than ln_quant_kernel's
+// launch beyond.
+constexpr int LN_FUSE_ROWS = 2;
+
+cudaError_t gemv(bool w4, const Rows& rows, int R, const int8_t* wt,
                  const float* scales, int K, int N, const float* bias,
                  int epi, float* out, cudaStream_t st) {
   if (w4) {
+    if (rows.x != nullptr) return cudaErrorInvalidValue;
     // columns a block: at most 32, fewer while that leaves under 132 blocks;
     // rows a tile: as many as 48 KB of staged activations and terms hold
     const int np = K / 256;
@@ -1327,7 +1318,7 @@ cudaError_t gemv(const Workspace& w, bool w4, int R, const int8_t* wt,
 #define W4_CASE(NP)                                                       \
   case NP:                                                                \
     gemv_w4_kernel<NP><<<nb, ncol * NP * rs, smem, st>>>(                 \
-        w.aq, w.sa, R, wt, K, N, scales, bias, epi, out, ncol, rt);       \
+        rows.aq, rows.sa, R, wt, K, N, scales, bias, epi, out, ncol, rt); \
     break;
     switch (np) {   // K = d or 4d, d in {256, 512, 768} (run_step)
       W4_CASE(1) W4_CASE(2) W4_CASE(3) W4_CASE(4) W4_CASE(8) W4_CASE(12)
@@ -1336,13 +1327,35 @@ cudaError_t gemv(const Workspace& w, bool w4, int R, const int8_t* wt,
     }
 #undef W4_CASE
   } else {
-    constexpr int WARPS = 8;
-    gemv_i8_kernel<<<dim3((N + WARPS - 1) / WARPS,
-                          (R + TILE_ROWS - 1) / TILE_ROWS),
-                     WARPS * 32, 0, st>>>(w.aq, w.sa, R, wt, K, N, scales,
-                                          bias, epi, out);
+    // lanes a column: enough for about three 16-byte chunks a lane, at most
+    // a warp (K = 768: 16 lanes of 3; K = 3072: 32 lanes of 6); threads a
+    // block: 256, fewer while that leaves under 132 blocks
+    const int nchunk = K / 16;
+    int lpc = 1;
+    while (lpc < 32 && 3 * lpc < nchunk) lpc *= 2;
+    const int ch = (nchunk + lpc - 1) / lpc;
+    int bt = 256;
+    while (bt > 64 && ((long long)N * lpc + bt - 1) / bt < 132) bt /= 2;
+    const int ncol = bt / lpc, nb = (N + ncol - 1) / ncol;
+    // rows a tile: as many as 48 KB hold with their scales (and padding)
+    const bool fused = rows.x != nullptr;
+    const int rt = fused ? R : min(R, max(1, (49152 - 16) / (K + 4)));
+    const size_t smem = (size_t)rt * K + 4 * ((rt + 3) & ~3) +
+                        (fused ? (size_t)rt * K * sizeof(float) : 0);
+    if (smem > 48 * 1024) return cudaErrorInvalidValue;
+#define I8_CASE(CH)                                                  \
+  case CH:                                                           \
+    gemv_i8_staged_kernel<CH><<<nb, bt, smem, st>>>(                 \
+        rows, R, wt, K, N, scales, bias, epi, out, lpc, rt);         \
+    break;
+    switch (ch) {   // K <= 3072 (run_step)
+      I8_CASE(1) I8_CASE(2) I8_CASE(3) I8_CASE(4) I8_CASE(5) I8_CASE(6)
+      default:
+        return cudaErrorInvalidValue;
+    }
+#undef I8_CASE
   }
-  return cudaSuccess;
+  return cudaGetLastError();
 }
 
 // The whole cache of a step: layer l's part starts l·layer_stride bytes (and
@@ -1353,32 +1366,39 @@ struct StepCache {
   long long sc_layer_stride;
 };
 
-// cq: scale/16 for the int8 cache, scale/7 for the int4 one; flags: see
-// attn_prep_kernel; dense.code >= 0: the dense-cache attention (then kv's
-// strides are in bytes of its storage type, Q = 1, and cq and flags unused);
-// dense.bs: the S-block rows of every prefix attention
+// kind: the cache's (CACHE_*; dense kinds: kv's strides in bytes of its
+// storage type, Q = 1, cq and flags unused); cq: scale/16 for the int8
+// cache, scale/7 for the int4 one; flags: see prep_scene (the int8 cache
+// only); bs: the S-block rows of the prefix attention; whole: v1's one
+// normalized block (a dense kind, bs = S)
 int run_step(const void* x, void* out, int B, int Q, int d, int H, int L,
              const float* vec, const Products& P, const StepCache& kv, int S,
              int cl, float scale, float cq, void* workspace, cudaStream_t st,
-             int flags, DenseMode dense) {
+             int flags, int kind, int bs, int whole) {
   const int R = B * Q, Dh = d / H;
-  const bool i4 = kv.c.ks != nullptr;
-  if (Q > MAX_Q || Q * H > ATT_THREADS || cl + Q > S)
+  if (Q > MAX_Q || Q * H > ATT_THREADS || cl + Q > S || bs < 1)
     return (int)cudaErrorInvalidValue;
-  if (dense.bs < 1) return (int)cudaErrorInvalidValue;
-  if (dense.code >= 0 && (Q != 1 || i4 || dense.code > KV_I8))
+  if ((kind == CACHE_INT4) != (kv.c.ks != nullptr) || kind > CACHE_GRID8)
     return (int)cudaErrorInvalidValue;
-  if (flags && (i4 || P.w4 || dense.code >= 0))
+  if (dense_kind(kind) ? Q != 1 || P.w4 : whole != 0)
     return (int)cudaErrorInvalidValue;
+  if (whole && (H < 4 || H > 32 || (H & (H - 1))))   // v1's denominator pass
+    return (int)cudaErrorInvalidValue;
+  if (flags && (kind != CACHE_INT8 || P.w4)) return (int)cudaErrorInvalidValue;
   if (Dh != 16 && Dh != 48) return (int)cudaErrorInvalidValue;
   if (4 * d > 12 * 256) return (int)cudaErrorInvalidValue;   // ln_quant
-  if (i4 && (H % 2 || kv.c.vs == nullptr)) return (int)cudaErrorInvalidValue;
+  if (kind == CACHE_INT4 && (H % 2 || kv.c.vs == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (P.w4 && (d % 256 || 4 * d > 256 * W4_MAX_PAIRS))
     return (int)cudaErrorInvalidValue;
   Workspace w;
   workspace_layout(B, Q, d, H, S, (char*)workspace, &w);
   const int V = 15 * d;
   const int nthr = 256;
+  // int8 products of few rows take their layer norm and quantization in
+  // their own blocks: seven launches a layer at B = 1 with a prefix
+  const bool fuse = !P.w4 && R <= LN_FUSE_ROWS;
+  const Rows staged{w.aq, w.sa, nullptr, nullptr};
   init_h_kernel<<<(R * d + nthr - 1) / nthr, nthr, 0, st>>>(
       (const __nv_bfloat16*)x, w.h, R * d);
   for (int l = 0; l < L; ++l) {
@@ -1386,7 +1406,7 @@ int run_step(const void* x, void* out, int B, int Q, int d, int H, int L,
     Cache c = kv.c;
     c.k += l * kv.layer_stride;
     c.v += l * kv.layer_stride;
-    if (i4) {
+    if (kind == CACHE_INT4) {
       c.ks += l * kv.sc_layer_stride;
       c.vs += l * kv.sc_layer_stride;
     }
@@ -1399,40 +1419,28 @@ int run_step(const void* x, void* out, int B, int Q, int d, int H, int L,
       wt[i] = P.w[i] + l * P.w_stride[i];
       sc[i] = P.w4 ? P.s[i] + l * P.s_stride[i] : vl + vec_ws[i];
     }
-    ln_quant_kernel<<<R, nthr, 0, st>>>(w.h, vl, w.aq, w.sa,
-                                                        d);
-    cudaError_t e = gemv(w, P.w4, R, wt[0], sc[0], d, 3 * d, vl + 5 * d,
-                         EPI_STORE, w.qkv, st);
+    if (!fuse) ln_quant_kernel<<<R, nthr, 0, st>>>(w.h, vl, w.aq, w.sa, d);
+    cudaError_t e = gemv(P.w4, fuse ? Rows{nullptr, nullptr, w.h, vl} : staged,
+                         R, wt[0], sc[0], d, 3 * d, vl + 5 * d, EPI_STORE,
+                         w.qkv, st);
     if (e != cudaSuccess) return (int)e;
-    if (dense.code == KV_BF16)
-      e = dense_attention<KV_BF16>(w, B, H, Dh, S, c, cl, scale, dense, st);
-    else if (dense.code == KV_FP8)
-      e = dense_attention<KV_FP8>(w, B, H, Dh, S, c, cl, scale, dense, st);
-    else if (dense.code == KV_I8)
-      e = dense_attention<KV_I8>(w, B, H, Dh, S, c, cl, scale, dense, st);
-    else if (Dh == 48)
-      e = i4 ? attention_i8<CACHE_INT4, 48>(w, B, Q, H, S, c, cl, dense.bs,
-                                            scale, cq, flags, st)
-             : attention_i8<CACHE_INT8, 48>(w, B, Q, H, S, c, cl, dense.bs,
-                                            scale, cq, flags, st);
-    else
-      e = i4 ? attention_i8<CACHE_INT4, 16>(w, B, Q, H, S, c, cl, dense.bs,
-                                            scale, cq, flags, st)
-             : attention_i8<CACHE_INT8, 16>(w, B, Q, H, S, c, cl, dense.bs,
-                                            scale, cq, flags, st);
+    e = Dh == 48 ? attention_of_kind<48>(kind, w, B, Q, H, S, c, cl, bs,
+                                         whole, scale, cq, flags, st)
+                 : attention_of_kind<16>(kind, w, B, Q, H, S, c, cl, bs,
+                                         whole, scale, cq, flags, st);
     if (e != cudaSuccess) return (int)e;
-    e = gemv(w, P.w4, R, wt[1], sc[1], d, d, vl + 9 * d, EPI_RESID, w.h, st);
-    if (e != cudaSuccess) return (int)e;
-    ln_quant_kernel<<<R, nthr, 0, st>>>(w.h, vl + d, w.aq,
-                                                        w.sa, d);
-    e = gemv(w, P.w4, R, wt[2], sc[2], d, 4 * d, nullptr, EPI_GELU, w.hid,
+    e = gemv(P.w4, staged, R, wt[1], sc[1], d, d, vl + 9 * d, EPI_RESID, w.h,
              st);
     if (e != cudaSuccess) return (int)e;
-    ln_quant_kernel<<<R, nthr, 0, st>>>(
-        w.hid, nullptr, w.aq, w.sa, 4 * d);
-    e = gemv(w, P.w4, R, wt[3], sc[3], 4 * d, d, nullptr, EPI_RESID, w.h, st);
+    if (!fuse)
+      ln_quant_kernel<<<R, nthr, 0, st>>>(w.h, vl + d, w.aq, w.sa, d);
+    e = gemv(P.w4, fuse ? Rows{nullptr, nullptr, w.h, vl + d} : staged, R,
+             wt[2], sc[2], d, 4 * d, nullptr, EPI_GELU, w.hid, st);
     if (e != cudaSuccess) return (int)e;
-    e = cudaGetLastError();
+    if (!fuse)
+      ln_quant_kernel<<<R, nthr, 0, st>>>(w.hid, nullptr, w.aq, w.sa, 4 * d);
+    e = gemv(P.w4, fuse ? Rows{nullptr, nullptr, w.hid, nullptr} : staged, R,
+             wt[3], sc[3], 4 * d, d, nullptr, EPI_RESID, w.h, st);
     if (e != cudaSuccess) return (int)e;
   }
   out_bf16_kernel<<<(R * d + nthr - 1) / nthr, nthr, 0, st>>>(
@@ -1496,6 +1504,26 @@ extern "C" long long umgen_decode_workspace_bytes(int B, int Q, int d, int H,
   return (long long)workspace_layout(B, Q, d, H, S, nullptr, &w);
 }
 
+// The int8 product of the steps by itself: out [R, N] float32 = the product
+// of R rows and wt [N, K] int8 (output-major) with per-column scales ws [N]
+// and bias [N] (or null), then epilogue epi (0 store, 1 GELU, 2 bf16
+// residual into out).  The rows: x null — aq [R, K] int8 with scales sa [R];
+// else x [R, K] float32, normalized with weight lnw (null: none) and
+// quantized in each block (R <= 2).
+extern "C" int umgen_gemv_i8(const void* aq, const void* sa, const void* x,
+                             const void* lnw, int R, const void* wt, int K,
+                             int N, const void* ws, const void* bias, int epi,
+                             void* out, void* stream) {
+  if (K % 16 || K > 3072 || (x != nullptr && R > 2) || epi < EPI_STORE ||
+      epi > EPI_RESID)
+    return (int)cudaErrorInvalidValue;
+  return (int)gemv(false,
+                   Rows{(const int8_t*)aq, (const float*)sa, (const float*)x,
+                        (const float*)lnw},
+                   R, (const int8_t*)wt, (const float*)ws, K, N,
+                   (const float*)bias, epi, (float*)out, (cudaStream_t)stream);
+}
+
 // One decode step for x [B, Q, d] bf16 → out [B, Q, d] bf16 (before the
 // final layer norm), int8 weights (int8_products) with vec [L, 15d] f32
 // (ln1, ln2, qkv_ws, qkv_b, proj_ws, proj_b, fc_ws, pj_ws).  Caches kc/vc:
@@ -1519,7 +1547,7 @@ extern "C" int umgen_decode_step(const void* x, void* out, int B, int Q,
                   int8_products(d, wqkv, wproj, wfc, wpj),
                   int8_cache(kc, vc, layer_stride, batch_stride), S, cl,
                   scale, c16, workspace, (cudaStream_t)stream, flags,
-                  DenseMode{-1, bs, 0});
+                  CACHE_INT8, bs, 0);
 }
 
 // The int8-weight step on a dense cache (TPU v2; v1 with whole != 0): kc/vc
@@ -1534,12 +1562,13 @@ extern "C" int umgen_decode_step_dense(
     const void* wpj, void* kc, void* vc, long long layer_stride,
     long long batch_stride, int S, int cl, float scale, int code, int bs,
     int whole, void* workspace, void* stream) {
-  if (code < 0) return (int)cudaErrorInvalidValue;
+  if (code < 0 || code > CACHE_GRID8 - CACHE_BF16)
+    return (int)cudaErrorInvalidValue;
   return run_step(x, out, B, Q, d, H, L, (const float*)vec,
                   int8_products(d, wqkv, wproj, wfc, wpj),
                   int8_cache(kc, vc, layer_stride, batch_stride), S, cl,
                   scale, 0.f, workspace, (cudaStream_t)stream, 0,
-                  DenseMode{code, whole ? S : bs, whole != 0});
+                  CACHE_BF16 + code, whole ? S : bs, whole != 0);
 }
 
 // The same step with W4A8 weights (w4_products); vec as above, its ws
@@ -1556,7 +1585,7 @@ extern "C" int umgen_decode_step_w4(const void* x, void* out, int B, int Q,
                   w4_products(d, w4k, s4k),
                   int8_cache(kc, vc, layer_stride, batch_stride), S, cl,
                   scale, c16, workspace, (cudaStream_t)stream, 0,
-                  DenseMode{-1, bs, 0});
+                  CACHE_INT8, bs, 0);
 }
 
 // The int8-weight step on the int4 cache.  kc/vc: rows of d/2 nibble-pair
@@ -1576,7 +1605,7 @@ extern "C" int umgen_decode_step_i4(
                   int4_cache(kc, vc, layer_stride, batch_stride, ks, vs,
                              sc_layer_stride, sc_batch_stride),
                   S, cl, scale, c7, workspace, (cudaStream_t)stream, 0,
-                  DenseMode{-1, bs, 0});
+                  CACHE_INT4, bs, 0);
 }
 
 // The W4A8 step on the int4 cache.
@@ -1591,5 +1620,5 @@ extern "C" int umgen_decode_step_w4_i4(
                   int4_cache(kc, vc, layer_stride, batch_stride, ks, vs,
                              sc_layer_stride, sc_batch_stride),
                   S, cl, scale, c7, workspace, (cudaStream_t)stream, 0,
-                  DenseMode{-1, bs, 0});
+                  CACHE_INT4, bs, 0);
 }

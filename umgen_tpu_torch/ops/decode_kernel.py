@@ -687,6 +687,9 @@ def decode_step_dense_cuda(packed: Params, x: torch.Tensor,
     if HD != d or d % H or (d // H) not in (16, 48) or d % 16 or d > 768:
         raise ValueError(f"dense decode kernel: unsupported widths d={d}, "
                          f"H={H}, cache row {HD}")
+    if whole_s and (H < 4 or H > 32 or H & (H - 1)):
+        raise ValueError(f"dense decode kernel, one block (v1): n_head {H} "
+                         "must be a power of two in [4, 32]")
     if not 0 <= cl <= S - 1:
         raise ValueError(f"cache_len {cl} + 1 exceeds {S} cache rows")
     _require_cache("caches", kv_k, kv_v, kv_k.dtype, HD, 16)
