@@ -55,14 +55,15 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
       decode kernel;
   (i) serving-i4 at debug scale on the card and on the CPU, as (f) with one
       scene (the CPU side is most of the phase's time);
-  (j) slice-bf16kv, this slice's main path: the configuration of (c) with
-      `--oar_kv_dtype bfloat16`, full width and depth, B = 1, the prefill
-      frame plus one cached frame.  Flash and v2 must launch (2196 steps a
-      frame), no other decode kernel: the multi-row pushes run the eager
-      body on the bf16 cache;
+  (j) slice-bf16kv: the configuration of (c) with `--oar_kv_dtype
+      bfloat16`, full width, the 24-layer depth (`--model_scale stander`,
+      to keep the script inside its time), B = 1, the prefill frame plus
+      one cached frame.  Flash and v2 must launch (2196 steps a frame), no
+      other decode kernel: the multi-row pushes run the eager body on the
+      bf16 cache;
   (k) slice-v7: the configuration of (c) with `--oar_kernel 7`, B = 2, the
-      prefill frame plus one cached frame.  Flash, v7 and v5mq must launch,
-      v5 must not;
+      24-layer depth, the prefill frame plus one cached frame.  Flash, v7
+      and v5mq must launch, v5 must not;
   (l) slice-fp8kv (`--oar_kv_dtype float8_e4m3fn`, through the CLI's code
       path: flash and v2) and slice-v1 (int8-quantized but unpacked OAR
       weights on a bf16 cache, through Generator: flash and v1), each the
@@ -72,7 +73,28 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
       B = 2: `Rollout.oar_step` on caller-built 5-D int8 caches with the v3
       and then the v4 packing, and `fused_decode_step_v6`, each against v5
       on the same inputs (v3, v4: h and caches bit for bit at every step);
-  (n) slice-bf16kv at debug scale on the card and on the CPU, as (d).
+  (n) slice-bf16kv at debug scale on the card and on the CPU, as (d);
+  (o) the reference CLI's default run through the CLI's code path with no
+      flag but `--debug --synthetic_data 1 --max_scenes 1
+      --set_num_new_frames 1`: UMGen_Large, B = 1, 20-frame fp8 TAR rings,
+      an fp8 OAR cache decoded by the reference's unfused body for all 2202
+      positions, int8 decode weights, top-k.  Flash must launch and no
+      decode kernel; prints the frame's time, the eager step's wall ms over
+      steps 500-1499, the peak device memory, and a `torch.profiler` table
+      of 20 eager steps at cache_len 1100 (`eager_profile`);
+  (p) recompute (`--tar_mode recompute --fused_oar --kv_dtype bfloat16
+      --sample_method greedy`), full width and depth, B = 1, two frames
+      (the second one's window has slid): the whole 20-frame window through
+      every TAR stack each frame.  Flash must launch 192 times a frame, v5
+      and v5mq must launch; prints each frame's TAR / OAR split and the
+      peak memory;
+  (q) ring refresh on fp8 rings (`--fused_oar --tar_cache_refresh 1
+      --sample_method greedy`, an int8 OAR cache), two frames: the refresh
+      must fire once (Generator.refreshes); flash, v5 and v5mq must launch.
+      Prints the share of its second frame's tokens equal to (p)'s, for the
+      record;
+  (r) recompute, and the default unfused run, at debug scale (one layer a
+      stack, full width), B = 1, on the card and on the CPU, as (d).
 
 Prints each phase's results, the card's name and power limit, a JSON line
 describing the kernels, and as its last line
@@ -191,6 +213,11 @@ REF_RTOL_LOGITS = 5e-2
 #   devices is one key of up to 2200 under the softmax.
 SERVE_RTOL_PRIORS = 5e-2
 SERVE_RTOL_LOGITS = 1e-1
+# phase r (recompute; the default unfused run on fp8 rings and an fp8 OAR
+#   cache) keeps phase d's bounds: recompute is phase d's prefill pass
+#   without the rings, and the prefill frame reads no ring; the eager body
+#   rounds as the decode step's plain version, and an fp8 row one step
+#   apart between the devices is one key of up to 2200 under the softmax.
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s,
 # bf16 tensor-core FLOP/s, int8 OP/s — the yardsticks of `bound_ms`
@@ -887,11 +914,16 @@ def phase_variants(dev, cfg, packs, visible):
     return rows, profiles
 
 
-def _first_frame(ro, params, inputs, device, chunked):
-    """The frame step the card-against-CPU phases drive, on either side."""
+def _first_frame(ro, params, inputs, device, step):
+    """The frame step the card-against-CPU phases drive, on either side:
+    "prefill", "chunked" or "recompute"."""
     import torch
-    step = ro.frame_step_chunked if chunked else ro.frame_step_prefill
-    return step(params, inputs, torch.Generator(device))[0]
+    g = torch.Generator(device)
+    if step == "recompute":
+        return ro.frame_step(params, inputs, g)
+    fn = ro.frame_step_chunked if step == "chunked" else \
+        ro.frame_step_prefill
+    return fn(params, inputs, g)[0]
 
 
 def _cpu_replay(job_path):
@@ -916,7 +948,7 @@ def _cpu_replay(job_path):
     inputs = {m: torch.as_tensor(v, dtype=torch.long)
               for m, v in job["cond"].items()}
     t0 = time.perf_counter()
-    out = _first_frame(ro, job["params"], inputs, "cpu", job["chunked"])
+    out = _first_frame(ro, job["params"], inputs, "cpu", job["step"])
     torch.save({"tokens": out.tokens, "ego_logits": out.ego_logits,
                 "prior_seq": out.prior_seq, "logits": seen,
                 "seconds": time.perf_counter() - t0}, job_path + ".out")
@@ -931,7 +963,7 @@ class _CardVsCpu:
     child and compares: the tokens must be equal, and the ego logits, TAR
     priors and every decision's logits must agree within the bounds."""
 
-    def __init__(self, dev, cfg, params, chunked, B, T, tag, rtol_priors,
+    def __init__(self, dev, cfg, params, step, B, T, tag, rtol_priors,
                  rtol_logits, work_dir):
         import multiprocessing
 
@@ -941,6 +973,7 @@ class _CardVsCpu:
         from umgen_tpu_torch.models.sampling import greedy_sample
         from umgen_tpu_torch.models.umgen import UMGen
         self.cfg, self.B, self.tag, self.dev = cfg, B, tag, dev
+        self.step = step
         self.rtol_priors, self.rtol_logits = rtol_priors, rtol_logits
         model = UMGen(cfg)
 
@@ -962,13 +995,13 @@ class _CardVsCpu:
         inputs = {m: torch.as_tensor(v, dtype=torch.long, device=dev)
                   for m, v in cond.items()}
         t0 = time.perf_counter()
-        out = _first_frame(ro, params, inputs, dev, chunked)
+        out = _first_frame(ro, params, inputs, dev, step)
         self.run = {k: getattr(out, k).cpu() for k in
                     ("tokens", "ego_logits", "prior_seq")}
         self.device_s = time.perf_counter() - t0
         self.job = os.path.join(work_dir, f"replay_{tag}.pt")
         torch.save({"cfg": cfg, "params": to_cpu(params), "cond": cond,
-                    "tokens": tokens, "chunked": chunked}, self.job)
+                    "tokens": tokens, "step": step}, self.job)
         self.child = multiprocessing.get_context("spawn").Process(
             target=_cpu_replay, args=(self.job,))
         self.child.start()
@@ -1009,6 +1042,7 @@ class _CardVsCpu:
                "logits_rel_err_mean": sum(errs) / n, "tokens_equal": same,
                "device_s": self.device_s, "cpu_s": cpu["seconds"]}
         print(f"({self.tag}) {self.cfg.n_tar_layer}-layer stacks, "
+              f"{self.step}, "
               f"B={self.B}, on {self.dev} vs the CPU: ego logits rel err "
               f"{err_ego:.3g}, priors {err_pri:.3g}, logits of {n} decisions "
               f"max {errs[worst]:.3g} (decision {worst}) mean "
@@ -1023,28 +1057,29 @@ class _CardVsCpu:
         return res
 
 
-def phase_reference(dev, work_dir, scale="debug", tag="d",
-                    oar_cache_dtype="int8"):
-    """One prefill frame of the bf16-ring slice, B = 1, a 2-frame window,
-    greedy, every stack one layer deep at the scale's full width, card
-    against CPU; the OAR cache int8 (phase d: v5, v5mq) or bfloat16 (phase
-    n: v2 and the eager pushes).  Returns the started _CardVsCpu."""
+def phase_reference(dev, work_dir, tag="d", step="prefill", **changes):
+    """One frame of the bf16-ring slice, B = 1, a 2-frame window, greedy,
+    every stack one layer deep at full width, card against CPU, with the
+    config `changes`: the OAR cache int8 (phase d: v5, v5mq) or bfloat16
+    (phase n: v2 and the eager pushes); recompute (phase r, `step`
+    "recompute"), or the reference CLI's default run (phase r: fp8 rings,
+    the unfused decode on an fp8 OAR cache, unpacked int8 weights).
+    Returns the started _CardVsCpu."""
     import torch
     from umgen_tpu_torch.config import ModelConfig
     from umgen_tpu_torch.params import init_params
     from umgen_tpu_torch.runtime.quantize import (pack_fused,
                                                   quantize_params_int8)
     cfg = ModelConfig(sample_method="greedy", tar_mode="temporal_cache",
-                      tar_cache_dtype="bfloat16",
-                      oar_cache_dtype=oar_cache_dtype,
-                      fused_oar_kernel=True,
-                      tar_cache_window=20).scaled(scale)
+                      tar_cache_dtype="bfloat16", oar_cache_dtype="int8",
+                      fused_oar_kernel=True, tar_cache_window=20
+                      ).replace(**changes).scaled("debug")
     g = torch.Generator(device=dev)
     g.manual_seed(3)
-    params = pack_fused(quantize_params_int8(init_params(cfg, g, dev)),
-                        kv_dtype=oar_cache_dtype)
-
-    return _CardVsCpu(dev, cfg, params, False, B=1, T=2, tag=tag,
+    params = quantize_params_int8(init_params(cfg, g, dev))
+    if cfg.fused_oar_kernel:
+        params = pack_fused(params, kv_dtype=cfg.oar_cache_dtype)
+    return _CardVsCpu(dev, cfg, params, step, B=1, T=2, tag=tag,
                       rtol_priors=REF_RTOL_PRIORS,
                       rtol_logits=REF_RTOL_LOGITS, work_dir=work_dir)
 
@@ -1070,7 +1105,7 @@ def phase_serving_reference(dev, work_dir, tag="f", oar_cache_dtype="int8",
     if "wqp4" not in params["oar_packed"]:
         raise AssertionError(f"phase {tag} needs W4A8 OAR weights")
 
-    return _CardVsCpu(dev, cfg, params, True, B=B, T=3, tag=tag,
+    return _CardVsCpu(dev, cfg, params, "chunked", B=B, T=3, tag=tag,
                       rtol_priors=SERVE_RTOL_PRIORS,
                       rtol_logits=SERVE_RTOL_LOGITS, work_dir=work_dir)
 
@@ -1154,28 +1189,14 @@ def phase_rollout(dev, out_dir, tag="c", new_frames=2, flags=(),
     Phase c: the int8 OAR cache (v5, v5mq); h: `--oar_kv_dtype int4` (v5i4,
     v5mqi4); j: `--oar_kv_dtype bfloat16` (v2; the pushes run the eager
     body); k: `--oar_kernel 7`, B = 2 (v7, v5mq); l: `--oar_kv_dtype
-    float8_e4m3fn` at the 24-layer scale (v2)."""
-    from umgen_tpu_torch.tools import evaluate
-    args = evaluate.build_parser().parse_args([
-        "--infer_task", "video", "--model_scale", scale, "--fused_oar",
-        "--kv_dtype", "bfloat16", "--int8", "decode", "--debug",
-        "--synthetic_data", str(B), "--max_scenes", str(B),
-        "--set_num_new_frames", str(new_frames), "--batch_size", str(B),
-        "--sample_method", "topk", "--output_path", out_dir,
-        "--device", str(dev)] + list(flags))
-    _reset_launches()
-    t0 = time.perf_counter()
-    runner, gen = evaluate.run(args)
-    secs = time.perf_counter() - t0
-    launches = _launches(must)
-    _check_tokens(out_dir, scenes=B, frames=20 + new_frames)
-    frame_s = list(gen.frame_seconds)
-    print(f"({tag}) cached rollout, --model_scale {scale}, B={B}, "
-          f"{' '.join(flags) or 'int8 OAR cache'}: per-frame seconds "
-          f"{', '.join(f'{s:.2f}' for s in frame_s)} (first = prefill + "
-          f"decode); launches {launches}; whole run {secs:.1f} s")
-    return {"frame_seconds": frame_s, "launches": launches,
-            "seconds": secs}
+    float8_e4m3fn` (v2)."""
+    return _cli_frames(
+        dev, out_dir, ["--infer_task", "video", "--model_scale", scale,
+                       "--fused_oar", "--kv_dtype", "bfloat16", "--int8",
+                       "decode", "--sample_method", "topk"] + list(flags),
+        tag, f"cached rollout, --model_scale {scale}, B={B}, "
+        f"{' '.join(flags) or 'int8 OAR cache'} (first frame = prefill + "
+        "decode)", must, new_frames, B)[0]
 
 
 def phase_slice_v1(dev, out_dir):
@@ -1224,6 +1245,162 @@ def phase_slice_v1(dev, out_dir):
           f"{', '.join(f'{s:.2f}' for s in frame_s)}; launches {launches}; "
           f"whole run {secs:.1f} s")
     return {"frame_seconds": frame_s, "launches": launches, "seconds": secs}
+
+
+class _FrameSplit:
+    """While it is entered: times the OAR decode of each frame
+    (`Rollout._finish_frame`, with a synchronize on both sides) and stamps
+    the host clock at each single-token eager step
+    (`Rollout._oar_step_eager`)."""
+
+    def __enter__(self):
+        import torch
+        from umgen_tpu_torch.models.rollout import Rollout
+        self.oar_s, self.eager_t = [], []
+        self.real = finish, eager = (Rollout._finish_frame,
+                                     Rollout._oar_step_eager)
+
+        def timed_finish(ro, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = finish(ro, *a, **k)
+            torch.cuda.synchronize()
+            self.oar_s.append(time.perf_counter() - t0)
+            return out
+
+        def stamped_eager(ro, params, x, *a, **k):
+            if x.shape[1] == 1:
+                self.eager_t.append(time.perf_counter())
+            return eager(ro, params, x, *a, **k)
+
+        Rollout._finish_frame = timed_finish
+        Rollout._oar_step_eager = stamped_eager
+        return self
+
+    def __exit__(self, *exc):
+        from umgen_tpu_torch.models.rollout import Rollout
+        Rollout._finish_frame, Rollout._oar_step_eager = self.real
+
+    def eager_ms(self, first=500, last=1499):
+        """Wall ms a step over single-token eager steps first..last of the
+        first frame (the host's pace; the steps do not wait on the card)."""
+        t = self.eager_t
+        return 1e3 * (t[last] - t[first]) / (last - first)
+
+
+def _cli_frames(dev, out_dir, argv, tag, what, must, frames, B=1):
+    """Run the CLI's code path (`evaluate.run`) on `argv` with every launch
+    count reset just before; check the tokens and that flash and the decode
+    kernels `must` launched, and no other.  Returns the report (per-frame
+    seconds, each frame's OAR seconds and the rest, peak device memory,
+    launches), the Generator and the _FrameSplit."""
+    import torch
+    from umgen_tpu_torch.tools import evaluate
+    args = evaluate.build_parser().parse_args(
+        argv + ["--debug", "--synthetic_data", str(B), "--max_scenes",
+                str(B), "--batch_size", str(B), "--set_num_new_frames",
+                str(frames), "--output_path", out_dir, "--device", str(dev)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _FrameSplit() as split:
+        _reset_launches()
+        t0 = time.perf_counter()
+        _, gen = evaluate.run(args)
+        secs = time.perf_counter() - t0
+        launches = _launches(must)
+    peak = torch.cuda.max_memory_allocated()
+    _check_tokens(out_dir, scenes=B, frames=20 + frames)
+    frame_s = list(gen.frame_seconds)
+    rest = [f - o for f, o in zip(frame_s, split.oar_s)]
+    print(f"({tag}) {what}: per-frame seconds "
+          f"{', '.join(f'{s:.2f}' for s in frame_s)}, of which the OAR "
+          f"decode {', '.join(f'{s:.2f}' for s in split.oar_s)} and ego + "
+          f"TAR {', '.join(f'{s:.2f}' for s in rest)}; peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches}; whole run "
+          f"{secs:.1f} s")
+    return {"frame_seconds": frame_s, "oar_seconds": split.oar_s,
+            "tar_seconds": rest, "max_memory_allocated": peak,
+            "launches": launches, "seconds": secs}, gen, split
+
+
+def phase_default_run(dev, out_dir):
+    """(o) the reference CLI's default run: no flag but the run's size."""
+    res, gen, split = _cli_frames(
+        dev, out_dir, [], "o", "the reference CLI's default run "
+        "(UMGen_Large, B=1, fp8 rings, the unfused decode on an fp8 OAR "
+        "cache, int8 decode weights, top-k)", must=(), frames=1)
+    cfg = gen.model.config
+    want = {"tar_mode": "temporal_cache", "tar_cache_dtype": "float8_e4m3fn",
+            "oar_cache_dtype": "float8_e4m3fn", "fused_oar_kernel": False,
+            "n_oar_layer": 36, "n_embd": 768, "sample_method": "topk"}
+    got = {k: getattr(cfg, k) for k in want}
+    if got != want or "oar_packed" in gen.params:
+        raise AssertionError(f"default run {got}, expected {want}, unpacked")
+    res["eager_steps"] = len(split.eager_t)
+    res["eager_step_ms"] = split.eager_ms()
+    print(f"(o) {res['eager_steps']} single-token eager steps, "
+          f"{res['eager_step_ms']:.2f} ms a step (host clock, steps "
+          "500-1499)")
+    # where an eager step's time goes: 20 steps at cache_len 1100
+    import torch
+    ro = gen.rollout
+    kv_k, kv_v = ro.init_kv(1, device=dev)
+    x = torch.randn(1, 1, cfg.n_embd, device=dev).to(torch.bfloat16)
+    prof = _kernel_profile(
+        lambda: ro._oar_step_eager(gen.params, x, kv_k, kv_v, 1100), 20)
+    prof["launches_per_step"] = sum(
+        r["launches_per_call"] for r in prof["kernels"].values())
+    prof["kernels"] = dict(list(prof["kernels"].items())[:12])
+    print(f"(o) profile of 20 eager steps at cache_len 1100: "
+          f"{prof['device_ms'] / 20:.3f} device ms a step in "
+          f"{prof['wall_ms'] / 20:.2f} ms (busy {100 * prof['busy']:.1f}%), "
+          f"{prof['launches_per_step']:.0f} launches a step")
+    res["eager_profile"] = prof
+    return res
+
+
+def phase_recompute(dev, out_dir):
+    """(p) recompute at full width and depth, two frames."""
+    res, _, _ = _cli_frames(
+        dev, out_dir, ["--tar_mode", "recompute", "--fused_oar",
+                       "--kv_dtype", "bfloat16", "--sample_method",
+                       "greedy"], "p", "recompute, UMGen_Large, B=1, the "
+        "whole window through every TAR stack", must=("v5", "v5mq"),
+        frames=2)
+    if res["launches"]["flash_attention"] != 192 * 2:
+        raise AssertionError(f"recompute launched flash "
+                             f"{res['launches']['flash_attention']} times "
+                             "in two frames, expected 192 a frame")
+    res["tokens"] = _load_tokens(out_dir)[0]
+    return res
+
+
+def phase_refresh(dev, out_dir, recompute_tokens):
+    """(q) ring refresh on fp8 rings, two frames: the second one refreshes
+    the rings."""
+    import numpy as np
+    res, gen, _ = _cli_frames(
+        dev, out_dir, ["--fused_oar", "--tar_cache_refresh", "1",
+                       "--sample_method", "greedy"], "q",
+        "ring refresh every frame, UMGen_Large, B=1, fp8 rings, int8 OAR "
+        "cache", must=("v5", "v5mq"), frames=2)
+    if gen.refreshes != 1 or gen.model.config.tar_cache_dtype != \
+            "float8_e4m3fn":
+        raise AssertionError(f"{gen.refreshes} refreshes on "
+                             f"{gen.model.config.tar_cache_dtype} rings, "
+                             "expected one on fp8 rings")
+    res["refreshes"] = gen.refreshes
+    mine = _load_tokens(out_dir)[0]
+    res["equal_to_recompute"] = {}
+    for frame in (20, 21):
+        a = np.concatenate([np.asarray(mine[m])[:, frame].reshape(-1)
+                            for m in VOCAB])
+        b = np.concatenate([np.asarray(recompute_tokens[m])[:, frame]
+                            .reshape(-1) for m in VOCAB])
+        res["equal_to_recompute"][frame - 19] = float((a == b).mean())
+    print(f"(q) share of tokens equal to (p)'s recompute stream, by frame "
+          f"(a record, not a gate): {res['equal_to_recompute']}")
+    return res
 
 
 def phase_step_loops(dev, cfg, packs, steps=64, start=1000, B=2):
@@ -1410,8 +1587,11 @@ def main(argv=None) -> int:
                     "(flash decode variants step_loops rollout reference "
                     "serving serving_reference serving_i4 rollout_i4 "
                     "serving_i4_reference rollout_bf16kv rollout_v7 "
-                    "rollout_fp8kv rollout_v1 bf16kv_reference), for work "
-                    "on one of them; prints no result line")
+                    "rollout_fp8kv rollout_v1 bf16kv_reference "
+                    "rollout_default rollout_recompute rollout_refresh "
+                    "recompute_reference default_reference; refresh needs "
+                    "recompute), for work on one of them; prints no result "
+                    "line")
     only = ap.parse_args(argv).phases
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1495,15 +1675,31 @@ def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
     rollout("rollout")
     rollout("rollout_i4", tag="h", new_frames=1,
             flags=("--oar_kv_dtype", "int4"), must=("v5i4", "v5mqi4"))
-    rollout("rollout_bf16kv", tag="j",
+    rollout("rollout_bf16kv", tag="j", scale="stander",
             flags=("--oar_kv_dtype", "bfloat16"), must=("v2",))
     rollout("rollout_v7", tag="k", flags=("--oar_kernel", "7"), B=2,
-            must=("v7", "v5mq"))
+            scale="stander", must=("v7", "v5mq"))
     rollout("rollout_fp8kv", tag="l", new_frames=1, scale="stander",
             flags=("--oar_kv_dtype", "float8_e4m3fn"), must=("v2",))
     if want("rollout_v1"):
         with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
             report["rollout_v1"] = phase_slice_v1(dev, out_dir)
+        torch.cuda.empty_cache()
+    # the reference's own window semantics (o, p, q)
+    if want("rollout_default"):
+        with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+            report["rollout_default"] = phase_default_run(dev, out_dir)
+        torch.cuda.empty_cache()
+    recompute_tokens = None
+    if want("rollout_recompute"):
+        with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+            report["rollout_recompute"] = phase_recompute(dev, out_dir)
+        recompute_tokens = report["rollout_recompute"].pop("tokens")
+        torch.cuda.empty_cache()
+    if want("rollout_refresh") and recompute_tokens is not None:
+        with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+            report["rollout_refresh"] = phase_refresh(dev, out_dir,
+                                                      recompute_tokens)
         torch.cuda.empty_cache()
     # then the card-against-CPU checks (d, n, f, i): the card's side of each
     # runs now, its CPU side in a child process while the card runs the two
@@ -1514,7 +1710,14 @@ def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
              {"tag": "n", "oar_cache_dtype": "bfloat16"}),
             ("serving_reference", phase_serving_reference, {}),
             ("serving_i4_reference", phase_serving_reference,
-             {"tag": "i", "oar_cache_dtype": "int4", "B": 1})):
+             {"tag": "i", "oar_cache_dtype": "int4", "B": 1}),
+            ("recompute_reference", phase_reference,
+             {"tag": "r-recompute", "step": "recompute",
+              "tar_mode": "recompute"}),
+            ("default_reference", phase_reference,
+             {"tag": "r-default", "tar_cache_dtype": "float8_e4m3fn",
+              "oar_cache_dtype": "float8_e4m3fn",
+              "fused_oar_kernel": False})):
         if want(key):
             pending[key] = fn(dev, work_dir, **kw)
             torch.cuda.empty_cache()

@@ -1,7 +1,7 @@
 """The port stands alone: it runs without JAX and without the JAX package.
 
-Importing it and running a tiny rollout through its CLI, in a fresh
-interpreter, leaves `jax` and `umgen_tpu` out of sys.modules; no source file
+Importing it and running a tiny rollout through its CLI (the reference
+CLI's default run, and the decode kernels' paths), in a fresh interpreter, leaves `jax` and `umgen_tpu` out of sys.modules; no source file
 of the port (or chip_smoke.py) imports either; and the framework-free
 modules the port copied from the JAX package (config, layout, data) still
 say what their originals say.
@@ -22,17 +22,20 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CHILD = """
 import sys
 from umgen_tpu_torch.tools import evaluate
-rc = evaluate.main(["--infer_task", "video", "--model_scale", "tiny",
-                    "--fused_oar", "--kv_dtype", "bfloat16", "--debug",
-                    "--synthetic_data", "1", "--max_scenes", "1",
-                    "--set_num_new_frames", "1", "--sample_method",
-                    "greedy", "--device", "cpu", "--output_path", sys.argv[1]]
+rc = evaluate.main(["--model_scale", "tiny", "--debug", "--synthetic_data",
+                    "1", "--max_scenes", "1", "--set_num_new_frames", "1",
+                    "--device", "cpu", "--output_path", sys.argv[1]]
                    + sys.argv[2:])
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "umgen_tpu"))
 assert rc == 0 and not foreign, (rc, foreign[:5])
 print("PORT_STANDS_ALONE_OK")
 """
+
+
+# the bf16-ring slice: the decode kernels' plain versions, greedy
+FUSED = ("--infer_task", "video", "--fused_oar", "--kv_dtype", "bfloat16",
+         "--sample_method", "greedy")
 
 
 def _run_cli(tmp_path, *flags):
@@ -54,13 +57,20 @@ def _run_cli(tmp_path, *flags):
 
 
 def test_port_imports_and_runs_without_jax(tmp_path):
+    _run_cli(tmp_path, *FUSED)
+
+
+def test_cli_default_run_stands_alone(tmp_path):
+    """The reference CLI's default run (fp8 rings, the unfused decode on an
+    fp8 OAR cache, int8 decode weights, top-k) at the tiny scale: no JAX
+    imported, token pickles of the right shapes."""
     _run_cli(tmp_path)
 
 
 def test_cli_serves_the_int4_oar_cache(tmp_path):
     """`--fused_oar --oar_kv_dtype int4` on the CPU: the v5i4 / v5mqi4 plain
     versions decode a frame; token pickles of the right shapes."""
-    _run_cli(tmp_path, "--oar_kv_dtype", "int4")
+    _run_cli(tmp_path, *FUSED, "--oar_kv_dtype", "int4")
 
 
 @pytest.mark.parametrize("flags", [
@@ -71,7 +81,7 @@ def test_cli_serves_the_dense_oar_caches_and_v7(tmp_path, flags):
     version for the single-token steps, the eager body for the pushes) and
     `--oar_kernel 7` (v7's) on the CPU: a frame decodes, token pickles of
     the right shapes, no JAX imported."""
-    _run_cli(tmp_path, *flags)
+    _run_cli(tmp_path, *FUSED, *flags)
 
 
 def _port_sources():

@@ -124,7 +124,8 @@ def test_block_tar_collect_kv_matches_jax(block):
     x = jnp.asarray(rng.normal(0, 1, (2, 3, 10, D)), jnp.bfloat16)
     y_j, (k_j, v_j) = jax.jit(lambda p, x: jnn.block_tar_collect_kv(
         p, x, H))(jp, x)
-    y_t, (k_t, v_t) = tnn.block_tar_collect_kv(tp, _t(x, torch.bfloat16), H)
+    y_t, (k_t, v_t) = tnn.block_tar(tp, _t(x, torch.bfloat16), H,
+                                    collect_kv=True)
     for port, ref, what in ((y_t, y_j, "y"), (k_t, k_j, "k"),
                             (v_t, v_j, "v")):
         _block_close(port, ref, what)
@@ -258,15 +259,11 @@ def test_samplers():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tar_mode", "recompute"], "Recompute mode"),
-    (["--kv_dtype", "float8_e4m3fn"], "TAR rings"),
     (["--oar_kv_dtype", "float16"], "as if it were fp8"),
-    (["--kv_dtype", "int2"], "TAR rings"),
+    (["--kv_dtype", "int2"], "int2 TAR rings"),
     (["--speculative_k", "4"], "Speculative decoding"),
     (["--dp", "2"], "Multi-GPU"),
     (["--tar_w4"], "W4 TAR weights"),
-    (["--int8", "off"], "bf16 OAR weights"),
-    (["--tar_cache_refresh", "2"], "Ring refresh"),
     (["--temporal_pe", "relative"], "Relative temporal PE"),
     (["--oar_batch_block", "5"], "VMEM-driven blockings"),
     (["--oar_kv_dtype", "float32"], "served are int8, int4, bfloat16"),
@@ -281,34 +278,47 @@ def test_cli_rejects_flags_outside_the_port(flags, item):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--kv_dtype", "bfloat16", "--int8", "decode"],
-    ["--kv_dtype", "int4"],
-    ["--kv_dtype", "int4", "--int8", "all", "--chunked_prefill",
-     "--tar_cache_window", "8", "--batch_size", "10"],
-    ["--kv_dtype", "bfloat16", "--int8", "all", "--batch_size", "3",
-     "--sample_method", "greedy", "--model_scale", "tiny"],
-    ["--kv_dtype", "int4", "--oar_kv_dtype", "int8", "--chunked_prefill",
-     "--tar_cache_window", "2", "--model_scale", "debug"],
-    ["--kv_dtype", "bfloat16", "--int8", "decode", "--oar_kv_dtype", "int4"],
-    ["--kv_dtype", "int4", "--int8", "all", "--chunked_prefill",
-     "--tar_cache_window", "8", "--batch_size", "10", "--oar_kv_dtype",
-     "int4"],
-    ["--kv_dtype", "bfloat16", "--int8", "decode", "--oar_kv_dtype",
-     "bfloat16"],
-    ["--kv_dtype", "bfloat16", "--oar_kv_dtype", "float8_e4m3fn"],
-    ["--kv_dtype", "bfloat16", "--batch_size", "2", "--oar_kernel", "7"],
+    ["--fused_oar", "--kv_dtype", "bfloat16", "--int8", "decode"],
+    ["--fused_oar", "--kv_dtype", "int4"],
+    ["--fused_oar", "--kv_dtype", "int4", "--int8", "all",
+     "--chunked_prefill", "--tar_cache_window", "8", "--batch_size", "10"],
+    ["--fused_oar", "--kv_dtype", "bfloat16", "--int8", "all",
+     "--batch_size", "3", "--sample_method", "greedy", "--model_scale",
+     "tiny"],
+    ["--fused_oar", "--kv_dtype", "int4", "--oar_kv_dtype", "int8",
+     "--chunked_prefill", "--tar_cache_window", "2", "--model_scale",
+     "debug"],
+    ["--fused_oar", "--kv_dtype", "bfloat16", "--int8", "decode",
+     "--oar_kv_dtype", "int4"],
+    ["--fused_oar", "--kv_dtype", "int4", "--int8", "all",
+     "--chunked_prefill", "--tar_cache_window", "8", "--batch_size", "10",
+     "--oar_kv_dtype", "int4"],
+    ["--fused_oar", "--kv_dtype", "bfloat16", "--int8", "decode",
+     "--oar_kv_dtype", "bfloat16"],
+    ["--fused_oar", "--kv_dtype", "bfloat16", "--oar_kv_dtype",
+     "float8_e4m3fn"],
+    ["--fused_oar", "--kv_dtype", "bfloat16", "--batch_size", "2",
+     "--oar_kernel", "7"],
+    # the reference CLI's default run: fp8 rings, the unfused decode on an
+    # fp8 OAR cache, int8 decode weights
+    [],
+    ["--fused_oar", "--kv_dtype", "bfloat16", "--tar_mode", "recompute"],
+    ["--fused_oar", "--kv_dtype", "float8_e4m3fn"],
+    ["--fused_oar", "--kv_dtype", "bfloat16", "--int8", "off"],
+    ["--fused_oar", "--kv_dtype", "bfloat16", "--tar_cache_refresh", "2"],
 ])
 def test_cli_serves_flag_sets_as_jax_maps_them(flags):
-    """The served flag sets (int4 rings, int8 on every stack, chunked
-    prefill, a ring window, any batch, the int4 / bfloat16 / fp8 OAR cache,
-    --oar_kernel 7) pass check_args and give the ModelConfig the JAX CLI
-    gives them, field for field (the port's own ModelConfig class, so
-    compared by fields; with --kv_dtype int4 its OAR cache stays int8
-    unless --oar_kv_dtype asks)."""
+    """The served flag sets (the reference CLI's default run, recompute
+    mode, fp8 / int4 rings, ring refresh, --int8 off, int8 on every stack,
+    chunked prefill, a ring window, any batch, the int4 / bfloat16 / fp8 OAR
+    cache, --oar_kernel 7) pass check_args and give the ModelConfig the JAX
+    CLI gives them, field for field (the port's own ModelConfig class, so
+    compared by fields; with --fused_oar or --kv_dtype int4 the OAR cache
+    is int8 unless --oar_kv_dtype asks, without them the rings' type)."""
     import dataclasses
 
     from umgen_tpu.tools import evaluate as jevaluate
-    argv = ["--fused_oar", "--debug"] + flags
+    argv = ["--debug"] + flags
     args = evaluate.build_parser().parse_args(argv)
     evaluate.check_args(args)
     got = evaluate.config_from_args(args)
@@ -317,8 +327,10 @@ def test_cli_serves_flag_sets_as_jax_maps_them(flags):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.oar_cache_dtype == (
         flags[flags.index("--oar_kv_dtype") + 1] if "--oar_kv_dtype" in flags
-        else "int8")
+        else "int8" if "--fused_oar" in flags else "float8_e4m3fn")
     assert got.oar_kernel_version == (7 if "--oar_kernel" in flags else 5)
+    assert got.tar_mode == ("recompute" if "--tar_mode" in flags
+                            else "temporal_cache")
 
 
 def test_cli_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):

@@ -169,11 +169,12 @@ def cross_attention(p: Params, q_in: torch.Tensor, kv_in: torch.Tensor,
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
-def block_tar_collect_kv(p: Params, x: torch.Tensor, n_head: int,
-                         attn_impl: Callable = sdpa):
-    """Full-window factorized block over [B, T, S, D] (spatial → temporal
-    causal → spatial) that also returns the temporal-attention K/V
-    ([B·S, T, H, Dh] each) for the ring prefill."""
+def block_tar(p: Params, x: torch.Tensor, n_head: int,
+              attn_impl: Callable = sdpa, collect_kv: bool = False):
+    """Full-window factorized block over [B, T, S, D]: spatial (non-causal
+    over S) → temporal (causal over T) → spatial, each with its own pre-LN
+    and MLP.  Returns y [B, T, S, D], or with `collect_kv` (y, (k, v)): the
+    temporal attention's K/V ([B·S, T, H, Dh] each) for the ring prefill."""
     B, T, S, D = x.shape
 
     xs = x.reshape(B * T, S, D)
@@ -194,7 +195,19 @@ def block_tar_collect_kv(p: Params, x: torch.Tensor, n_head: int,
     xs = xs + attention(p["sa2"], layer_norm(p["ln5"], xs), n_head,
                         causal=False, attn_impl=attn_impl)
     xs = xs + mlp(p["mlp3"], layer_norm(p["ln6"], xs))
-    return xs.reshape(B, T, S, D), (kh, vh)
+    out = xs.reshape(B, T, S, D)
+    return (out, (kh, vh)) if collect_kv else out
+
+
+def saturate_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x → storage `dtype` (a TAR ring or the OAR cache).  float8_e4m3fn
+    saturates at ±448: PyTorch's conversion saturates on the CPU only (on
+    CUDA it gives NaN, as JAX's does everywhere), so the port clamps first
+    and every device stores the same bytes.  K/V of this model stay far
+    below 448."""
+    if dtype == torch.float8_e4m3fn:
+        x = torch.clamp(x, -448.0, 448.0)
+    return x.to(dtype)
 
 
 def q4_pack(q: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,12 @@
 """The frame step: ego → TAR cascade → OAR token decode (port of
-umgen_tpu/models/rollout.py, the temporal-cache path).
+umgen_tpu/models/rollout.py): `frame_step` in recompute mode, the
+`frame_step_*` of the temporal-cache path.
 
 The JAX package compiles a whole frame into one XLA program; the port runs
 the same schedule eagerly: a Python loop over the frame's positions, each
-step one fused decode-kernel call plus the head, the sampler and the next
-input's embedding, all on the device.  Static per-position facts (the
+step one fused decode-kernel call (or, without the fused kernels, the
+reference's unfused body, `_oar_step_eager`) plus the head, the sampler and
+the next input's embedding, all on the device.  Static per-position facts (the
 modality, the bbox object/attribute, whether a box completes) are Python
 values from the SequenceLayout, so no step waits on the host.
 
@@ -122,8 +124,7 @@ class Rollout:
             return half(), half()
         shape = (cfg.n_oar_layer, B, self.layout.input_len,
                  cfg.n_head * cfg.head_dim)
-        dt = {"int8": torch.int8, "float8_e4m3fn": torch.float8_e4m3fn}.get(
-            cfg.oar_cache_dtype) or torch_dtype(cfg.oar_cache_dtype)
+        dt = torch_dtype(cfg.oar_cache_dtype)
         return (torch.zeros(shape, dtype=dt, device=device),
                 torch.zeros(shape, dtype=dt, device=device))
 
@@ -492,16 +493,53 @@ class Rollout:
                     + prior_seq[:, nxt.start:nxt.start + 1]).to(dt))
         return FrameOutputs(tokens=tokens[:, 1:], pose_tokens=ego_tokens)
 
-    def _control_setup(self, frame_bbox, control_bbox, B):
-        """Agent-control overwrite of a [B, 660] frame + the [B, 61]
-        control mask."""
+    def _control_setup(self, inputs, control_bbox):
+        """Agent-control overwrite of the window's newest frame: inputs
+        {mod: [B, T, len]} → (inputs with the overwritten bbox frame, that
+        frame [B, 660] or None without a bbox stream, the [B, 61] control
+        mask)."""
+        B = inputs["pose"].shape[0]
         control_mask = torch.zeros(B, 61, dtype=torch.bool,
-                                   device=frame_bbox.device)
+                                   device=inputs["pose"].device)
+        if "bbox3d" not in inputs:
+            return inputs, None, control_mask
+        frame_bbox = inputs["bbox3d"][:, -1]
         if control_bbox is not None:
             valid = control_bbox != -1
             frame_bbox = torch.where(valid, control_bbox, frame_bbox)
             control_mask[:, :60] = valid.reshape(B, 60, 11).any(dim=2)
-        return frame_bbox, control_mask
+        inputs = dict(inputs)
+        inputs["bbox3d"] = torch.cat([inputs["bbox3d"][:, :-1],
+                                      frame_bbox[:, None]], dim=1)
+        return inputs, frame_bbox, control_mask
+
+    def frame_step(self, params: Params, inputs: Dict[str, torch.Tensor],
+                   generator, pose_override=None, control_bbox=None,
+                   forced_tokens=None) -> FrameOutputs:
+        """Recompute mode: one frame from the conditioning window {mod: [B,
+        T, len]} (pose not yet shifted).  The ego action comes first (from
+        the raw window, unless `pose_override` [B, 3] forces it), then the
+        pose shift, the agent-control overwrite of the newest frame
+        (`control_bbox` [B, 660], -1 where free), the whole window through
+        every TAR stack, and the OAR decode of its last frame's priors."""
+        model = self.model
+        ego_logits = None
+        if pose_override is None:
+            ego_logits = model.ego_logits(params, inputs)
+            ego_tokens = self._samplers["pose"](generator, ego_logits)
+        else:
+            ego_tokens = pose_override
+        shifted = dict(inputs)
+        shifted["pose"] = torch.cat([inputs["pose"], ego_tokens[:, None]],
+                                    dim=1)[:, 1:]
+        shifted, last_bbox, control_mask = self._control_setup(shifted,
+                                                               control_bbox)
+        pri = model.tar_priors(params, shifted)
+        out = self._finish_frame(params, pri["prior_seq"], ego_tokens,
+                                 last_bbox, control_mask, generator,
+                                 forced_tokens=forced_tokens)
+        return out._replace(ego_logits=ego_logits,
+                            prior_seq=pri["prior_seq"])
 
     def frame_step_prefill(self, params: Params,
                            inputs: Dict[str, torch.Tensor], generator,
@@ -511,19 +549,11 @@ class Rollout:
         (starting at absolute frame 0) into the rings, then decode one
         frame.  Returns (FrameOutputs, cache)."""
         model = self.model
-        B, T = inputs["pose"].shape[:2]
-        if "bbox3d" in inputs:
-            # the control overwrite persists into the rings (the
-            # reference mutates its window in place)
-            last_bbox, control_mask = self._control_setup(
-                inputs["bbox3d"][:, -1], control_bbox, B)
-            inputs = dict(inputs)
-            inputs["bbox3d"] = torch.cat([inputs["bbox3d"][:, :-1],
-                                          last_bbox[:, None]], dim=1)
-        else:
-            last_bbox = None
-            control_mask = torch.zeros(B, 61, dtype=torch.bool,
-                                       device=inputs["pose"].device)
+        T = inputs["pose"].shape[1]
+        # the control overwrite persists into the rings (the reference
+        # mutates its window in place)
+        inputs, last_bbox, control_mask = self._control_setup(inputs,
+                                                              control_bbox)
         ego_logits, cache = model.prefill_ego_cache(params, inputs, {})
         ego_tokens = (self._samplers["pose"](generator, ego_logits)
                       if pose_override is None else pose_override)
@@ -586,17 +616,9 @@ class Rollout:
         frame generated last, pose = motion into it) and decode the next.
         Returns (FrameOutputs, cache); the rings are updated in place."""
         model = self.model
-        B = newest_frame["pose"].shape[0]
         abs_frame = int(cache["frames"])
-        if "bbox3d" in newest_frame:
-            last_bbox, control_mask = self._control_setup(
-                newest_frame["bbox3d"][:, 0], control_bbox, B)
-            newest_frame = dict(newest_frame)
-            newest_frame["bbox3d"] = last_bbox[:, None]
-        else:
-            last_bbox = None
-            control_mask = torch.zeros(B, 61, dtype=torch.bool,
-                                       device=newest_frame["pose"].device)
+        newest_frame, last_bbox, control_mask = self._control_setup(
+            newest_frame, control_bbox)
         ego_logits, cache = model.ego_logits_cached(params, newest_frame,
                                                     cache, abs_frame)
         ego_tokens = (self._samplers["pose"](generator, ego_logits)

@@ -1,16 +1,23 @@
-"""The UMGen-class world model, cached path (port of umgen_tpu/models/umgen.py).
+"""The UMGen-class world model (port of umgen_tpu/models/umgen.py).
 
-Embeddings, the TAR cascade (trunk, map and box stacks) and the ego network
-against per-layer temporal KV rings: `prefill_ego_cache` /
-`prefill_tar_caches` ingest the conditioning window and create the rings,
-`ego_logits_cached` / `tar_priors_cached` push one new frame through every
-stack against them.  Rings are bf16 [L, B·S, T_max, H, Dh] pairs, or int4
-(`tar_cache_dtype="int4"`): nibble-packed int8 [L, B·S, T_max, H, Dh/2]
-pairs plus float32 [L, B, T_max, H] dequantization scales, one per (layer,
-scene, frame, head).  A new frame's K/V is written into its ring slot in
-place, layer by layer (the JAX package scatters all layers at once after
-its layer scan — the slot being written is masked out of the frame's own
-temporal attention, so the two orders agree).
+Embeddings, the TAR cascade (trunk, map and box stacks) and the ego network,
+in the reference's two modes:
+
+  * recompute (`tar_mode="recompute"`, the reference's own semantics):
+    `ego_logits` / `tar_priors` run the whole conditioning window through
+    every stack each frame and read its last frame;
+  * temporal cache: against per-layer temporal KV rings.
+    `prefill_ego_cache` / `prefill_tar_caches` ingest the window (the same
+    full-window pass) and create the rings, `ego_logits_cached` /
+    `tar_priors_cached` push one new frame through every stack against
+    them.  Rings are bf16, float8_e4m3fn or float32 [L, B·S, T_max, H,
+    Dh] pairs (fp8 written through `modules.saturate_cast`), or int4
+    (`tar_cache_dtype="int4"`): nibble-packed int8 [L, B·S, T_max, H,
+    Dh/2] pairs plus float32 [L, B, T_max, H] dequantization scales, one
+    per (layer, scene, frame, head).  A new frame's K/V is written into its
+    ring slot in place, layer by layer (the JAX package scatters all layers
+    at once after its layer scan — the slot being written is masked out of
+    the frame's own temporal attention, so the two orders agree).
 """
 
 from __future__ import annotations
@@ -28,6 +35,9 @@ from umgen_tpu_torch.ops.warp import affine_warp_map
 from umgen_tpu_torch.params import torch_dtype
 
 Params = Dict[str, Any]
+
+
+RING_DTYPES = ("float8_e4m3fn", "bfloat16", "float32", "int4")
 
 
 class NotPortedError(NotImplementedError):
@@ -90,13 +100,12 @@ def build_buffers(config: ModelConfig,
 
 def check_served(cfg: ModelConfig) -> None:
     """Raise NotPortedError for configuration values outside the port."""
-    if cfg.tar_mode != "temporal_cache":
-        raise NotPortedError("tar_mode=recompute is not ported yet "
-                             "(ROADMAP.md: 'Recompute mode')")
-    if cfg.tar_cache_dtype not in ("bfloat16", "int4"):
+    if cfg.tar_mode not in ("temporal_cache", "recompute"):
+        raise ValueError(f"unknown tar_mode {cfg.tar_mode!r}")
+    if cfg.tar_cache_dtype not in RING_DTYPES:
         raise NotPortedError(
             f"TAR ring dtype {cfg.tar_cache_dtype!r} is not ported yet; the "
-            "port serves bfloat16 and int4 rings (ROADMAP.md: 'fp8 / int2 "
+            f"port serves {', '.join(RING_DTYPES)} rings (ROADMAP.md: 'int2 "
             "TAR rings')")
     if cfg.temporal_pe_mode != "absolute":
         raise NotPortedError("temporal_pe_mode=relative is not ported yet "
@@ -104,9 +113,6 @@ def check_served(cfg: ModelConfig) -> None:
     if cfg.speculative_k > 0:
         raise NotPortedError("speculative decoding is not ported yet "
                              "(ROADMAP.md: 'Speculative decoding')")
-    if cfg.tar_cache_refresh > 0:
-        raise NotPortedError("ring refresh is not ported yet (ROADMAP.md: "
-                             "'Ring refresh')")
     if cfg.n_step != 1 or cfg.bias:
         raise NotPortedError("the port serves the published heads "
                              "(n_step=1, bias=False)")
@@ -247,8 +253,8 @@ class UMGen:
         return self.config.tar_cache_dtype == "int4"
 
     def _ring_zeros(self, L: int, N: int, B: int, device) -> tuple:
-        """Empty rings of one stack: (k, v) bf16, or int4 (k, v, scale_k,
-        scale_v)."""
+        """Empty rings of one stack: (k, v) of the ring type, or int4 (k, v,
+        scale_k, scale_v)."""
         cfg = self.config
         if self.ring_q4 and cfg.head_dim % 2:
             raise ValueError(f"tar_cache_dtype='int4' packs two head dims "
@@ -295,35 +301,50 @@ class UMGen:
         packed, s = UMGen._ring_q4_quantize(x[None], B)
         return packed[0], s[0]
 
-    def _run_tar_stack_prefill(self, params, stack_name, ln_name, emb,
-                               T_max):
-        """Full-window pass that also creates the stack's rings: emb [B, T,
-        S, D] → (ln(out) [B, T, S, D], rings [L, B·S, T_max, ...]).  With
-        T > T_max only the last T_max frames are kept, each at its absolute
+    @staticmethod
+    def _ring_store(ring: torch.Tensor, slots, a: torch.Tensor) -> None:
+        """ring[:, slots] = a in the ring's storage type; fp8 saturates
+        (`saturate_cast`) and is written as its bytes."""
+        a = nn.saturate_cast(a, ring.dtype)
+        if a.dtype == torch.float8_e4m3fn:
+            ring, a = ring.view(torch.uint8), a.view(torch.uint8)
+        ring[:, slots] = a
+
+    def _run_tar_stack(self, params, stack_name, ln_name, emb,
+                       rings: bool = False):
+        """Full-window pass: emb [B, T, S, D] → (ln(out) [B, T, S, D], the
+        stack's rings [L, B·S, T_max, ...] with `rings`, else None).  With T
+        > T_max only the last T_max frames are kept, each at its absolute
         ring slot.  int4 rings quantize each window frame per (scene,
         head)."""
         cfg = self.config
         B, T, S, _ = emb.shape
-        keep = min(T, T_max)
-        slots = torch.as_tensor(np.arange(T - keep, T) % T_max,
-                                device=emb.device)
         stack = params[stack_name]
         L = nn.n_layers(stack)
-        rings = self._ring_zeros(L, B * S, B, emb.device)
+        kv_rings = None
+        if rings:
+            keep = min(T, self.t_max)
+            slots = torch.as_tensor(np.arange(T - keep, T) % self.t_max,
+                                    device=emb.device)
+            kv_rings = self._ring_zeros(L, B * S, B, emb.device)
         h = emb
         for l in range(L):
-            h, kv = nn.block_tar_collect_kv(nn.layer(stack, l), h,
-                                            cfg.n_head, attn_impl=self.attn)
+            out = nn.block_tar(nn.layer(stack, l), h, cfg.n_head,
+                               attn_impl=self.attn, collect_kv=rings)
+            if not rings:
+                h = out
+                continue
+            h, kv = out
             for i, a in enumerate(kv):                 # [B·S, T, H, Dh]
                 if self.ring_q4:
                     # each kept frame quantized as one new frame would be
                     packed, sc = self._ring_q4_quantize(
                         a[:, -keep:].transpose(0, 1), B)
-                    rings[i][l][:, slots] = packed.transpose(0, 1)
-                    rings[2 + i][l][:, slots] = sc.transpose(0, 1)
+                    kv_rings[i][l][:, slots] = packed.transpose(0, 1)
+                    kv_rings[2 + i][l][:, slots] = sc.transpose(0, 1)
                 else:
-                    rings[i][l][:, slots] = a[:, -keep:].to(rings[i].dtype)
-        return nn.layer_norm(params[ln_name], h), rings
+                    self._ring_store(kv_rings[i][l], slots, a[:, -keep:])
+        return nn.layer_norm(params[ln_name], h), kv_rings
 
     def _run_tar_stack_cached(self, params, stack_name, ln_name, x, kv,
                               slot: int, n_valid: int):
@@ -344,7 +365,7 @@ class UMGen:
                     kv[i][l][:, slot], kv[2 + i][l][:, slot] = \
                         self._ring_q4_quantize_layer(new, B)
                 else:
-                    kv[i][l][:, slot] = new.to(kv[i].dtype)
+                    self._ring_store(kv[i][l], slot, new)
         return nn.layer_norm(params[ln_name], h), kv
 
     def _priors(self, params, frame_emb, run_stack):
@@ -379,18 +400,32 @@ class UMGen:
                 [m[:, :1], m[:, 1:-1] + warped_prior, m[:, -1:]], dim=1)
         return torch.cat([tar_emb[s.mod] for s in lo.segments], dim=1)
 
-    def prefill_ego_cache(self, params, inputs, cache):
-        """Ingest the raw window {mod: [B, T, len]} into the ego rings →
-        (last-frame ego logits [B, 3, 1024], cache)."""
+    def _ego_window(self, params, inputs, rings: bool):
+        """The raw window {mod: [B, T, len]} through the ego stack (no map
+        warp, no grid PE: the reference's ego net sees the raw window) →
+        (last-frame ego logits [B, 3, 1024], the ego rings or None)."""
         emb, _ = self._tar_input(params, inputs, self.layout.mod_order,
                                  map_grid_pe=False, pose_diff=None,
                                  warp=False, t_offset=0)
-        cache = dict(cache)
-        out, cache["ego_tar"] = self._run_tar_stack_prefill(
-            params, "ego_tar", "ln_ego_tar", emb, self.t_max)
+        out, kv = self._run_tar_stack(params, "ego_tar", "ln_ego_tar", emb,
+                                      rings=rings)
         B, T = out.shape[:2]
         q = self._ego_queries(params, out[:, -1], B, 1, t_offset=T - 1)
-        return nn.linear(params["head_ego"], q[:, 0]), cache
+        return nn.linear(params["head_ego"], q[:, 0]), kv
+
+    def ego_logits(self, params, inputs):
+        """Recompute mode: the window's last-frame ego logits [B, 3, 1024]
+        (the reference's forward_ego_net + head; the queries of the
+        earlier frames, which it also computes, are never read)."""
+        return self._ego_window(params, inputs, rings=False)[0]
+
+    def prefill_ego_cache(self, params, inputs, cache):
+        """Ingest the raw window {mod: [B, T, len]} into the ego rings →
+        (last-frame ego logits [B, 3, 1024], cache)."""
+        cache = dict(cache)
+        logits, cache["ego_tar"] = self._ego_window(params, inputs,
+                                                    rings=True)
+        return logits, cache
 
     def ego_logits_cached(self, params, frame_inputs, cache, abs_frame: int):
         """One new raw frame {mod: [B, 1, len]} (pose = motion into it)
@@ -408,12 +443,13 @@ class UMGen:
                               t_offset=abs_frame)
         return nn.linear(params["head_ego"], q[:, 0]), cache
 
-    def prefill_tar_caches(self, params, shifted_inputs, cache):
-        """Ingest the shifted window into the trunk/map/box rings →
+    def _window_priors(self, params, shifted_inputs, cache=None):
+        """The shifted window through the trunk / map / box stacks →
         {"prior_seq" [B, 2207, D], "pose_diff", "cache"} for its last
-        frame."""
+        frame; with `cache` (a dict) the stacks' rings are created in it."""
         pose_diff = self.decode_pose(params, shifted_inputs["pose"])
-        cache = dict(cache)
+        rings = cache is not None
+        cache = dict(cache) if rings else None
 
         def frame_emb(mods, grid_pe):
             emb, warped = self._tar_input(params, shifted_inputs, mods,
@@ -422,12 +458,27 @@ class UMGen:
             return emb, (warped[:, -1] if warped is not None else None)
 
         def run_stack(name, ln, emb):
-            out, cache[name] = self._run_tar_stack_prefill(
-                params, name, ln, emb, self.t_max)
+            out, kv = self._run_tar_stack(params, name, ln, emb, rings=rings)
+            if rings:
+                cache[name] = kv
             return out[:, -1]
 
         prior = self._priors(params, frame_emb, run_stack)
         return {"prior_seq": prior, "pose_diff": pose_diff, "cache": cache}
+
+    def tar_priors(self, params, shifted_inputs):
+        """Recompute mode: the whole shifted window {mod: [B, T, len]} (the
+        pose slot of frame t holding the action out of it, the last one the
+        action being generated) through every TAR stack → {"prior_seq" [B,
+        2207, D], "pose_diff" [B, T, 3]} of its last frame."""
+        out = self._window_priors(params, shifted_inputs)
+        return {"prior_seq": out["prior_seq"], "pose_diff": out["pose_diff"]}
+
+    def prefill_tar_caches(self, params, shifted_inputs, cache):
+        """Ingest the shifted window into the trunk/map/box rings →
+        {"prior_seq" [B, 2207, D], "pose_diff", "cache"} for its last
+        frame."""
+        return self._window_priors(params, shifted_inputs, cache)
 
     def tar_priors_cached(self, params, frame_inputs, cache, abs_frame: int):
         """One-frame TAR cascade against the rings.  frame_inputs {mod:

@@ -77,6 +77,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from umgen_tpu_torch.models.modules import saturate_cast
 from umgen_tpu_torch.ops import _cuda
 from umgen_tpu_torch.runtime.quantize import (W4_GROUP, pack_decode_weights,
                                               vec_offsets)
@@ -120,18 +121,16 @@ def pick_block_s(S: int, block_s: int = 0, prefer=V5_BLOCKS) -> int:
 
 def kv_store(x: torch.Tensor, dtype: torch.dtype = torch.int8
              ) -> torch.Tensor:
-    """K/V activations → cache rows of `dtype`, through their bf16
-    rounding: int8 on the 1/16 grid (×16, round, clip); bf16 as it is;
-    float8_e4m3fn by a second rounding that saturates at ±448, clamped
-    here because PyTorch's own conversion saturates on the CPU only (JAX's
-    overflows to NaN; K/V of this model stay far below)."""
-    xb = x.to(torch.bfloat16)
+    """K/V activations → cache rows of `dtype`, as the reference's
+    `_kv_store` writes them: int8 on the 1/16 grid (×16, round, clip);
+    any other type by a rounding of x, float8_e4m3fn saturating at ±448
+    (`saturate_cast`, the TAR rings' rule too; JAX's overflows to NaN).
+    The kernels round the new rows to bf16 first: their plain versions pass
+    them so."""
     if dtype == torch.int8:
-        return torch.clamp(torch.round(xb.float() * KV_INT8_SCALE),
+        return torch.clamp(torch.round(x.float() * KV_INT8_SCALE),
                            -127, 127).to(torch.int8)
-    if dtype == torch.float8_e4m3fn:
-        xb = torch.clamp(xb, -448.0, 448.0)
-    return xb.to(dtype)
+    return saturate_cast(x, dtype)
 
 
 def kv_load(c: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -420,14 +419,11 @@ def decode_step_plain(packed: Params, x: torch.Tensor, kv_k: torch.Tensor,
                     new.to(torch.bfloat16).reshape(B, Q, HD), H)
                 cache[l, :, cl:cl + Q] = rows
                 plane[l, :, cl:cl + Q] = sc
-        elif rows_f32:
-            for new, cache in ((k_new, kv_k), (v_new, kv_v)):
-                cache[l, :, cl:cl + Q] = torch.clamp(
-                    torch.round(new * KV_INT8_SCALE), -127, 127
-                ).to(torch.int8).reshape(B, Q, HD)
         else:
-            kv_k[l, :, cl:cl + Q] = kv_store(k_new).reshape(B, Q, HD)
-            kv_v[l, :, cl:cl + Q] = kv_store(v_new).reshape(B, Q, HD)
+            # v6 puts the rows on the grid from float32, the rest from bf16
+            for new, cache in ((k_new, kv_k), (v_new, kv_v)):
+                rows = new if rows_f32 else new.to(torch.bfloat16)
+                cache[l, :, cl:cl + Q] = kv_store(rows).reshape(B, Q, HD)
     return h.to(torch.bfloat16).reshape(B, Q, d)
 
 
@@ -511,8 +507,8 @@ def decode_step_dense_plain(packed: Params, x: torch.Tensor,
         h = _bf16_add(h, mm_proj(y))
         hid = _gelu_as(mm_fc(_ln(h, v_("ln2"))))
         h = _bf16_add(h, mm_pj(hid))
-        kv_k[l, :, cl] = kv_store(k_new, kv_k.dtype)
-        kv_v[l, :, cl] = kv_store(v_new, kv_v.dtype)
+        kv_k[l, :, cl] = kv_store(k_new.to(bf), kv_k.dtype)
+        kv_v[l, :, cl] = kv_store(v_new.to(bf), kv_v.dtype)
     return h.to(bf).reshape(B, 1, d)
 
 

@@ -23,7 +23,8 @@ from umgen_tpu_torch.layout import SequenceLayout
 Params = Dict[str, Any]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-           "float16": torch.float16}
+           "float16": torch.float16, "float8_e4m3fn": torch.float8_e4m3fn,
+           "int8": torch.int8}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -36,6 +37,9 @@ def to_tensor(a, device=None) -> torch.Tensor:
     arr = np.asarray(a)
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    elif arr.dtype.name == "float8_e4m3fn":      # the bytes, as they are
+        t = torch.from_numpy(arr.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(np.array(arr))
     return t.to(device) if device is not None else t

@@ -1,23 +1,30 @@
 """CLI entry point of the port — the JAX CLI's flag names
-(umgen_tpu/tools/evaluate.py), serving the cached video rollout:
+(umgen_tpu/tools/evaluate.py), serving the video rollout.  Its default run
+is the JAX CLI's:
 
-    python -m umgen_tpu_torch.tools.evaluate --infer_task video \\
-        --model_scale larger --fused_oar --kv_dtype bfloat16 --int8 decode \\
-        --debug --synthetic_data 1 --max_scenes 1 --set_num_new_frames 2
+    python -m umgen_tpu_torch.tools.evaluate --debug --synthetic_data 1 \\
+        --max_scenes 1 --set_num_new_frames 2
 
-Served values: `--kv_dtype bfloat16|int4` (TAR rings; the OAR cache stays
-int8 unless asked otherwise), `--oar_kv_dtype int8|int4|bfloat16|
+— UMGen_Large, fp8 TAR rings, an fp8 OAR cache decoded by the reference's
+unfused body (no `--fused_oar`), int8 decode weights.  Served values:
+`--tar_mode temporal_cache|recompute` (recompute: the whole window through
+every TAR stack each frame), `--kv_dtype float8_e4m3fn|bfloat16|int4` (TAR
+rings; without `--fused_oar` the OAR cache takes the same type unless it is
+int4, with it int8 unless asked otherwise), `--tar_cache_refresh N`,
+`--fused_oar` (the decode kernels), `--oar_kv_dtype int8|int4|bfloat16|
 float8_e4m3fn` (int4: the nibble-packed OAR cache with per-(row, head)
 scales, decoded by the v5i4 / v5mqi4 kernels; bfloat16 / float8_e4m3fn: the
 dense cache, its single-token steps decoded by v2 and its multi-row pushes
 by the eager body), `--oar_kernel 5|7` (7: the per-(scene, head) query scale
-of v7 while batch · heads <= 128), `--int8 decode|all`, `--chunked_prefill`,
-`--tar_cache_window N`, any `--batch_size`.  Like the JAX CLI it packs int8
-OAR weights for the cache type (`pack_fused(params, kv_dtype)`); W4A8
+of v7 while batch · heads <= 128), `--int8 off|decode|all`,
+`--chunked_prefill`, `--tar_cache_window N`, any `--batch_size`.  Like the
+JAX CLI it quantizes unless `--int8 off` and packs the int8 OAR weights for
+the cache type under `--fused_oar` (`pack_fused(params, kv_dtype)`); W4A8
 weights are reached as the JAX bench reaches them, through
-`serving_params` and the same Generator (chip_smoke.py phases e and g).  Weights
-are seeded random (`--debug`, or a missing checkpoint); scenes come from
-the dataset or, with `--synthetic_data N`, from the synthetic generator.
+`serving_params` and the same Generator (chip_smoke.py phases e and g).
+Weights are seeded random (`--debug`, or a missing checkpoint); scenes come
+from the dataset or, with `--synthetic_data N`, from the synthetic
+generator.
 Every flag value outside what the port serves raises NotPortedError naming
 the ROADMAP.md item that adds it; none is silently ignored.
 """
@@ -29,7 +36,7 @@ import os
 import sys
 from typing import Optional
 
-from umgen_tpu_torch.models.umgen import NotPortedError
+from umgen_tpu_torch.models.umgen import RING_DTYPES, NotPortedError
 
 NOT_PORTED_OUTPUTS = ("videos, MMD and the collision-rate metric are not "
                       "ported yet (ROADMAP.md: 'VQ detokenizers, videos and "
@@ -110,21 +117,15 @@ def check_args(args) -> None:
 
     no(args.infer_task != "video", f"--infer_task {args.infer_task}",
        "Control mode")
-    no(args.tar_mode == "recompute", "--tar_mode recompute",
-       "Recompute mode")
-    no(args.kv_dtype not in ("bfloat16", "int4"),
-       f"--kv_dtype {args.kv_dtype}", "fp8 / int2 TAR rings")
+    no(args.kv_dtype not in RING_DTYPES, f"--kv_dtype {args.kv_dtype}",
+       "int2 TAR rings")
     no(args.speculative_k > 0 or args.no_spec_bbox,
        "speculative decoding", "Speculative decoding")
     no(args.dp > 1 or args.launcher is not None, "multi-GPU serving",
        "Multi-GPU and runtime")
     no(args.tar_w4, "--tar_w4", "W4 TAR weights")
-    no(args.tar_cache_refresh > 0, "--tar_cache_refresh", "Ring refresh")
     no(args.temporal_pe != "absolute", "--temporal_pe relative",
        "Relative temporal PE")
-    no(not args.fused_oar, "the unfused OAR decode (omit --fused_oar)",
-       "Unfused OAR decode")
-    no(args.int8 == "off", "--int8 off", "bf16 OAR weights")
     if args.oar_kv_dtype not in (None,) + OAR_KV_DTYPES:
         raise NotPortedError(
             f"--oar_kv_dtype {args.oar_kv_dtype}: served are "
@@ -174,10 +175,11 @@ def config_from_args(args):
 
 
 def build_params(args, cfg, device, pipeline):
-    """Seeded random params on `device`: int8 over `DECODE_KEYS`
-    (`--int8 decode`) or `ALL_STACK_KEYS` (`--int8 all`), then the decode
-    kernels' packing for the OAR cache's type, as the JAX CLI builds them
-    (umgen_tpu/tools/evaluate.py:237-239)."""
+    """Seeded random params on `device`, as the JAX CLI builds them
+    (umgen_tpu/tools/evaluate.py:231-239): unless `--int8 off`, int8 over
+    `DECODE_KEYS` (`--int8 decode`) or `ALL_STACK_KEYS` (`--int8 all`),
+    then under `--fused_oar` the decode kernels' packing for the OAR
+    cache's type."""
     import torch
 
     from umgen_tpu_torch.models.umgen import build_buffers
@@ -189,9 +191,13 @@ def build_params(args, cfg, device, pipeline):
     g.manual_seed(args.seed)
     params = init_params(cfg, g, device,
                          buffers=build_buffers(cfg, pipeline, device=device))
-    keys = ALL_STACK_KEYS if args.int8 == "all" else DECODE_KEYS
-    return pack_fused(quantize_params_int8(params, keys),
-                      kv_dtype=cfg.oar_cache_dtype)
+    if args.int8 == "off":
+        return params
+    params = quantize_params_int8(
+        params, ALL_STACK_KEYS if args.int8 == "all" else DECODE_KEYS)
+    if cfg.fused_oar_kernel:
+        params = pack_fused(params, kv_dtype=cfg.oar_cache_dtype)
+    return params
 
 
 def serving_params(cfg, generator, device, buffers=None):
