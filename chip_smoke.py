@@ -76,7 +76,9 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
   (n) slice-bf16kv at debug scale on the card and on the CPU, as (d);
   (o) the reference CLI's default run through the CLI's code path with no
       flag but `--debug --synthetic_data 1 --max_scenes 1
-      --set_num_new_frames 1`: UMGen_Large, B = 1, 20-frame fp8 TAR rings,
+      --set_num_new_frames 1` and the 24-layer depth (`--model_scale
+      stander`, to keep the script inside its time): full width, B = 1,
+      20-frame fp8 TAR rings,
       an fp8 OAR cache decoded by the reference's unfused body for all 2202
       positions, int8 decode weights, top-k.  Flash must launch and no
       decode kernel; prints the frame's time, the eager step's wall ms over
@@ -95,6 +97,24 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
       record;
   (r) recompute, and the default unfused run, at debug scale (one layer a
       stack, full width), B = 1, on the card and on the CPU, as (d).
+  (s) the control task (`--infer_task control --fused_oar --kv_dtype
+      bfloat16 --int8 decode --sample_method greedy`) at UMGen_Large width
+      and depth through the CLI's code path, cut to 2 generated frames (the
+      task's 30 are fixed by InferConfig, as the reference's), B = 1, one
+      synthetic control pkl (13 conditioning frames, the ego trajectory, one
+      controlled agent, a 2-frame GT continuation) under the working
+      directory's data/controlled_scenes, on a checkpoint: seeded weights
+      exported in the reference's format and read back by `--ckpt_dir`.
+      The pose tokens must be the trajectory, flash, v5 and v5mq must
+      launch and no other decode kernel, the collision rate and MMD must be
+      finite, and `SceneRunner.run_scene` on the weights in memory must give
+      the same tokens; prints the save and load seconds, each frame's OAR
+      seconds and the rest, the peak memory and the launches;
+  (t) `Generator.generate` at debug scale, B = 1, 2 frames after a 2-frame
+      window with map and image forced, on the card and on the CPU, as (d):
+      agent control (trajectory and three agents' boxes under
+      `control_test`) in cached and in recompute mode, and the video task's
+      `--init_token_mod map,image` replay.
 
 Prints each phase's results, the card's name and power limit, a JSON line
 describing the kernels, and as its last line
@@ -914,29 +934,55 @@ def phase_variants(dev, cfg, packs, visible):
     return rows, profiles
 
 
-def _first_frame(ro, params, inputs, device, step):
-    """The frame step the card-against-CPU phases drive, on either side:
-    "prefill", "chunked" or "recompute"."""
+def _drive(model, params, cond, device, step, sampler, gen_kw=None):
+    """The path the card-against-CPU phases drive, on either side, with
+    `sampler` in every sampler slot: one frame step ("prefill", "chunked"
+    or "recompute"), or ("generate") `Generator.generate(cond, **gen_kw)`.
+    Returns its tokens, ego logits and TAR priors on the CPU (a rollout's
+    priors stacked frame by frame, its ego logits None)."""
+    import numpy as np
     import torch
+    from umgen_tpu_torch.models.generate import Generator
+    from umgen_tpu_torch.models.rollout import Rollout
+    if step == "generate":
+        gen = Generator(model, params, device=device)
+        ro = gen.rollout
+        ro._samplers = {m: sampler for m in ro._samplers}
+        priors, finish = [], ro._finish_frame
+
+        def kept(params, prior_seq, *a, **k):
+            priors.append(prior_seq.cpu())
+            return finish(params, prior_seq, *a, **k)
+
+        ro._finish_frame = kept
+        out = gen.generate(cond, **gen_kw)
+        return {"tokens": torch.as_tensor(np.concatenate(
+                    [out[m] for m in model.layout.mod_order], axis=-1)),
+                "ego_logits": None, "prior_seq": torch.stack(priors)}
+    ro = Rollout(model)
+    ro._samplers = {m: sampler for m in ro._samplers}
+    inputs = {m: torch.as_tensor(v, dtype=torch.long, device=device)
+              for m, v in cond.items()}
     g = torch.Generator(device)
     if step == "recompute":
-        return ro.frame_step(params, inputs, g)
-    fn = ro.frame_step_chunked if step == "chunked" else \
-        ro.frame_step_prefill
-    return fn(params, inputs, g)[0]
+        out = ro.frame_step(params, inputs, g)
+    else:
+        fn = ro.frame_step_chunked if step == "chunked" else \
+            ro.frame_step_prefill
+        out = fn(params, inputs, g)[0]
+    return {k: getattr(out, k).cpu()
+            for k in ("tokens", "ego_logits", "prior_seq")}
 
 
 def _cpu_replay(job_path):
     """Entry of the child process of `_CardVsCpu`: replay the card's
     decisions through the plain versions on the CPU and save what it saw
-    beside the job.  Two intra-op threads: four such children and the
-    parent, which goes on driving the card, share the host's cores."""
+    beside the job.  Two intra-op threads: the children and the parent,
+    which goes on driving the card, share the host's cores."""
     import torch
-    from umgen_tpu_torch.models.rollout import Rollout
     from umgen_tpu_torch.models.umgen import UMGen
     torch.set_num_threads(2)
     job = torch.load(job_path, weights_only=False)
-    ro = Rollout(UMGen(job["cfg"]))
     replay = iter(job["tokens"])
     seen = []
 
@@ -944,32 +990,28 @@ def _cpu_replay(job_path):
         seen.append(logits.clone())
         return next(replay)
 
-    ro._samplers = {m: sampler for m in ro._samplers}
-    inputs = {m: torch.as_tensor(v, dtype=torch.long)
-              for m, v in job["cond"].items()}
     t0 = time.perf_counter()
-    out = _first_frame(ro, job["params"], inputs, "cpu", job["step"])
-    torch.save({"tokens": out.tokens, "ego_logits": out.ego_logits,
-                "prior_seq": out.prior_seq, "logits": seen,
-                "seconds": time.perf_counter() - t0}, job_path + ".out")
+    out = _drive(UMGen(job["cfg"]), job["params"], job["cond"], "cpu",
+                 job["step"], sampler, job["gen_kw"])
+    torch.save(dict(out, logits=seen, seconds=time.perf_counter() - t0),
+               job_path + ".out")
 
 
 class _CardVsCpu:
-    """One card-against-CPU check.  Creating it runs the frame step
-    (`_first_frame`) on `dev` and starts a child process that runs it on
-    the CPU (the plain versions) from the same weights, replaying the
-    card's sampler decisions, so that both decode one token stream; the
-    card goes on with the next phases meanwhile.  `finish()` waits for the
-    child and compares: the tokens must be equal, and the ego logits, TAR
-    priors and every decision's logits must agree within the bounds."""
+    """One card-against-CPU check.  Creating it runs the path (`_drive`)
+    on `dev` and starts a child process that runs it on the CPU (the plain
+    versions) from the same weights, replaying the card's sampler
+    decisions, so that both decode one token stream; the card goes on with
+    the next phases meanwhile.  `finish()` waits for the child and
+    compares: the tokens must be equal, and the ego logits, TAR priors and
+    every decision's logits must agree within the bounds."""
 
     def __init__(self, dev, cfg, params, step, B, T, tag, rtol_priors,
-                 rtol_logits, work_dir):
+                 rtol_logits, work_dir, cond=None, gen_kw=None):
         import multiprocessing
 
         import torch
         from umgen_tpu_torch.data.synthetic import make_token_batch
-        from umgen_tpu_torch.models.rollout import Rollout
         from umgen_tpu_torch.models.sampling import greedy_sample
         from umgen_tpu_torch.models.umgen import UMGen
         self.cfg, self.B, self.tag, self.dev = cfg, B, tag, dev
@@ -981,7 +1023,9 @@ class _CardVsCpu:
             return ({k: to_cpu(v) for k, v in t.items()}
                     if isinstance(t, dict) else t.cpu())
 
-        cond = make_token_batch(model.layout, T=T, B=B, seed=0, config=cfg)
+        if cond is None:
+            cond = make_token_batch(model.layout, T=T, B=B, seed=0,
+                                    config=cfg)
         self.logits, tokens = [], []
 
         def sampler(gen, logits):
@@ -990,18 +1034,13 @@ class _CardVsCpu:
             tokens.append(tok.cpu())
             return tok
 
-        ro = Rollout(model)
-        ro._samplers = {m: sampler for m in ro._samplers}
-        inputs = {m: torch.as_tensor(v, dtype=torch.long, device=dev)
-                  for m, v in cond.items()}
         t0 = time.perf_counter()
-        out = _first_frame(ro, params, inputs, dev, step)
-        self.run = {k: getattr(out, k).cpu() for k in
-                    ("tokens", "ego_logits", "prior_seq")}
+        self.run = _drive(model, params, cond, dev, step, sampler, gen_kw)
         self.device_s = time.perf_counter() - t0
         self.job = os.path.join(work_dir, f"replay_{tag}.pt")
         torch.save({"cfg": cfg, "params": to_cpu(params), "cond": cond,
-                    "tokens": tokens, "step": step}, self.job)
+                    "tokens": tokens, "step": step, "gen_kw": gen_kw},
+                   self.job)
         self.child = multiprocessing.get_context("spawn").Process(
             target=_cpu_replay, args=(self.job,))
         self.child.start()
@@ -1022,6 +1061,8 @@ class _CardVsCpu:
         def rel(a, b):
             # over the finite entries (the control override masks <pad>
             # with -inf); the -inf entries must coincide
+            if a is None and b is None:      # a rollout's ego logits
+                return 0.0
             a, b = a.float(), b.float()
             fin = torch.isfinite(b)
             if not torch.equal(fin, torch.isfinite(a)):
@@ -1057,6 +1098,31 @@ class _CardVsCpu:
         return res
 
 
+def _reference_params(dev, cfg, seed):
+    """Seeded debug-scale weights for a card-against-CPU phase: int8 decode
+    weights, packed for the decode kernels under `fused_oar_kernel`."""
+    import torch
+    from umgen_tpu_torch.params import init_params
+    from umgen_tpu_torch.runtime.quantize import (pack_fused,
+                                                  quantize_params_int8)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    params = quantize_params_int8(init_params(cfg, g, dev))
+    if cfg.fused_oar_kernel:
+        params = pack_fused(params, kv_dtype=cfg.oar_cache_dtype)
+    return params
+
+
+def _slice_cfg(**changes):
+    """The bf16-ring slice at debug scale (one layer a stack, full width),
+    greedy, with the config `changes`."""
+    from umgen_tpu_torch.config import ModelConfig
+    return ModelConfig(sample_method="greedy", tar_mode="temporal_cache",
+                       tar_cache_dtype="bfloat16", oar_cache_dtype="int8",
+                       fused_oar_kernel=True, tar_cache_window=20
+                       ).replace(**changes).scaled("debug")
+
+
 def phase_reference(dev, work_dir, tag="d", step="prefill", **changes):
     """One frame of the bf16-ring slice, B = 1, a 2-frame window, greedy,
     every stack one layer deep at full width, card against CPU, with the
@@ -1065,23 +1131,45 @@ def phase_reference(dev, work_dir, tag="d", step="prefill", **changes):
     "recompute"), or the reference CLI's default run (phase r: fp8 rings,
     the unfused decode on an fp8 OAR cache, unpacked int8 weights).
     Returns the started _CardVsCpu."""
-    import torch
-    from umgen_tpu_torch.config import ModelConfig
-    from umgen_tpu_torch.params import init_params
-    from umgen_tpu_torch.runtime.quantize import (pack_fused,
-                                                  quantize_params_int8)
-    cfg = ModelConfig(sample_method="greedy", tar_mode="temporal_cache",
-                      tar_cache_dtype="bfloat16", oar_cache_dtype="int8",
-                      fused_oar_kernel=True, tar_cache_window=20
-                      ).replace(**changes).scaled("debug")
-    g = torch.Generator(device=dev)
-    g.manual_seed(3)
-    params = quantize_params_int8(init_params(cfg, g, dev))
-    if cfg.fused_oar_kernel:
-        params = pack_fused(params, kv_dtype=cfg.oar_cache_dtype)
-    return _CardVsCpu(dev, cfg, params, step, B=1, T=2, tag=tag,
-                      rtol_priors=REF_RTOL_PRIORS,
+    cfg = _slice_cfg(**changes)
+    return _CardVsCpu(dev, cfg, _reference_params(dev, cfg, 3), step, B=1,
+                      T=2, tag=tag, rtol_priors=REF_RTOL_PRIORS,
                       rtol_logits=REF_RTOL_LOGITS, work_dir=work_dir)
+
+
+# phase t's rollouts: a 2-frame window, 2 generated frames, map and image
+# forced to a seeded continuation (the decode is the frames' 660 box
+# positions, which keeps the CPU sides short)
+CONTROL_CASES = {
+    "t-control-cached": dict(tar_cache_window=2),
+    "t-control-recompute": dict(tar_mode="recompute"),
+    "t-init-token-mod": dict(tar_cache_window=2),
+}
+
+
+def phase_control_reference(dev, work_dir, tag):
+    """(t) `Generator.generate` at debug scale, B = 1, card against CPU:
+    agent control (the pkl's ego trajectory and two agents' boxes under
+    `control_test`) in cached and in recompute mode, and the video task's
+    `--init_token_mod map,image` replay.  Returns the started
+    _CardVsCpu."""
+    from umgen_tpu_torch.data.synthetic import make_token_batch
+    from umgen_tpu_torch.models.umgen import UMGen
+    cfg = _slice_cfg(**CONTROL_CASES[tag])
+    layout = UMGen(cfg).layout
+    cond = make_token_batch(layout, T=2, B=1, seed=0, config=cfg)
+    nxt = make_token_batch(layout, T=2, B=1, seed=1, config=cfg)
+    kw = dict(new_frames=2, cond_frames=2, input_cond_frames=2,
+              forced_streams={m: nxt[m] for m in ("map", "image")})
+    if tag != "t-init-token-mod":
+        ctrl = nxt["bbox3d"].copy()
+        ctrl[:, :, 33:] = -1                        # agents 0-2 controlled
+        kw.update(init_tokens={"pose": nxt["pose"], "bbox3d": ctrl},
+                  control_test=True)
+    return _CardVsCpu(dev, cfg, _reference_params(dev, cfg, 5), "generate",
+                      B=1, T=2, tag=tag, rtol_priors=REF_RTOL_PRIORS,
+                      rtol_logits=REF_RTOL_LOGITS, work_dir=work_dir,
+                      cond=cond, gen_kw=kw)
 
 
 def phase_serving_reference(dev, work_dir, tag="f", oar_cache_dtype="int8",
@@ -1324,15 +1412,17 @@ def _cli_frames(dev, out_dir, argv, tag, what, must, frames, B=1):
 
 
 def phase_default_run(dev, out_dir):
-    """(o) the reference CLI's default run: no flag but the run's size."""
+    """(o) the reference CLI's default run: no flag but the run's size and
+    the 24-layer depth (`--model_scale stander`)."""
     res, gen, split = _cli_frames(
-        dev, out_dir, [], "o", "the reference CLI's default run "
-        "(UMGen_Large, B=1, fp8 rings, the unfused decode on an fp8 OAR "
-        "cache, int8 decode weights, top-k)", must=(), frames=1)
+        dev, out_dir, ["--model_scale", "stander"], "o", "the reference "
+        "CLI's default run at the 24-layer scale (B=1, fp8 rings, the "
+        "unfused decode on an fp8 OAR cache, int8 decode weights, top-k)",
+        must=(), frames=1)
     cfg = gen.model.config
     want = {"tar_mode": "temporal_cache", "tar_cache_dtype": "float8_e4m3fn",
             "oar_cache_dtype": "float8_e4m3fn", "fused_oar_kernel": False,
-            "n_oar_layer": 36, "n_embd": 768, "sample_method": "topk"}
+            "n_oar_layer": 24, "n_embd": 768, "sample_method": "topk"}
     got = {k: getattr(cfg, k) for k in want}
     if got != want or "oar_packed" in gen.params:
         raise AssertionError(f"default run {got}, expected {want}, unpacked")
@@ -1401,6 +1491,220 @@ def phase_refresh(dev, out_dir, recompute_tokens):
     print(f"(q) share of tokens equal to (p)'s recompute stream, by frame "
           f"(a record, not a gate): {res['equal_to_recompute']}")
     return res
+
+
+_REF_NAMES = {"ln1": "ln_1", "ln2": "ln_2", "ln3": "ln_3", "ln4": "ln_4",
+              "ln5": "ln_5", "ln6": "ln_6", "sa1": "spatial_attn_1",
+              "ta": "temporal_attn", "sa2": "spatial_attn_2",
+              "attn": "temporal_attn", "qkv": "c_attn", "proj": "c_proj",
+              "fc": "c_fc", "q": "q_attn", "k": "k_attn", "v": "v_attn"}
+_REF_STACKS = {"tar": "TAR", "oar": "OAR", "ego_tar": "ego_tar",
+               "ego_ca": "ego_cross_attn", "map_tar": "map_tar",
+               "box_tar": "box_tar"}
+
+
+def export_reference_state_dict(params):
+    """The port's params → a state dict in the reference's names and layout
+    (what UMGen_Large.pt holds under its DeepSpeed wrapper: torch's [out,
+    in] linear weights, one entry a layer), on the CPU in the params'
+    dtype.  The inverse of runtime.torch_import.import_umgen; the buffers
+    and the relative temporal-PE table are not in the reference's."""
+    sd = {}
+
+    def emit(tree, name, stack=None, i=None):
+        if set(tree) <= {"w", "b"}:                    # a linear or a norm
+            w = tree["w"] if i is None else tree["w"][i]
+            sd[f"{name}.weight"] = (w.t() if w.dim() == 2 else w
+                                    ).contiguous().cpu()
+            if "b" in tree:
+                b = tree["b"] if i is None else tree["b"][i]
+                sd[f"{name}.bias"] = b.contiguous().cpu()
+            return
+        for k, v in tree.items():
+            ref = "mlp1" if (stack, k) == ("ego_ca", "mlp") else \
+                _REF_NAMES.get(k, k)
+            emit(v, f"{name}.{ref}", stack, i)
+
+    for k, v in params.items():
+        if k in ("buffers", "tpe_rel"):
+            continue
+        if k in _REF_STACKS:
+            for i in range(v["ln1"]["w"].shape[0]):
+                emit(v, f"transformer.{_REF_STACKS[k]}.{i}", k, i)
+        elif not isinstance(v, dict):                  # an embedding table
+            sd[f"transformer.{k}.weight"] = v.contiguous().cpu()
+        else:
+            emit(v, k if k.endswith("_mlp_pre") else f"transformer.{k}")
+    return sd
+
+
+def _control_scene(layout, gt_frames):
+    """One synthetic control pkl (data.synthetic.make_control_scene: 13
+    conditioning frames, the ego trajectory and one controlled agent), its
+    dataset tokens extended by a GT continuation of `gt_frames` frames for
+    MMD to score against."""
+    import numpy as np
+    from umgen_tpu_torch.data.synthetic import (make_control_scene,
+                                                make_token_batch)
+    scene = make_control_scene(layout, seed=7)
+    more = make_token_batch(layout, T=gt_frames, B=1, seed=8)
+    scene["dataset_token"] = {
+        m: np.concatenate([v, more[m][0].astype(v.dtype)])
+        for m, v in scene["dataset_token"].items()}
+    return scene
+
+
+def phase_control(dev, out_dir, work_dir, frames=2):
+    """(s) the control task at UMGen_Large width and depth, through the
+    CLI's code path (`evaluate.run`, `InferConfig.for_task` cut to `frames`
+    generated frames) on a
+    checkpoint: seeded weights exported in the reference's format
+    (`torch.save`, DeepSpeed's {"module": ...} wrapper) and read back by
+    `--ckpt_dir`; B = 1, `--fused_oar --kv_dtype bfloat16 --int8 decode
+    --sample_method greedy`, one control pkl under data/controlled_scenes of
+    the working directory.  The generated pose tokens must be the pkl's
+    trajectory, every token inside its vocabulary, flash, v5 and v5mq (no
+    other decode kernel) must launch, the collision rate and MMD must be
+    finite; and the same scene through `SceneRunner.run_scene` on the
+    weights in memory (cast as the importer casts them) must give the
+    same tokens."""
+    import dataclasses
+    import pickle
+
+    import numpy as np
+    import torch
+    from umgen_tpu_torch.config import InferConfig
+    from umgen_tpu_torch.data.pipeline import ScenePipeline
+    from umgen_tpu_torch.models.generate import Generator
+    from umgen_tpu_torch.models.umgen import UMGen, build_buffers
+    from umgen_tpu_torch.params import init_params, torch_dtype
+    from umgen_tpu_torch.runtime.torch_import import _cast
+    from umgen_tpu_torch.tools import evaluate
+    from umgen_tpu_torch.tools.harness import SceneRunner
+    run_dir = os.path.join(work_dir, "control_run")
+    ckpt = os.path.join(run_dir, "UMGen_Large.pt")
+    args = evaluate.build_parser().parse_args([
+        "--infer_task", "control", "--model_scale", "larger", "--fused_oar",
+        "--kv_dtype", "bfloat16", "--int8", "decode", "--sample_method",
+        "greedy", "--ckpt_dir", ckpt, "--output_path", out_dir, "--device",
+        str(dev)])
+    cfg = evaluate.config_from_args(args)
+    pipeline = ScenePipeline()
+
+    def seeded():
+        g = torch.Generator(device=dev)
+        g.manual_seed(11)
+        return init_params(cfg, g, dev, buffers=build_buffers(
+            cfg, pipeline, device=dev))
+
+    params = seeded()
+    n_weights = sum(t.numel() for k, v in params.items() if k != "buffers"
+                    for t in _tensors(v))
+    os.makedirs(os.path.join(run_dir, evaluate.CONTROL_ROOT))
+    t0 = time.perf_counter()
+    torch.save({"module": export_reference_state_dict(params)}, ckpt)
+    save_s = time.perf_counter() - t0
+    del params           # rebuilt from its seed for the in-memory run
+    torch.cuda.empty_cache()
+    scene = _control_scene(UMGen(cfg).layout, gt_frames=frames)
+    with open(os.path.join(run_dir, evaluate.CONTROL_ROOT,
+                           "control_scene_000.pkl"), "wb") as f:
+        pickle.dump(scene, f)
+
+    load_s = []
+    real_build = evaluate.build_params
+
+    def timed_build(*a, **k):
+        t = time.perf_counter()
+        out = real_build(*a, **k)
+        torch.cuda.synchronize()
+        load_s.append(time.perf_counter() - t)
+        return out
+
+    for_task = InferConfig.for_task
+
+    def cut(*a, **k):
+        return dataclasses.replace(for_task(*a, **k), num_new_frames=frames)
+
+    cwd = os.getcwd()
+    os.chdir(run_dir)
+    evaluate.build_params = timed_build
+    InferConfig.for_task = staticmethod(cut)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with _FrameSplit() as split:
+            _reset_launches()
+            t0 = time.perf_counter()
+            runner, gen = evaluate.run(args)
+            secs = time.perf_counter() - t0
+            launches = _launches(("v5", "v5mq"))
+    finally:
+        os.chdir(cwd)
+        evaluate.build_params = real_build
+        InferConfig.for_task = staticmethod(for_task)
+    peak = torch.cuda.max_memory_allocated()
+    [out] = _load_tokens(out_dir)
+    T = 13 + frames
+    for mod, n in VOCAB.items():
+        toks = np.asarray(out[mod])
+        if toks.shape[:2] != (1, T) or toks.min() < 0 or toks.max() >= n:
+            raise AssertionError(f"(s) {mod}: tokens {toks.shape} outside "
+                                 f"[0, {n}) or not {T} frames")
+    if not np.array_equal(out["pose"][0, 13:],
+                          scene["control_dict"]["pose"][:frames]):
+        raise AssertionError("(s) the generated pose tokens are not the "
+                             "control pkl's trajectory")
+    collision = runner.box_overlap.average()
+    mmd = runner.mmd.average()
+    if not (all(math.isfinite(x) for x in collision)
+            and runner.mmd.scores["posi"]
+            and all(math.isfinite(x) for x in mmd.values())):
+        raise AssertionError(f"(s) collision rate {collision}, MMD {mmd}")
+    frame_s, oar_s = list(gen.frame_seconds), list(split.oar_s)
+    del runner, gen
+    torch.cuda.empty_cache()
+
+    # the importer's end-to-end check: the seeded weights in memory, cast
+    # as load_umgen_checkpoint casts every floating leaf, through
+    # SceneRunner
+    mem = evaluate.prepare_params(args, cfg,
+                                  _cast(seeded(), torch_dtype(cfg.dtype)))
+    direct = SceneRunner(
+        Generator(UMGen(cfg), mem, seed=args.seed, device=dev),
+        cut("control"),
+        output_path=os.path.join(run_dir, "direct"), pipeline=pipeline)
+    mine = direct.run_scene(scene, control_test=True)
+    same = all(np.array_equal(mine[m], out[m]) for m in VOCAB)
+    res = {"weights": n_weights, "checkpoint_bytes": os.path.getsize(ckpt),
+           "save_seconds": save_s, "load_seconds": load_s[0],
+           "frame_seconds": frame_s, "oar_seconds": oar_s,
+           "tar_seconds": [f - o for f, o in zip(frame_s, oar_s)],
+           "max_memory_allocated": peak, "launches": launches,
+           "seconds": secs, "collision_rate": collision, "mmd": mmd,
+           "tokens_equal_in_memory": same}
+    print(f"(s) control, UMGen_Large ({n_weights / 1e9:.3f} B weights), B=1, "
+          f"on an imported checkpoint ({res['checkpoint_bytes'] / 2**30:.2f} "
+          f"GiB): saved in {save_s:.1f} s, loaded and prepared in "
+          f"{load_s[0]:.1f} s; per-frame seconds "
+          f"{', '.join(f'{x:.2f}' for x in frame_s)}, of which the OAR "
+          f"decode {', '.join(f'{x:.2f}' for x in oar_s)}; peak device "
+          f"memory {peak / 2**30:.2f} GiB; launches {launches}; collision "
+          f"rate {collision}, MMD {mmd}; tokens equal to the in-memory "
+          f"weights' run: {same}; whole run {secs:.1f} s")
+    if not same:
+        raise AssertionError("(s) the imported checkpoint's rollout differs "
+                             "from the in-memory weights' rollout")
+    os.remove(ckpt)
+    return res
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    else:
+        yield tree
 
 
 def phase_step_loops(dev, cfg, packs, steps=64, start=1000, B=2):
@@ -1589,7 +1893,10 @@ def main(argv=None) -> int:
                     "serving_i4_reference rollout_bf16kv rollout_v7 "
                     "rollout_fp8kv rollout_v1 bf16kv_reference "
                     "rollout_default rollout_recompute rollout_refresh "
-                    "recompute_reference default_reference; refresh needs "
+                    "recompute_reference default_reference control "
+                    "control_reference_control_cached "
+                    "control_reference_control_recompute "
+                    "control_reference_init_token_mod; refresh needs "
                     "recompute), for work on one of them; prints no result "
                     "line")
     only = ap.parse_args(argv).phases
@@ -1701,6 +2008,11 @@ def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
             report["rollout_refresh"] = phase_refresh(dev, out_dir,
                                                       recompute_tokens)
         torch.cuda.empty_cache()
+    # the control task on an imported checkpoint (s)
+    if want("control"):
+        with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+            report["control"] = phase_control(dev, out_dir, work_dir)
+        torch.cuda.empty_cache()
     # then the card-against-CPU checks (d, n, f, i): the card's side of each
     # runs now, its CPU side in a child process while the card runs the two
     # serving paths, which the device bounds
@@ -1720,6 +2032,11 @@ def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
               "fused_oar_kernel": False})):
         if want(key):
             pending[key] = fn(dev, work_dir, **kw)
+            torch.cuda.empty_cache()
+    for tag in CONTROL_CASES:                       # (t)
+        key = "control_reference_" + tag[2:].replace("-", "_")
+        if want(key):
+            pending[key] = phase_control_reference(dev, work_dir, tag)
             torch.cuda.empty_cache()
     serving("serving")
     serving("serving_i4", tag="g", oar_int4=True)

@@ -824,3 +824,115 @@ def test_v1_on_its_one_block(cuda_device, dtype, cache_len):
     """v1 (one block over all of S, normalized weights): an empty cache,
     one row, half and all of it (69 sub-blocks under one denominator)."""
     _check_dense_step(cuda_device, "fused_decode_step", dtype, 1, cache_len)
+
+
+# ---------------------------------------------------------------------------
+# the reference checkpoint importer and the control path on the card
+# ---------------------------------------------------------------------------
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def test_importer_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """A reference-format checkpoint of seeded debug-scale weights (full
+    width, one layer a stack) loaded on the card and on the CPU: the same
+    tree, leaf for leaf bit for bit, and the exported weights come back
+    as they were."""
+    from chip_smoke import export_reference_state_dict
+    from umgen_tpu_torch.config import ModelConfig
+    from umgen_tpu_torch.params import init_params
+    from umgen_tpu_torch.runtime.torch_import import load_umgen_checkpoint
+    cfg = ModelConfig().scaled("debug")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    path = str(tmp_path / "UMGen.pt")
+    torch.save({"module": export_reference_state_dict(params)}, path)
+    cpu = dict(_leaves(load_umgen_checkpoint(path, cfg, device="cpu")))
+    card = dict(_leaves(load_umgen_checkpoint(path, cfg,
+                                              device=cuda_device)))
+    assert sorted(cpu) == sorted(card)
+    for k in cpu:
+        assert card[k].device.type == cuda_device.type, k
+        assert card[k].dtype == cpu[k].dtype and torch.equal(
+            card[k].cpu(), cpu[k]), k
+    for k, v in _leaves(params):
+        if not k.startswith("/buffers"):
+            assert torch.equal(cpu[k], v), k
+
+
+def test_control_frame_on_the_card_matches_the_cpu(cuda_device):
+    """One agent-control frame at debug scale (full width, one layer a
+    stack; the fused int8 decode, bf16 rings, greedy): the ego action and
+    three agents' boxes of a later frame forced, map and image
+    teacher-forced, through `frame_step_prefill` on the card and, replaying
+    the card's decisions, on the CPU.  The tokens equal, the priors and
+    every decision's logits within chip_smoke.py phase d's bounds (2e-2 and
+    5e-2 of their largest magnitude)."""
+    from umgen_tpu_torch.config import ModelConfig
+    from umgen_tpu_torch.data.synthetic import make_token_batch
+    from umgen_tpu_torch.models.rollout import Rollout
+    from umgen_tpu_torch.models.sampling import greedy_sample
+    from umgen_tpu_torch.models.umgen import UMGen
+    from umgen_tpu_torch.params import init_params
+    from umgen_tpu_torch.runtime.quantize import pack_fused
+    cfg = ModelConfig(sample_method="greedy", tar_cache_dtype="bfloat16",
+                      oar_cache_dtype="int8", fused_oar_kernel=True,
+                      tar_cache_window=20).scaled("debug")
+    model = UMGen(cfg)
+    params = pack_fused(quantize_params_int8(init_params(
+        cfg, torch.Generator().manual_seed(3), "cpu")))
+    cond = make_token_batch(model.layout, T=2, B=1, seed=0, config=cfg)
+    nxt = make_token_batch(model.layout, T=1, B=1, seed=1, config=cfg)
+    ctrl = torch.full((1, 660), -1, dtype=torch.long)
+    ctrl[:, :33] = torch.as_tensor(nxt["bbox3d"][:, 0, :33])
+
+    def run(dev, sampler):
+        ro = Rollout(model)
+        ro._samplers = {m: sampler for m in ro._samplers}
+        tree = _to(params, dev)
+        inputs = {m: torch.as_tensor(v, dtype=torch.long, device=dev)
+                  for m, v in cond.items()}
+        out, _ = ro.frame_step_prefill(
+            tree, inputs, torch.Generator(dev),
+            pose_override=torch.as_tensor(nxt["pose"][:, 0],
+                                          device=dev).long(),
+            control_bbox=ctrl.to(dev),
+            forced_tokens={m: torch.as_tensor(nxt[m][:, 0], device=dev)
+                           .long() for m in ("map", "image")})
+        return out
+
+    card_logits, card_tokens = [], []
+
+    def card_sampler(g, logits):
+        tok = greedy_sample(g, logits)
+        card_logits.append(logits.float().cpu())
+        card_tokens.append(tok.cpu())
+        return tok
+
+    replay, cpu_logits = iter(card_tokens), []
+
+    def cpu_sampler(g, logits):
+        cpu_logits.append(logits.float())
+        return next(replay)
+
+    card = run(cuda_device, card_sampler)
+    cpu = run(torch.device("cpu"), cpu_sampler)
+    assert len(card_logits) == len(cpu_logits) == 3 * 660
+    assert torch.equal(card.tokens.cpu(), cpu.tokens)
+
+    def rel(a, b):
+        fin = torch.isfinite(b)
+        assert torch.equal(fin, torch.isfinite(a))
+        return ((a - b)[fin].abs().max() / b[fin].abs().max()).item()
+
+    assert rel(card.prior_seq.float().cpu(), cpu.prior_seq.float()) <= 2e-2
+    assert max(rel(a, b) for a, b in zip(card_logits, cpu_logits)) <= 5e-2
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

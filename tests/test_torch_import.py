@@ -84,6 +84,49 @@ def test_cli_serves_the_dense_oar_caches_and_v7(tmp_path, flags):
     _run_cli(tmp_path, *FUSED, *flags)
 
 
+_CONTROL_CHILD = """
+import dataclasses
+import sys
+from umgen_tpu_torch.config import InferConfig
+from umgen_tpu_torch.data.synthetic import write_control_scenes
+from umgen_tpu_torch.layout import SequenceLayout
+from umgen_tpu_torch.tools import evaluate
+write_control_scenes(evaluate.CONTROL_ROOT,
+                     SequenceLayout("pose_map_bbox3d_image"))
+args = evaluate.build_parser().parse_args(
+    ["--infer_task", "control", "--model_scale", "tiny", "--debug",
+     "--device", "cpu", "--output_path", "out"] + sys.argv[1:])
+for_task = InferConfig.for_task                  # one generated frame
+InferConfig.for_task = staticmethod(lambda *a, **k: dataclasses.replace(
+    for_task(*a, **k), num_new_frames=1))
+evaluate.run(args)
+foreign = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "umgen_tpu"))
+assert not foreign, foreign[:5]
+print("PORT_STANDS_ALONE_OK")
+"""
+
+
+def test_cli_control_task_stands_alone(tmp_path):
+    """`--infer_task control` (the reference CLI's default decode, cut to
+    one frame) from a working directory holding a control pkl under
+    data/controlled_scenes, in a fresh interpreter: no JAX imported, the
+    scene's token pickle written."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    env["OMP_NUM_THREADS"] = "2"
+    res = subprocess.run([sys.executable, "-c", _CONTROL_CHILD],
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "PORT_STANDS_ALONE_OK" in res.stdout
+    assert "collision rate: per-frame" in res.stdout
+    [name] = os.listdir(tmp_path / "out" / "saved_token")
+    with open(tmp_path / "out" / "saved_token" / name, "rb") as f:
+        out = pickle.load(f)
+    assert out["pose"].shape == (1, 14, 3)
+
+
 def _port_sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     for base, _, files in os.walk(os.path.join(ROOT, "umgen_tpu_torch")):
@@ -116,11 +159,14 @@ def test_no_port_source_imports_jax_or_the_jax_package():
 
 @pytest.mark.parametrize("what", ["ModelConfig", "larger", "tiny",
                                   "InferConfig", "DataConfig", "constants",
-                                  "layout", "synthetic", "pipeline"])
+                                  "layout", "synthetic", "pipeline",
+                                  "control_keys", "metrics"])
 def test_copied_modules_equal_the_jax_packages(what):
-    """Drift guard for the port's copies of config.py, layout.py and data/:
-    the same fields and defaults, layout offsets, synthetic scenes and
-    pipeline constants as the JAX package's (none of these imports jax)."""
+    """Drift guard for the port's copies of config.py, layout.py, data/,
+    tools/load_control_tokens.py and ops/metrics.py: the same fields and
+    defaults, layout offsets, synthetic scenes, pipeline constants, control
+    keys and their aliases, MMD attribute views, bandwidth and kernel
+    defaults as the JAX package's (none of these imports jax)."""
     from umgen_tpu import config as jc
     from umgen_tpu import layout as jl
     from umgen_tpu.data import pipeline as jp
@@ -166,6 +212,32 @@ def test_copied_modules_equal_the_jax_packages(what):
         assert sorted(a) == sorted(b)
         for m in a:
             np.testing.assert_array_equal(a[m], b[m], m)
+    elif what == "control_keys":
+        from umgen_tpu.tools import load_control_tokens as jlct
+        from umgen_tpu_torch.tools import load_control_tokens as tlct
+        assert tlct.KEY_ALIASES == jlct.KEY_ALIASES
+        assert asdict(tc.InferConfig.for_task("control", 2)) == \
+            asdict(jc.InferConfig.for_task("control", 2))
+        task = tc.ModelConfig().task
+        np.testing.assert_equal(
+            ts.make_control_scene(tl.SequenceLayout(task), seed=3),
+            js.make_control_scene(jl.SequenceLayout(task), seed=3))
+    elif what == "metrics":
+        from umgen_tpu.ops import metrics as jm
+        from umgen_tpu_torch.ops import metrics as tm
+        assert tm.ATTRIBUTE_SLICES == jm.ATTRIBUTE_SLICES
+        a, b = tm.MMDMetric(), jm.MMDMetric()
+        assert (a.attributes, a.kernel_mul, a.kernel_num) == \
+            (b.attributes, b.kernel_mul, b.kernel_num)
+        rng = np.random.default_rng(0)
+        x, y = rng.normal(size=(7, 3)), rng.normal(size=(5, 3))
+        for mul, num in ((1.0, 1), (2.0, 5)):
+            np.testing.assert_array_equal(
+                tm.gaussian_kernel_sum(x, y, mul, num),
+                jm.gaussian_kernel_sum(x, y, mul, num))
+        boxes, cats = rng.normal(size=(4, 10)), np.arange(4)
+        np.testing.assert_equal(tm.scene_attribute_views(boxes, cats),
+                                jm.scene_attribute_views(boxes, cats))
     else:
         a, b = tp.ScenePipeline().device_constants(), \
             jp.ScenePipeline().device_constants()

@@ -236,6 +236,50 @@ def test_collision_matches_jax():
     assert 0 < ref.sum() < B                  # both outcomes exercised
 
 
+def test_collision_on_bf16_boxes_matches_jax():
+    """The rule constraint on bf16 boxes, as a checkpoint's decode tables
+    (cast to the config's dtype by both loaders) decode them: each box
+    attribute a table entry times the span plus the offset, all bf16.  The
+    corners promote to float32 on both sides (a float32 base times bf16
+    dims) and agree within float32 rounding; the collision decisions are
+    equal."""
+    cfg = ModelConfig().scaled("tiny")
+    bf = jnp.bfloat16
+    jbuf = j_build_buffers(cfg)
+    tbuf = build_buffers(cfg)
+    rng = np.random.default_rng(7)
+    B, N = 64, 12
+    # attribute bins: x, y near the middle of their range so boxes meet
+    bins = rng.integers(0, 1024, (B, N + 1, 10))
+    bins[..., 0:2] = rng.integers(480, 545, (B, N + 1, 2))
+    bins[:, -2, 0] = 1023                      # a far-away (x >= 63) row
+
+    def decode(mid, span, lo, idx):
+        return mid[idx] * span + lo
+
+    jbox = decode(jnp.asarray(jbuf["agent_bin_mid"], bf),
+                  jnp.asarray(jbuf["agent_span"], bf),
+                  jnp.asarray(jbuf["agent_lo"], bf), jnp.asarray(bins))
+    tbox = decode(tbuf["agent_bin_mid"].to(torch.bfloat16),
+                  tbuf["agent_span"].to(torch.bfloat16),
+                  tbuf["agent_lo"].to(torch.bfloat16), torch.as_tensor(bins))
+    assert tbox.dtype == torch.bfloat16 and jbox.dtype == bf
+    np.testing.assert_array_equal(tbox.float().numpy(),
+                                  np.asarray(jbox, np.float32))
+    jc = jcol.boxes_to_corners(jbox, negate_yaw=True)
+    tc = tcol.boxes_to_corners(tbox, negate_yaw=True)
+    assert tc.dtype == torch.float32 and jc.dtype == jnp.float32
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-6,
+                               atol=1e-5)
+    valid = rng.uniform(size=(B, N)) < 0.8
+    ref = np.asarray(jcol.candidate_collides(jbox[:, -1], jbox[:, :N],
+                                             jnp.asarray(valid)))
+    out = tcol.candidate_collides(tbox[:, -1], tbox[:, :N],
+                                  torch.tensor(valid)).numpy()
+    np.testing.assert_array_equal(out, ref)
+    assert 0 < ref.sum() < B                  # both outcomes exercised
+
+
 def test_samplers():
     logits = torch.tensor([[0.1, 0.5, 0.5, -1.0], [2.0, 0.0, 1.9, 1.8]])
     assert tsamp.greedy_sample(None, logits).tolist() == [1, 0]
@@ -267,7 +311,7 @@ def test_samplers():
     (["--temporal_pe", "relative"], "Relative temporal PE"),
     (["--oar_batch_block", "5"], "VMEM-driven blockings"),
     (["--oar_kv_dtype", "float32"], "served are int8, int4, bfloat16"),
-    (["--infer_task", "control"], "Control mode"),
+    (["--profile_dir", "prof"], "Multi-GPU and runtime"),
 ])
 def test_cli_rejects_flags_outside_the_port(flags, item):
     base = ["--fused_oar", "--kv_dtype", "bfloat16", "--debug"]

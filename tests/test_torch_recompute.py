@@ -29,6 +29,7 @@ import contextlib
 import functools as ft
 import os
 import pickle
+import re
 import subprocess
 import sys
 
@@ -292,15 +293,25 @@ def test_recompute_generate_matches_jax():
 
 
 def test_generate_refuses_control():
-    """Trajectory replay, agent control and forced streams stay unported:
-    `generate` names their ROADMAP item."""
+    """Control and forced streams that do not fit the scenes are refused by
+    name before any frame runs: a scene batch other than the window's, a
+    row of another length, a stream without its frame axis.  (Trajectory
+    replay, agent control and forced streams themselves are served since
+    they were ported; tests/test_torch_generate_control*.py hold them
+    against JAX.)"""
     gen = Generator(UMGen(_cfg()), {}, device="cpu")
-    cond = {"pose": np.zeros((1, 2, 3), np.int64)}
-    for kw in ({"init_tokens": {"pose": cond["pose"]}},
-               {"control_test": True},
-               {"forced_streams": {"map": np.zeros((1, 1, 1024))}}):
-        with pytest.raises(NotPortedError, match="Control mode"):
-            gen.generate(cond, new_frames=1, **kw)
+    cond = {m: np.zeros((1, 2, n), np.int64) for m, n in
+            (("pose", 3), ("map", 1024), ("bbox3d", 660), ("image", 512))}
+    for kw, what in (
+            ({"init_tokens": {"pose": np.zeros((2, 1, 3))}},
+             "init_tokens['pose']"),
+            ({"init_tokens": {"pose": np.zeros((1, 1, 3)),
+                              "bbox3d": np.zeros((1, 660))},
+              "control_test": True}, "init_tokens['bbox3d']"),
+            ({"forced_streams": {"map": np.zeros((1, 1, 1000))}},
+             "forced_streams['map']")):
+        with pytest.raises(ValueError, match=re.escape(what)):
+            gen.generate(cond, new_frames=1, input_cond_frames=2, **kw)
 
 
 # ---------------------------------------------------------------------------

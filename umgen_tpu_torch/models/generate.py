@@ -1,5 +1,5 @@
-"""Multi-frame scene rollout (port of umgen_tpu/models/generate.py, the
-video task without a mesh).
+"""Multi-frame scene rollout (port of umgen_tpu/models/generate.py, without a
+mesh).
 
 Recompute mode (`tar_mode="recompute"`, the reference's semantics): before
 each frame the window is cut to its last `cond_frames` frames and the whole
@@ -13,9 +13,15 @@ every N-th frame after the window has slid rebuilds the rings from the
 window's last `tar_cache_window` frames, with window-relative indices, so
 that the frame decoded then sees recompute's semantics.
 
-Trajectory replay and agent control (the reference's `--infer_task control`
-and `--init_token_mod`) are not driven from here yet; the frame steps take
-their overrides.
+Trajectory replay and agent control (the reference's `--infer_task
+control`): `init_tokens["pose"]` forces the ego action of each generated
+frame while it lasts, and under `control_test` `init_tokens["bbox3d"]`
+(-1 where free) overwrites the agents of the window's newest frame before
+the frame is decoded.  The reference writes that overwrite into its window
+tensor, so it stays as the window slides: the loop keeps the window (`cond`)
+apart from the output stream (`out`).  `forced_streams` (`--init_token_mod`)
+teacher-forces the listed modalities of each generated frame to the given
+tokens; a forced pose rides trajectory control.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import numpy as np
 import torch
 
 from umgen_tpu_torch.models.rollout import Rollout
-from umgen_tpu_torch.models.umgen import NotPortedError, UMGen
+from umgen_tpu_torch.models.umgen import UMGen
 
 Params = Dict[str, Any]
 
@@ -52,6 +58,16 @@ class Generator:
         return torch.as_tensor(np.asarray(a), dtype=torch.long,
                                device=self.device)
 
+    def _check_streams(self, out, streams: Dict[str, np.ndarray],
+                       what: str) -> None:
+        """Control and forced streams {mod: [B, T, len]} must fit the scene
+        batch and the modality's row; refused by name otherwise."""
+        for m, v in streams.items():
+            B, row = out[m].shape[0], out[m].shape[2]
+            if v.ndim != 3 or v.shape[0] != B or v.shape[2] != row:
+                raise ValueError(f"{what}[{m!r}] has shape {v.shape}; the "
+                                 f"scenes need [{B}, frames, {row}]")
+
     def generate(self, cond_tokens: Dict[str, np.ndarray], new_frames: int,
                  cond_frames: int = 20, input_cond_frames: int = -1,
                  init_tokens: Optional[Dict[str, np.ndarray]] = None,
@@ -61,38 +77,71 @@ class Generator:
         """cond_tokens {mod: [B, T0, len]} → {mod: [B, input_cond_frames +
         new_frames, len]} numpy (the conditioning prefix + generated
         frames).  `cond_frames`: recompute mode's window; the cached path's
-        is the ring's."""
-        if init_tokens is not None or control_test or forced_streams:
-            raise NotPortedError("trajectory replay, agent control and "
-                                 "forced streams are not ported yet "
-                                 "(ROADMAP.md: 'Control mode and "
-                                 "--init_token_mod')")
+        is the ring's.
+
+        init_tokens {pose: [B, T_c, 3], bbox3d: [B, T_c, 660]}: trajectory
+        replay for generated frames idx < T_c (other modalities are
+        dropped, and without a pose stream the whole dict); once the pose
+        stream runs out control is off for the rest of the rollout.
+        forced_streams {mod: [B, T_f, len]}: frames idx < T_f take these
+        tokens for the listed modalities instead of sampling them."""
         cfg = self.model.config
         mods = self.model.layout.mod_order
+        recompute = cfg.tar_mode == "recompute"
+        if forced_streams and "pose" in forced_streams:
+            init_tokens = dict(init_tokens or {})
+            init_tokens.setdefault("pose", forced_streams["pose"])
+        init = None
+        if init_tokens is not None:
+            init = {m: np.asarray(v) for m, v in init_tokens.items()
+                    if v is not None and m in ("pose", "bbox3d")}
+            if "pose" not in init:
+                init = None
+        forced = {m: np.asarray(v) for m, v in (forced_streams or {}).items()
+                  if m in mods and m != "pose"}
         if input_cond_frames == -1:
-            input_cond_frames = cond_frames if cfg.tar_mode == "recompute" \
-                else cfg.cond_frame
+            input_cond_frames = cond_frames if recompute else cfg.cond_frame
         out = {m: np.asarray(cond_tokens[m][:, :input_cond_frames])
                for m in mods}
-        window = cond_frames if cfg.tar_mode == "recompute" \
-            else self.model.t_max
+        self._check_streams(out, init or {}, "init_tokens")
+        self._check_streams(out, forced, "forced_streams")
+        # the window the model reads: `out` with the agent-control
+        # overwrites of each newest frame, which persist as it slides
+        cond = dict(out)
+        window = cond_frames if recompute else self.model.t_max
         refresh = cfg.tar_cache_refresh
+        sl = self.model.layout.slices()
         cache = None
         for idx in range(new_frames):
             t0 = time.perf_counter()
-            # the reference's window: the stream's last `window` frames
-            # (the port's stream carries no control overwrites, so `out` is
-            # the window's exact content)
-            last = {m: self._dev(out[m][:, -window:]) for m in mods}
-            if cfg.tar_mode == "recompute":
+            if recompute or idx:    # the cached prefill takes all of it
+                cond = {m: v[:, -window:] for m, v in cond.items()}
+            step_kw = {}       # the overrides this frame has
+            if init is not None and idx < init["pose"].shape[1]:
+                step_kw["pose_override"] = self._dev(init["pose"][:, idx])
+                if control_test and "bbox3d" in init \
+                        and idx < init["bbox3d"].shape[1]:
+                    cb = init["bbox3d"][:, idx]
+                    step_kw["control_bbox"] = self._dev(cb)
+                    b3 = cond["bbox3d"].copy()
+                    b3[:, -1] = np.where(cb != -1, cb, b3[:, -1])
+                    cond["bbox3d"] = b3
+            elif init is not None:
+                init = None           # the pose stream ran out: control off
+            fd = {m: self._dev(v[:, idx]) for m, v in forced.items()
+                  if idx < v.shape[1]}
+            if fd:
+                step_kw["forced_tokens"] = fd
+            last = {m: self._dev(v) for m, v in cond.items()}
+            if recompute:
                 res = self.rollout.frame_step(self.params, last,
-                                              self.generator)
+                                              self.generator, **step_kw)
             elif idx == 0:
-                inputs = {m: self._dev(out[m]) for m in mods}
                 first = self.rollout.frame_step_prefill
-                if cfg.chunked_prefill and inputs["pose"].shape[1] > 1:
+                if cfg.chunked_prefill and last["pose"].shape[1] > 1:
                     first = self.rollout.frame_step_chunked
-                res, cache = first(self.params, inputs, self.generator)
+                res, cache = first(self.params, last, self.generator,
+                                   **step_kw)
             elif (refresh and idx % refresh == 0 and window > 1
                   and out["pose"].shape[1] > window):
                 # fresh rings (frames counted from 0, so window-relative
@@ -101,20 +150,28 @@ class Generator:
                 # go first, as the reference frees them
                 cache = None
                 res, cache = self.rollout.frame_step_chunked(
-                    self.params, last, self.generator)
+                    self.params, last, self.generator, **step_kw)
                 self.refreshes += 1
             else:
                 res, cache = self.rollout.frame_step_cached(
                     self.params, {m: v[:, -1:] for m, v in last.items()},
-                    cache, self.generator)
+                    cache, self.generator, **step_kw)
             tokens = res.tokens.cpu().numpy()
-            if not (torch.isfinite(res.ego_logits).all()
-                    and torch.isfinite(res.prior_seq).all()):
+            if not (torch.isfinite(res.prior_seq).all()
+                    and (res.ego_logits is None
+                         or torch.isfinite(res.ego_logits).all())):
                 raise FloatingPointError(
                     f"frame {idx}: non-finite ego logits or TAR priors")
             self.frame_seconds.append(time.perf_counter() - t0)
-            sl = self.model.layout.slices()
             for m in mods:
-                out[m] = np.concatenate([out[m], tokens[:, None, sl[m]]],
-                                        axis=1)
+                new = tokens[:, None, sl[m]]
+                # a replayed modality enters the stream as given: the pose
+                # in both modes; recompute also appends an init bbox3d
+                # without control_test (the reference's two loops differ)
+                if init is not None and m in init and (m == "pose" or (
+                        recompute and not (control_test
+                                           and m == "bbox3d"))):
+                    new = init[m][:, idx][:, None]
+                out[m] = np.concatenate([out[m], new], axis=1)
+                cond[m] = np.concatenate([cond[m], new], axis=1)
         return out

@@ -1,30 +1,37 @@
 """CLI entry point of the port — the JAX CLI's flag names
-(umgen_tpu/tools/evaluate.py), serving the video rollout.  Its default run
-is the JAX CLI's:
+(umgen_tpu/tools/evaluate.py) and its two tasks.  Its default run is the JAX
+CLI's:
 
     python -m umgen_tpu_torch.tools.evaluate --debug --synthetic_data 1 \\
         --max_scenes 1 --set_num_new_frames 2
 
 — UMGen_Large, fp8 TAR rings, an fp8 OAR cache decoded by the reference's
-unfused body (no `--fused_oar`), int8 decode weights.  Served values:
-`--tar_mode temporal_cache|recompute` (recompute: the whole window through
-every TAR stack each frame), `--kv_dtype float8_e4m3fn|bfloat16|int4` (TAR
-rings; without `--fused_oar` the OAR cache takes the same type unless it is
-int4, with it int8 unless asked otherwise), `--tar_cache_refresh N`,
-`--fused_oar` (the decode kernels), `--oar_kv_dtype int8|int4|bfloat16|
-float8_e4m3fn` (int4: the nibble-packed OAR cache with per-(row, head)
-scales, decoded by the v5i4 / v5mqi4 kernels; bfloat16 / float8_e4m3fn: the
-dense cache, its single-token steps decoded by v2 and its multi-row pushes
-by the eager body), `--oar_kernel 5|7` (7: the per-(scene, head) query scale
-of v7 while batch · heads <= 128), `--int8 off|decode|all`,
-`--chunked_prefill`, `--tar_cache_window N`, any `--batch_size`.  Like the
-JAX CLI it quantizes unless `--int8 off` and packs the int8 OAR weights for
-the cache type under `--fused_oar` (`pack_fused(params, kv_dtype)`); W4A8
-weights are reached as the JAX bench reaches them, through
+unfused body (no `--fused_oar`), int8 decode weights.  Tasks: `--infer_task
+video` (the scenes of `--data_root`) and `--infer_task control` (the control
+pkls of `data/controlled_scenes`, relative to the working directory as in
+the JAX CLI: each replays its ego trajectory and overwrites its controlled
+agents, one scene at a time, 30 frames); `--init_token_mod map,image` forces
+those modalities to the GT continuation.  Weights: the reference checkpoint
+`--ckpt_dir` (runtime.torch_import, with the VQ codebooks of
+projects/tokenizer/weights/ where present), or seeded random ones under
+`--debug` or when it is missing.  Served values: `--tar_mode
+temporal_cache|recompute` (recompute: the whole window through every TAR
+stack each frame), `--kv_dtype float8_e4m3fn|bfloat16|int4` (TAR rings;
+without `--fused_oar` the OAR cache takes the same type unless it is int4,
+with it int8 unless asked otherwise), `--tar_cache_refresh N`, `--fused_oar`
+(the decode kernels), `--oar_kv_dtype int8|int4|bfloat16|float8_e4m3fn`
+(int4: the nibble-packed OAR cache with per-(row, head) scales, decoded by
+the v5i4 / v5mqi4 kernels; bfloat16 / float8_e4m3fn: the dense cache, its
+single-token steps decoded by v2 and its multi-row pushes by the eager
+body), `--oar_kernel 5|7` (7: the per-(scene, head) query scale of v7 while
+batch · heads <= 128), `--int8 off|decode|all`, `--chunked_prefill`,
+`--tar_cache_window N`, any `--batch_size`.  Like the JAX CLI it quantizes
+unless `--int8 off` and packs the int8 OAR weights for the cache type under
+`--fused_oar` (`pack_fused(params, kv_dtype)`), whichever the weights'
+source; W4A8 weights are reached as the JAX bench reaches them, through
 `serving_params` and the same Generator (chip_smoke.py phases e and g).
-Weights are seeded random (`--debug`, or a missing checkpoint); scenes come
-from the dataset or, with `--synthetic_data N`, from the synthetic
-generator.
+It prints the agent metrics the JAX CLI prints (the collision rate, MMD
+against the GT continuation) and writes the token pickles.
 Every flag value outside what the port serves raises NotPortedError naming
 the ROADMAP.md item that adds it; none is silently ignored.
 """
@@ -38,9 +45,16 @@ from typing import Optional
 
 from umgen_tpu_torch.models.umgen import RING_DTYPES, NotPortedError
 
-NOT_PORTED_OUTPUTS = ("videos, MMD and the collision-rate metric are not "
+NOT_PORTED_OUTPUTS = ("the map and image pictures and the videos are not "
                       "ported yet (ROADMAP.md: 'VQ detokenizers, videos and "
-                      "metrics'); writing token pickles only")
+                      "metrics'); writing token pickles and the agent "
+                      "metrics")
+# where the JAX CLI looks for the VQ codebooks (umgen_tpu/tools/
+# evaluate.py:223-229)
+MAP_CODEBOOK = "projects/tokenizer/weights/map_codebook.pth"
+IMG_CODEBOOK = "projects/tokenizer/weights/img_codebook.pth"
+# the control pkls, relative to the working directory (JAX :266-267)
+CONTROL_ROOT = "data/controlled_scenes"
 
 
 OAR_KV_DTYPES = ("int8", "int4", "bfloat16", "float8_e4m3fn")
@@ -115,8 +129,12 @@ def check_args(args) -> None:
             raise NotPortedError(f"{what} is not ported yet "
                                  f"(ROADMAP.md: {item!r})")
 
-    no(args.infer_task != "video", f"--infer_task {args.infer_task}",
-       "Control mode")
+    if args.infer_task not in ("video", "control"):
+        raise ValueError(f"unknown --infer_task {args.infer_task!r}: video "
+                         "or control")
+    if args.dp > 1 and args.infer_task == "control":
+        raise SystemExit("--dp > 1 batches video scenes; control mode runs "
+                         "per-scene (per-scene init dicts)")
     no(args.kv_dtype not in RING_DTYPES, f"--kv_dtype {args.kv_dtype}",
        "int2 TAR rings")
     no(args.speculative_k > 0 or args.no_spec_bbox,
@@ -139,12 +157,8 @@ def check_args(args) -> None:
             "(ROADMAP.md: 'VMEM-driven blockings')")
     no(args.profile_dir is not None, "--profile_dir",
        "Multi-GPU and runtime")
-    no(bool(args.init_token_mod), "--init_token_mod",
-       "VQ detokenizers, videos and metrics")
     if args.sample_method not in ("greedy", "topk", "topp"):
         raise ValueError(f"unknown sample method {args.sample_method!r}")
-    no(not args.debug and os.path.exists(args.ckpt_dir),
-       "loading a checkpoint", "Multi-GPU and runtime")
 
 
 def config_from_args(args):
@@ -175,22 +189,45 @@ def config_from_args(args):
 
 
 def build_params(args, cfg, device, pipeline):
-    """Seeded random params on `device`, as the JAX CLI builds them
-    (umgen_tpu/tools/evaluate.py:231-239): unless `--int8 off`, int8 over
-    `DECODE_KEYS` (`--int8 decode`) or `ALL_STACK_KEYS` (`--int8 all`),
-    then under `--fused_oar` the decode kernels' packing for the OAR
-    cache's type."""
+    """The CLI's weights on `device`, as the JAX CLI builds them
+    (umgen_tpu/tools/evaluate.py:214-242): the reference checkpoint
+    `--ckpt_dir`, or seeded random weights under `--debug` or when it is
+    missing; then `prepare_params`."""
     import torch
 
     from umgen_tpu_torch.models.umgen import build_buffers
     from umgen_tpu_torch.params import init_params
+    if args.debug or not os.path.exists(args.ckpt_dir):
+        if not args.debug:
+            print(f"checkpoint {args.ckpt_dir} not found — using random "
+                  "weights (debug mode)")
+        g = torch.Generator(device=device)
+        g.manual_seed(args.seed)
+        params = init_params(cfg, g, device,
+                             buffers=build_buffers(cfg, pipeline,
+                                                   device=device))
+    else:
+        from umgen_tpu_torch.runtime.torch_import import load_umgen_checkpoint
+        print("loading model from", args.ckpt_dir)
+        params = load_umgen_checkpoint(
+            args.ckpt_dir, cfg, pipeline=pipeline,
+            map_codebook_path=_maybe(MAP_CODEBOOK),
+            img_codebook_path=_maybe(IMG_CODEBOOK), device=device)
+    return prepare_params(args, cfg, params)
+
+
+def _maybe(path: str) -> Optional[str]:
+    return path if os.path.exists(path) else None
+
+
+def prepare_params(args, cfg, params):
+    """Unless `--int8 off`, int8 over `DECODE_KEYS` (`--int8 decode`) or
+    `ALL_STACK_KEYS` (`--int8 all`), then under `--fused_oar` the decode
+    kernels' packing for the OAR cache's type — whichever the weights'
+    source."""
     from umgen_tpu_torch.runtime.quantize import (ALL_STACK_KEYS, DECODE_KEYS,
                                                   pack_fused,
                                                   quantize_params_int8)
-    g = torch.Generator(device=device)
-    g.manual_seed(args.seed)
-    params = init_params(cfg, g, device,
-                         buffers=build_buffers(cfg, pipeline, device=device))
     if args.int8 == "off":
         return params
     params = quantize_params_int8(
@@ -215,13 +252,16 @@ def serving_params(cfg, generator, device, buffers=None):
                          raw["oar"])
 
 
-def run_dataset(args, runner, infer_cfg, pipeline) -> None:
-    """The scenes of `--data_root` (or `--synthetic_data N` generated ones)
-    through `runner`, `--batch_size` at a time."""
+def run_dataset(args, runner, infer_cfg, pipeline):
+    """The scenes of `--data_root` (`data/controlled_scenes` under
+    `--infer_task control`; `--synthetic_data N` generates video scenes
+    where it is missing) through `runner`, `--batch_size` at a time.
+    Returns the dataset (its journal of error scenes)."""
     from umgen_tpu_torch.config import DataConfig
     from umgen_tpu_torch.data.dataset import NuPlanTokenDataset
 
-    data_root = args.data_root
+    control = args.infer_task == "control"
+    data_root = CONTROL_ROOT if control else args.data_root
     if not os.path.isdir(data_root) and args.synthetic_data > 0:
         from umgen_tpu_torch.data.synthetic import write_synthetic_dataset
         data_root = os.path.join(args.output_path, "synthetic_scenes")
@@ -230,7 +270,7 @@ def run_dataset(args, runner, infer_cfg, pipeline) -> None:
         print("generated synthetic dataset at", data_root)
     dcfg = DataConfig(data_root=(data_root,),
                       block_size=infer_cfg.num_new_frames
-                      + infer_cfg.cond_frames)
+                      + infer_cfg.cond_frames, control_test=control)
     dataset = NuPlanTokenDataset(dcfg, pipeline)
     if len(dataset) == 0:
         raise SystemExit(f"no scenes found under {data_root}; use "
@@ -242,22 +282,48 @@ def run_dataset(args, runner, infer_cfg, pipeline) -> None:
         batch = dataset[i]
         if batch is None:
             continue
+        if control and "dataset_token" not in batch:
+            # the JAX CLI fails here with a KeyError: --synthetic_data
+            # writes video scenes, which a control run cannot read
+            raise SystemExit(
+                f"{batch['file_name']} is not a control scene (no "
+                "'dataset_token'): control mode reads control pkls — see "
+                "data.synthetic.write_control_scenes and "
+                "tools.load_control_tokens")
         group.append(batch)
         if len(group) >= max(args.batch_size, 1):
-            runner.run_scenes(group)
+            runner.run_scenes(group, control_test=control)
             group = []
     if group:
-        runner.run_scenes(group)
+        runner.run_scenes(group, control_test=control)
     if runner.timings:
         fps = sum(t["frames_per_sec"] for t in runner.timings) \
             / len(runner.timings)
         print(f"mean throughput: {fps:.4f} frames/sec on "
               f"{runner.gen.device}")
+    return dataset
+
+
+def report(args, runner, dataset) -> None:
+    """The JAX CLI's closing lines (umgen_tpu/tools/evaluate.py:336-346):
+    the collision rate, MMD against the GT continuation, the error-scene
+    journal."""
+    ratio, scen = runner.box_overlap.average()
+    print(f"collision rate: per-frame {ratio:.4f}, per-scenario {scen:.4f}")
+    if any(runner.mmd.scores.values()):
+        mmd = runner.mmd.average()
+        print("MMD (generated vs GT continuation): "
+              + ", ".join(f"{a}={v:.4f}" for a, v in mmd.items()))
+    journal = os.path.join(args.output_path, "error_scene.txt")
+    dataset.write_error_journal(journal)
+    if dataset.error_scenes:
+        print(f"{len(dataset.error_scenes)} error scene(s) journaled to "
+              f"{journal}")
 
 
 def run(args):
-    """Run the evaluation; returns the SceneRunner (timings) and the
-    Generator."""
+    """Run the evaluation; returns the SceneRunner (timings, metrics) and
+    the Generator."""
     import torch
 
     from umgen_tpu_torch.config import InferConfig
@@ -278,14 +344,15 @@ def run(args):
                                      seed=args.seed)
     pipeline = ScenePipeline()
     model = UMGen(cfg)
-    if not args.debug:
-        print(f"checkpoint {args.ckpt_dir} not found — using random "
-              "weights (debug mode)")
     params = build_params(args, cfg, device, pipeline)
     print(NOT_PORTED_OUTPUTS)
     gen = Generator(model, params, seed=args.seed, device=device)
-    runner = SceneRunner(gen, infer_cfg, output_path=args.output_path)
-    run_dataset(args, runner, infer_cfg, pipeline)
+    runner = SceneRunner(gen, infer_cfg, output_path=args.output_path,
+                         pipeline=pipeline,
+                         init_token_mod=[m for m in
+                                         args.init_token_mod.split(",") if m])
+    dataset = run_dataset(args, runner, infer_cfg, pipeline)
+    report(args, runner, dataset)
     return runner, gen
 
 
