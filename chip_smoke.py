@@ -40,15 +40,16 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
       synthetic scenes, a 20-frame window ingested frame by frame (chunked
       prefill) into 8-frame int4 TAR rings, int8 weights on every stack,
       W4A8 OAR weights (runtime.quantize.pack_fused_w4), top-k, rule
-      constraint on, through Generator / SceneRunner; two generated frames.
+      constraint on, through Generator / SceneRunner; one generated frame
+      (the 19 ingests, a cached step; two until PR 9, cut for time).
       Flash, w4 and w4mq must launch, v5 and v5mq must not;
   (f) that configuration at debug scale (one layer a stack, full width),
       B = 2, a 2-frame ring under a 3-frame window, chunked prefill, on the
       card and on the CPU as in (d);
   (g) serving-i4, this slice's main path: the serving configuration of (e)
       with the OAR cache int4 (`--oar_kv_dtype int4`: nibble-packed rows,
-      per-(row, head) scales), at full width and depth, two generated
-      frames.  Flash, w4i4 and w4mqi4 must launch; v5, v5mq, w4, w4mq, v5i4
+      per-(row, head) scales), at full width and depth, one generated frame
+      as (e).  Flash, w4i4 and w4mqi4 must launch; v5, v5mq, w4, w4mq, v5i4
       and v5mqi4 must not;
   (h) slice-i4: the configuration of (c) with the OAR cache int4, B = 1,
       the prefill frame.  Flash, v5i4 and v5mqi4 must launch, no other
@@ -57,13 +58,13 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
       scene (the CPU side is most of the phase's time);
   (j) slice-bf16kv: the configuration of (c) with `--oar_kv_dtype
       bfloat16`, full width, the 24-layer depth (`--model_scale stander`,
-      to keep the script inside its time), B = 1, the prefill frame plus
-      one cached frame.  Flash and v2 must launch (2196 steps a frame), no
+      to keep the script inside its time), B = 1, the prefill frame (a
+      cached one too until PR 9).  Flash and v2 must launch (2196 steps), no
       other decode kernel: the multi-row pushes run the eager body on the
       bf16 cache;
   (k) slice-v7: the configuration of (c) with `--oar_kernel 7`, B = 2, the
-      24-layer depth, the prefill frame plus one cached frame.  Flash, v7
-      and v5mq must launch, v5 must not;
+      24-layer depth, the prefill frame (a cached one too until PR 9).
+      Flash, v7 and v5mq must launch, v5 must not;
   (l) slice-fp8kv (`--oar_kv_dtype float8_e4m3fn`, through the CLI's code
       path: flash and v2) and slice-v1 (int8-quantized but unpacked OAR
       weights on a bf16 cache, through Generator: flash and v1), each the
@@ -76,9 +77,9 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
   (n) slice-bf16kv at debug scale on the card and on the CPU, as (d);
   (o) the reference CLI's default run through the CLI's code path with no
       flag but `--debug --synthetic_data 1 --max_scenes 1
-      --set_num_new_frames 1` and the 24-layer depth (`--model_scale
-      stander`, to keep the script inside its time): full width, B = 1,
-      20-frame fp8 TAR rings,
+      --set_num_new_frames 1`, its TAR and OAR stacks cut to 6 layers
+      (`DEFAULT_RUN_LAYERS`, to keep the script inside its time): full
+      width, B = 1, 20-frame fp8 TAR rings,
       an fp8 OAR cache decoded by the reference's unfused body for all 2202
       positions, int8 decode weights, top-k.  Flash must launch and no
       decode kernel; prints the frame's time, the eager step's wall ms over
@@ -114,7 +115,29 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
       window with map and image forced, on the card and on the CPU, as (d):
       agent control (trajectory and three agents' boxes under
       `control_test`) in cached and in recompute mode, and the video task's
-      `--init_token_mod map,image` replay.
+      `--init_token_mod map,image` replay;
+  (u) speculative decoding (`--speculative_k 8 --sample_method greedy`
+      with the flags of (c)), UMGen_Large, B = 1, the prefill frame and a
+      cached one: every verify chunk one v5mq launch at Q = 8 (launches =
+      chunks + 3 pushes a frame), no other decode kernel; then the same run
+      without speculation, against whose stream every run of differing
+      positions of the prefill frame must start at a near tie
+      (SPEC_GAP_ULPS_36); prints the frame times, chunks, accepted drafts
+      and the share of equal tokens;
+  (v) W4 TAR weights on int2 rings (`--tar_w4 --kv_dtype int2
+      --fused_oar`), UMGen_Large, B = 2, the full-window prefill and a
+      cached frame: flash, v5 and v5mq launch; prints the frame times, the
+      peak memory and the TAR-family weights' and rings' bytes (every CLI
+      phase prints these);
+  (w) at debug scale, card against CPU as (d), map and image forced:
+      speculation on the serving configuration (w4mq verify chunks, B = 2)
+      and on the int4 OAR cache (w4mqi4, B = 1), W4 TAR weights on int2
+      rings (two frames: the full-window prefill, a cached frame), and the
+      relative temporal PE (a seeded nonzero `tpe_rel`): a cached frame
+      after a chunked window and a recompute frame; the card's run must
+      launch the named decode kernels.  Phase b holds every mq kernel at Q
+      = 8, the speculative chunk, on the views the chunks read (K slack
+      rows past a segment's end).
 
 Prints each phase's results, the card's name and power limit, a JSON line
 describing the kernels, and as its last line
@@ -533,8 +556,12 @@ def _decode_params(dev):
 # B = 10 also half-full, beside w4 at the serving shape; 6-row chunks that
 # end on an S-block's last row (552, 1104, 2208).  The int4-cache kernels
 # at both configurations' shapes, at cache lengths on either side of the
-# first S-block edge (552 rows at S = 2208), and Q = 8 at B = 1, the widest
-# chunk the entry admits (Q·H = 128).
+# first S-block edge (552 rows at S = 2208).  Speculative verify chunks
+# (Q = 8, the widest chunk the entry admits: Q·H = 128) of every mq kernel
+# at B = 1 and 10 on the segment views they read: the bbox segment's (S =
+# 1693 + 8 slack rows, cache_len 1100) and the image segment's (S = 2207 +
+# 8, cache_len 2205, its last chunk: 8 rows written past the segment's end).
+VERIFY_S = {1100: 1701, 2205: 2215}
 DECODE_CASES = (
     [("v5", B, 1, cl) for B in (1, 2) for cl in (0, 1100, 2206)]
     + [("v5", 10, 1, 0), ("v5", 10, 1, 1100)]
@@ -552,7 +579,8 @@ DECODE_CASES = (
     + [(f"{k}mqi4", B, Q, cl) for k in ("v5", "w4") for B in (1, 10)
        for Q in (2, 6) for cl in (0, 1100, 2208 - Q)]
     + [(f"{k}mqi4", B, 6, 546) for k, B in (("v5", 1), ("w4", 10))]
-    + [(f"{k}mqi4", 1, 8, 1100) for k in ("v5", "w4")])
+    + [(k, B, 8, cl) for k in ("v5mq", "w4mq", "v5mqi4", "w4mqi4")
+       for B in (1, 10) for cl in VERIFY_S])
 
 
 def _random_cache(g, dev, int4, L, B, S, d, H):
@@ -646,11 +674,11 @@ def phase_decode(dev, cfg, packs, visible):
     import torch
     from umgen_tpu_torch.ops import decode_kernel as dk
     L, d, H = cfg.n_oar_layer, cfg.n_embd, cfg.n_head
-    S = 2208
     g = torch.Generator(device=dev)
     g.manual_seed(2)
     rows, profiles = {}, {}
     for name, B, Q, cl in DECODE_CASES:
+        S = VERIFY_S[cl] if Q == 8 else 2208
         int4 = name.endswith("i4")
         packing = "w4" if name.startswith("w4") else "v5"
         packed, vis = packs[packing], visible[packing]
@@ -696,8 +724,13 @@ def phase_decode(dev, cfg, packs, visible):
         h1 = fn(one, x, *(t[:1].clone() for t in ck), cl, n_head=H)[0]
         h1ref = plain(one, [t[:1].clone() for t in cp])
         h = fn(packed, x, *ck, cl, n_head=H)[0]
+        torch.cuda.synchronize()
+        # the plain step is no yardstick of speed: the run that gives the
+        # reference, after its one-layer run, timed once
+        t0 = time.perf_counter()
         href = plain(packed, cp)
         torch.cuda.synchronize()
+        pms = 1e3 * (time.perf_counter() - t0)
         rel1 = ((h1.float() - h1ref.float()).abs().max()
                 / h1ref.float().abs().max()).item()
         err = (h.float() - href.float()).abs().max().item()
@@ -732,10 +765,8 @@ def phase_decode(dev, cfg, packs, visible):
             profiles[name] = _step_profile(
                 lambda: fn(packed, x, *ck, cl, n_head=H), L,
                 f"{name} steps, B = {B}, cache_len 1100")
-        # the plain step is no yardstick of speed: one run, already warm
-        pms = _time_ms(lambda: plain(packed, cp), 1, warmup=0)
         rows.setdefault(name, []).append({
-            "B": B, "Q": Q, "cache_len": cl, "max_abs_err": err,
+            "B": B, "Q": Q, "cache_len": cl, "S": S, "max_abs_err": err,
             "rel_err": rel, "rel_err_1_layer": rel1,
             "kv_max_err_all_layers": dkv.max().item(),
             "scale_max_err_all_layers": dsc.max().item(),
@@ -745,7 +776,7 @@ def phase_decode(dev, cfg, packs, visible):
             "attn_planted_faults": faults,
             "ms": ms, "plain_ms": pms, "library_ms": None,
             **_bound(*decode_work(name, L, d, H, B, Q, cl))})
-        print(f"(b) {name} B={B} Q={Q} cache_len={cl}: h rel err "
+        print(f"(b) {name} B={B} Q={Q} cache_len={cl} S={S}: h rel err "
               f"{rel1:.3g} (1 layer) / {rel:.3g} ({L} layers, max abs "
               f"{err:.3g}), new K/V rows max err layer 0 {dkv0} / all "
               f"layers {dkv.max().item()}"
@@ -937,7 +968,8 @@ def phase_variants(dev, cfg, packs, visible):
 def _drive(model, params, cond, device, step, sampler, gen_kw=None):
     """The path the card-against-CPU phases drive, on either side, with
     `sampler` in every sampler slot: one frame step ("prefill", "chunked"
-    or "recompute"), or ("generate") `Generator.generate(cond, **gen_kw)`.
+    or "recompute"; gen_kw {"forced": {mod: [B, len]}} teacher-forces those
+    segments), or ("generate") `Generator.generate(cond, **gen_kw)`.
     Returns its tokens, ego logits and TAR priors on the CPU (a rollout's
     priors stacked frame by frame, its ego logits None)."""
     import numpy as np
@@ -964,12 +996,16 @@ def _drive(model, params, cond, device, step, sampler, gen_kw=None):
     inputs = {m: torch.as_tensor(v, dtype=torch.long, device=device)
               for m, v in cond.items()}
     g = torch.Generator(device)
+    kw = {"forced_tokens": {m: torch.as_tensor(v, dtype=torch.long,
+                                               device=device)
+                            for m, v in gen_kw["forced"].items()}} \
+        if gen_kw else {}
     if step == "recompute":
-        out = ro.frame_step(params, inputs, g)
+        out = ro.frame_step(params, inputs, g, **kw)
     else:
         fn = ro.frame_step_chunked if step == "chunked" else \
             ro.frame_step_prefill
-        out = fn(params, inputs, g)[0]
+        out = fn(params, inputs, g, **kw)[0]
     return {k: getattr(out, k).cpu()
             for k in ("tokens", "ego_logits", "prior_seq")}
 
@@ -1007,7 +1043,7 @@ class _CardVsCpu:
     every decision's logits must agree within the bounds."""
 
     def __init__(self, dev, cfg, params, step, B, T, tag, rtol_priors,
-                 rtol_logits, work_dir, cond=None, gen_kw=None):
+                 rtol_logits, work_dir, cond=None, gen_kw=None, must=None):
         import multiprocessing
 
         import torch
@@ -1035,8 +1071,12 @@ class _CardVsCpu:
             return tok
 
         t0 = time.perf_counter()
+        _reset_launches()
         self.run = _drive(model, params, cond, dev, step, sampler, gen_kw)
         self.device_s = time.perf_counter() - t0
+        # `must`: the decode kernels the card's run has to launch, and no
+        # other (flash always)
+        self.launches = None if must is None else _launches(must)
         self.job = os.path.join(work_dir, f"replay_{tag}.pt")
         torch.save({"cfg": cfg, "params": to_cpu(params), "cond": cond,
                     "tokens": tokens, "step": step, "gen_kw": gen_kw},
@@ -1081,7 +1121,8 @@ class _CardVsCpu:
         res = {"decisions": n, "ego_logits_rel_err": err_ego,
                "priors_rel_err": err_pri, "logits_rel_err_max": errs[worst],
                "logits_rel_err_mean": sum(errs) / n, "tokens_equal": same,
-               "device_s": self.device_s, "cpu_s": cpu["seconds"]}
+               "device_s": self.device_s, "cpu_s": cpu["seconds"],
+               "launches": self.launches}
         print(f"({self.tag}) {self.cfg.n_tar_layer}-layer stacks, "
               f"{self.step}, "
               f"B={self.B}, on {self.dev} vs the CPU: ego logits rel err "
@@ -1170,6 +1211,89 @@ def phase_control_reference(dev, work_dir, tag):
                       B=1, T=2, tag=tag, rtol_priors=REF_RTOL_PRIORS,
                       rtol_logits=REF_RTOL_LOGITS, work_dir=work_dir,
                       cond=cond, gen_kw=kw)
+
+
+# phase w: the options of this slice at debug scale, card against CPU.  Map
+# and image are teacher-forced (the decode is the 660 box positions, which
+# keeps the CPU sides short); speculation runs on the serving configuration
+# (W4A8 OAR weights, int4 rings: phase f's bounds, the ring type sets them)
+# with the int8 OAR cache (w4mq verify chunks, B = 2) and the int4 one
+# (w4mqi4, B = 1); W4 TAR weights on int2 rings roll two frames after a
+# 2-frame window (the full-window prefill freezes the equalizers, the
+# second frame reads the rings); the relative PE (a seeded nonzero tpe_rel)
+# decodes one frame read from 2-frame rings after a chunked 3-frame window,
+# and one recompute frame over a 3-frame window.  The
+# int2 rings keep phase f's bounds too: a K/V value a bf16 ulp apart
+# between the devices lands one level apart in ~0.1% of a ring (CPU against
+# JAX: tests/test_torch_tar_options.py).
+OPTION_CASES = {
+    "w-spec-serving": dict(kernels=("w4mq",), B=2),
+    "w-spec-i4": dict(kernels=("w4mqi4",), B=1, oar_cache_dtype="int4"),
+    "w-w4-int2": dict(kernels=("v5", "v5mq"),
+                      cfg=dict(tar_cache_dtype="int2", tar_cache_window=2)),
+    "w-relative-cached": dict(kernels=("v5", "v5mq"), step="chunked",
+                              cfg=dict(temporal_pe_mode="relative",
+                                       tar_cache_window=2)),
+    "w-relative-recompute": dict(kernels=("v5", "v5mq"), step="recompute",
+                                 cfg=dict(temporal_pe_mode="relative",
+                                          tar_mode="recompute")),
+}
+
+
+def phase_options_reference(dev, work_dir, tag):
+    """(w) one case of OPTION_CASES on the card and on the CPU, as (d); the
+    card's run must launch the case's decode kernels and no other.
+    Returns the started _CardVsCpu."""
+    import torch
+    from umgen_tpu_torch.config import ModelConfig
+    from umgen_tpu_torch.data.synthetic import make_token_batch
+    from umgen_tpu_torch.models.umgen import UMGen
+    from umgen_tpu_torch.runtime.quantize import quantize_params_w4
+    from umgen_tpu_torch.tools.evaluate import serving_params
+    case = OPTION_CASES[tag]
+    if tag.startswith("w-spec"):
+        cfg = ModelConfig(sample_method="greedy", tar_mode="temporal_cache",
+                          tar_cache_dtype="int4",
+                          oar_cache_dtype=case.get("oar_cache_dtype",
+                                                   "int8"),
+                          fused_oar_kernel=True, chunked_prefill=True,
+                          tar_cache_window=2, speculative_k=8
+                          ).scaled("debug")
+        g = torch.Generator(device=dev)
+        g.manual_seed(6)
+        params = serving_params(cfg, g, dev)
+        layout = UMGen(cfg).layout
+        nxt = make_token_batch(layout, T=1, B=case["B"], seed=1, config=cfg)
+        return _CardVsCpu(
+            dev, cfg, params, "chunked", B=case["B"], T=3, tag=tag,
+            rtol_priors=SERVE_RTOL_PRIORS, rtol_logits=SERVE_RTOL_LOGITS,
+            work_dir=work_dir, must=case["kernels"],
+            gen_kw={"forced": {m: nxt[m][:, 0] for m in ("map", "image")}})
+    cfg = _slice_cfg(**case["cfg"])
+    params = _reference_params(dev, cfg, 7)
+    if cfg.tar_cache_dtype == "int2":
+        params = quantize_params_w4(params)
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    params["tpe_rel"] = 0.5 * torch.randn(params["tpe_rel"].shape,
+                                          generator=g, device=dev)
+    layout = UMGen(cfg).layout
+    step = case.get("step", "generate")
+    T = 2 if step == "generate" else 3
+    cond = make_token_batch(layout, T=T, B=1, seed=0, config=cfg)
+    nxt = make_token_batch(layout, T=2, B=1, seed=1, config=cfg)
+    forced = ("map", "image")
+    kw = dict(new_frames=2, cond_frames=2, input_cond_frames=2,
+              forced_streams={m: nxt[m] for m in forced}) \
+        if step == "generate" else {"forced": {m: nxt[m][:, 0]
+                                               for m in forced}}
+    rtol = (SERVE_RTOL_PRIORS, SERVE_RTOL_LOGITS) \
+        if cfg.tar_cache_dtype == "int2" else (REF_RTOL_PRIORS,
+                                               REF_RTOL_LOGITS)
+    return _CardVsCpu(dev, cfg, params, step, B=1, T=T, tag=tag,
+                      rtol_priors=rtol[0], rtol_logits=rtol[1],
+                      work_dir=work_dir, cond=cond, gen_kw=kw,
+                      must=case["kernels"])
 
 
 def phase_serving_reference(dev, work_dir, tag="f", oar_cache_dtype="int8",
@@ -1400,29 +1524,66 @@ def _cli_frames(dev, out_dir, argv, tag, what, must, frames, B=1):
     _check_tokens(out_dir, scenes=B, frames=20 + frames)
     frame_s = list(gen.frame_seconds)
     rest = [f - o for f, o in zip(frame_s, split.oar_s)]
+    tar_b, ring_b = _tar_bytes(gen, B)
     print(f"({tag}) {what}: per-frame seconds "
           f"{', '.join(f'{s:.2f}' for s in frame_s)}, of which the OAR "
           f"decode {', '.join(f'{s:.2f}' for s in split.oar_s)} and ego + "
           f"TAR {', '.join(f'{s:.2f}' for s in rest)}; peak device memory "
-          f"{peak / 2**30:.2f} GiB; launches {launches}; whole run "
-          f"{secs:.1f} s")
+          f"{peak / 2**30:.2f} GiB; TAR-family weights "
+          f"{tar_b / 2**30:.3f} GiB, rings {ring_b / 2**30:.3f} GiB; "
+          f"launches {launches}; whole run {secs:.1f} s")
     return {"frame_seconds": frame_s, "oar_seconds": split.oar_s,
             "tar_seconds": rest, "max_memory_allocated": peak,
+            "tar_weight_bytes": tar_b, "ring_bytes": ring_b,
             "launches": launches, "seconds": secs}, gen, split
 
 
+def _tar_bytes(gen, B):
+    """(bytes of the TAR-family weights — runtime.quantize.TAR_STACK_KEYS —
+    in the run's params, bytes of the B scenes' ego and TAR rings of its
+    configuration: built on the meta device, nothing allocated)."""
+    from umgen_tpu_torch.runtime.quantize import TAR_STACK_KEYS
+
+    def nbytes(t):
+        if isinstance(t, dict):
+            return sum(nbytes(v) for v in t.values())
+        if isinstance(t, (tuple, list)):
+            return sum(nbytes(v) for v in t)
+        return t.numel() * t.element_size() if hasattr(t, "numel") else 0
+
+    rings = {} if gen.model.config.tar_mode == "recompute" else \
+        gen.model.init_tar_cache(B, device="meta")
+    return (nbytes({k: gen.params[k] for k in TAR_STACK_KEYS
+                    if k in gen.params}), nbytes(rings))
+
+
+# phase o's depth: its TAR and OAR stacks cut to 6 layers (the CLI's
+# smallest named scale has 24; 36 until PR 8, 24 in PR 9), the map / box /
+# ego stacks as they are
+DEFAULT_RUN_LAYERS = 6
+
+
 def phase_default_run(dev, out_dir):
-    """(o) the reference CLI's default run: no flag but the run's size and
-    the 24-layer depth (`--model_scale stander`)."""
-    res, gen, split = _cli_frames(
-        dev, out_dir, ["--model_scale", "stander"], "o", "the reference "
-        "CLI's default run at the 24-layer scale (B=1, fp8 rings, the "
-        "unfused decode on an fp8 OAR cache, int8 decode weights, top-k)",
-        must=(), frames=1)
+    """(o) the reference CLI's default run: no flag but the run's size, its
+    TAR and OAR stacks cut to DEFAULT_RUN_LAYERS (the CLI's config with the
+    depth replaced, the rest of its code path as it is)."""
+    from umgen_tpu_torch.tools import evaluate
+    config_from_args = evaluate.config_from_args
+    evaluate.config_from_args = lambda args: config_from_args(args).replace(
+        n_tar_layer=DEFAULT_RUN_LAYERS, n_oar_layer=DEFAULT_RUN_LAYERS)
+    try:
+        res, gen, split = _cli_frames(
+            dev, out_dir, ["--model_scale", "stander"], "o", "the reference "
+            f"CLI's default run at {DEFAULT_RUN_LAYERS} TAR / OAR layers "
+            "(B=1, fp8 rings, the unfused decode on an fp8 OAR cache, int8 "
+            "decode weights, top-k)", must=(), frames=1)
+    finally:
+        evaluate.config_from_args = config_from_args
     cfg = gen.model.config
     want = {"tar_mode": "temporal_cache", "tar_cache_dtype": "float8_e4m3fn",
             "oar_cache_dtype": "float8_e4m3fn", "fused_oar_kernel": False,
-            "n_oar_layer": 24, "n_embd": 768, "sample_method": "topk"}
+            "n_oar_layer": DEFAULT_RUN_LAYERS, "n_embd": 768,
+            "sample_method": "topk"}
     got = {k: getattr(cfg, k) for k in want}
     if got != want or "oar_packed" in gen.params:
         raise AssertionError(f"default run {got}, expected {want}, unpacked")
@@ -1490,6 +1651,154 @@ def phase_refresh(dev, out_dir, recompute_tokens):
         res["equal_to_recompute"][frame - 19] = float((a == b).mean())
     print(f"(q) share of tokens equal to (p)'s recompute stream, by frame "
           f"(a record, not a gate): {res['equal_to_recompute']}")
+    return res
+
+
+SLICE_FLAGS = ["--infer_task", "video", "--model_scale", "larger",
+               "--fused_oar", "--kv_dtype", "bfloat16", "--int8", "decode"]
+# speculative against sequential greedy streams in bf16: a stream may leave
+# the other only where the sequential decision's top-2 logits lie within
+# this many bf16 ulps of the top one: through one layer (the card test at
+# debug scale) tests/test_torch_slice.py's GAP_ULPS; through 36 a Q = 8
+# verify's h drifts from a Q = 1 step's as phase b's 36-layer readings do
+# (up to 6.5% of its scale, int8 requantization flips compounding layer by
+# layer; DECODE_RTOL_36), and the logits with it: 16 ulps (2^-4).  This
+# bound was set after the first full-depth reading (7 ulps), from that
+# spread.  Only the prefill frame is held to it: the cached frame reads a
+# window holding each run's own first frame
+SPEC_GAP_ULPS = 4
+SPEC_GAP_ULPS_36 = 16
+
+
+class _GreedyLog:
+    """A greedy sampler that keeps each decision's top-2 logits [B, 2]."""
+
+    def __init__(self):
+        self.top2 = []
+
+    def __call__(self, generator, logits):
+        import torch
+        self.top2.append(torch.topk(logits.float(), 2, dim=-1).values)
+        return torch.argmax(logits, dim=-1)
+
+
+def spec_divergences(mine, ref, top2, frames, first=20):
+    """Speculative tokens `mine` against the sequential run's `ref` (token
+    pickles) and its decisions' top-2 logits (3517 a frame: the ego
+    action, 1024 map, 660 × (OAR, control, TAR) box, 512 image decisions).
+    Per frame: the share of equal tokens, the runs of differing positions
+    of each segment, and each run's first position's top-2 gap in bf16 ulps
+    (the box positions' smaller of the OAR and TAR decisions' gaps)."""
+    import numpy as np
+    # scene 0's top-2 of each decision (the ego action's first token)
+    gaps = np.stack([t.reshape(-1, 2)[0].cpu().numpy() for t in top2])
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(gaps[:, 0]),
+                                              2.0 ** -3))) - 7)
+    gap_ulps = (gaps[:, 0] - gaps[:, 1]) / ulp
+    per_frame = 1 + 1024 + 3 * 660 + 512
+    out = {}
+    for f in range(frames):
+        base = f * per_frame
+        decision = {"map": base + 1 + np.arange(1024),
+                    "bbox3d": base + 1025 + 3 * np.arange(660),
+                    "image": base + 1025 + 1980 + np.arange(512)}
+        equal, starts = [], []
+        for m, idx in decision.items():
+            a = np.asarray(mine[m])[0, first + f]
+            b = np.asarray(ref[m])[0, first + f]
+            diff = a != b
+            equal.append(~diff)
+            g = gap_ulps[idx]
+            if m == "bbox3d":                  # the OAR or the TAR decision
+                g = np.minimum(g, gap_ulps[idx + 2])
+            run0 = diff & ~np.concatenate([[False], diff[:-1]])
+            starts += [(m, int(p), float(g[p])) for p in np.nonzero(run0)[0]]
+        out[f + 1] = {"equal": float(np.concatenate(equal).mean()),
+                      "runs": len(starts),
+                      "worst_run_start": max(starts, key=lambda r: r[2],
+                                             default=None)}
+    return out
+
+
+def phase_speculative(dev, out_dir, seq_dir, K=8, frames=2):
+    """(u) speculative decoding at full width and depth: the bf16-ring
+    slice's flags, greedy, `--speculative_k 8`, B = 1, the prefill frame and
+    a cached one through the CLI's code path.  Every verify chunk must be
+    one v5mq launch at Q = K (launches = chunks + 3 pushes a frame) and no
+    other decode kernel may launch; then the same run without speculation
+    (v5, v5mq), its prefill frame only (the cached frame reads a window
+    holding each run's own first frame).  Greedy bf16 logits tie often,
+    and a Q = K verify sums in another order than a Q = 1 step, so the two
+    streams part at near ties and join again: every run of positions where
+    the prefill frames differ must start at a decision of the sequential
+    run whose top-2 logits lie within SPEC_GAP_ULPS_36; the share of equal
+    tokens is printed."""
+    from umgen_tpu_torch.models import rollout as rollout_mod
+    from umgen_tpu_torch.ops import decode_kernel as dk
+    flags = SLICE_FLAGS + ["--sample_method", "greedy"]
+    calls = []
+    real = dk.fused_decode_step_v5mq
+
+    def counted(packed, x, *a, **k):
+        calls.append(x.shape[1])
+        return real(packed, x, *a, **k)
+
+    dk.fused_decode_step_v5mq = counted
+    try:
+        res, gen, _ = _cli_frames(
+            dev, out_dir, flags + ["--speculative_k", str(K)], "u",
+            f"speculative decoding, K={K}, greedy, UMGen_Large, B=1",
+            must=("v5mq",), frames=frames)
+    finally:
+        dk.fused_decode_step_v5mq = real
+    chunks, acc = gen.spec_chunks, gen.spec_accepted
+    n = res["launches"]["fused_decode_step_v5mq"]
+    if not (calls.count(K) == chunks == n - 3 * frames
+            and len(calls) == n and chunks >= 2196 * frames // K):
+        raise AssertionError(f"{chunks} chunks, {n} v5mq launches, Q of "
+                             f"the calls {sorted(set(calls))}: every verify "
+                             f"chunk must be one v5mq launch at Q={K}")
+    log, make = _GreedyLog(), rollout_mod.make_sampler
+    rollout_mod.make_sampler = lambda *a, **k: log
+    try:
+        seq, _, _ = _cli_frames(dev, seq_dir, flags, "u-seq", "the same "
+                                "run without speculation, the prefill "
+                                "frame", must=("v5", "v5mq"), frames=1)
+    finally:
+        rollout_mod.make_sampler = make
+    div = spec_divergences(_load_tokens(out_dir)[0], _load_tokens(seq_dir)[0],
+                           log.top2, 1)
+    res.update(chunks=chunks, accepted=acc, drafts_per_chunk=acc / chunks,
+               v5mq_launches_per_frame=n / frames, against_sequential=div,
+               sequential=seq)
+    print(f"(u) {chunks} verify chunks, {acc} drafts accepted "
+          f"({acc / chunks:.3f} a chunk), {n / frames:.0f} v5mq launches a "
+          f"frame; the prefill frame against the sequential greedy run's "
+          f"(share of equal tokens, runs of differing positions, the run "
+          f"start with the widest top-2 gap: segment, position, bf16 ulps): "
+          f"{div[1]}")
+    far = div[1]["worst_run_start"]
+    if far and far[2] > SPEC_GAP_ULPS_36:
+        raise AssertionError(f"the speculative stream leaves the sequential "
+                             f"one where its top-2 gap is no near tie: {far}")
+    return res
+
+
+def phase_tar_options(dev, out_dir, scale="larger"):
+    """(v) W4 TAR weights on int2 rings, full width: `--tar_w4 --kv_dtype
+    int2 --fused_oar`, B = 2, the full-window prefill (the rings' channel
+    equalizers frozen from it) and a cached frame through the CLI's code
+    path; flash, v5 and v5mq launch."""
+    res, gen, _ = _cli_frames(
+        dev, out_dir, ["--infer_task", "video", "--model_scale", scale,
+                       "--fused_oar", "--kv_dtype", "int2", "--tar_w4",
+                       "--int8", "decode", "--sample_method", "topk"], "v",
+        f"W4 TAR weights, int2 rings, --model_scale {scale}, B=2",
+        must=("v5", "v5mq"), frames=2, B=2)
+    tar = gen.params["tar"]["ta"]["qkv"]
+    if gen.model.config.tar_cache_dtype != "int2" or "wq4" not in tar:
+        raise AssertionError("phase v must run group-int4 TAR weights on "
+                             "int2 rings")
     return res
 
 
@@ -1799,7 +2108,7 @@ SERVING_FLAGS = [
     "--infer_task", "video", "--model_scale", "larger", "--fused_oar",
     "--kv_dtype", "int4", "--int8", "all", "--chunked_prefill",
     "--tar_cache_window", "8", "--debug", "--synthetic_data", "10",
-    "--max_scenes", "10", "--set_num_new_frames", "2", "--batch_size", "10",
+    "--max_scenes", "10", "--set_num_new_frames", "1", "--batch_size", "10",
     "--sample_method", "topk"]
 
 
@@ -1846,7 +2155,7 @@ def phase_serving(dev, out_dir, tag="e", oar_int4=False):
     secs = time.perf_counter() - t0
     launches = _launches(("w4i4", "w4mqi4") if oar_int4 else ("w4", "w4mq"))
     peak = torch.cuda.max_memory_allocated()
-    _check_tokens(out_dir, scenes=10, frames=22)
+    _check_tokens(out_dir, scenes=10, frames=21)
     [timing] = runner.timings
     frame_s = list(gen.frame_seconds)
     print(f"({tag}) serving configuration, UMGen_Large, B=10, 8-frame int4 "
@@ -1896,7 +2205,11 @@ def main(argv=None) -> int:
                     "recompute_reference default_reference control "
                     "control_reference_control_cached "
                     "control_reference_control_recompute "
-                    "control_reference_init_token_mod; refresh needs "
+                    "control_reference_init_token_mod speculative "
+                    "tar_options options_reference_spec_serving "
+                    "options_reference_spec_i4 options_reference_w4_int2 "
+                    "options_reference_relative_cached "
+                    "options_reference_relative_recompute; refresh needs "
                     "recompute), for work on one of them; prints no result "
                     "line")
     only = ap.parse_args(argv).phases
@@ -1982,15 +2295,26 @@ def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
     rollout("rollout")
     rollout("rollout_i4", tag="h", new_frames=1,
             flags=("--oar_kv_dtype", "int4"), must=("v5i4", "v5mqi4"))
-    rollout("rollout_bf16kv", tag="j", scale="stander",
+    rollout("rollout_bf16kv", tag="j", scale="stander", new_frames=1,
             flags=("--oar_kv_dtype", "bfloat16"), must=("v2",))
     rollout("rollout_v7", tag="k", flags=("--oar_kernel", "7"), B=2,
+            new_frames=1,
             scale="stander", must=("v7", "v5mq"))
     rollout("rollout_fp8kv", tag="l", new_frames=1, scale="stander",
             flags=("--oar_kv_dtype", "float8_e4m3fn"), must=("v2",))
     if want("rollout_v1"):
         with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
             report["rollout_v1"] = phase_slice_v1(dev, out_dir)
+        torch.cuda.empty_cache()
+    # speculative decoding (u), W4 TAR weights on int2 rings (v)
+    if want("speculative"):
+        with tempfile.TemporaryDirectory(dir=ROOT) as out_dir, \
+                tempfile.TemporaryDirectory(dir=ROOT) as seq_dir:
+            report["speculative"] = phase_speculative(dev, out_dir, seq_dir)
+        torch.cuda.empty_cache()
+    if want("tar_options"):
+        with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+            report["tar_options"] = phase_tar_options(dev, out_dir)
         torch.cuda.empty_cache()
     # the reference's own window semantics (o, p, q)
     if want("rollout_default"):
@@ -2038,6 +2362,11 @@ def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
         if want(key):
             pending[key] = phase_control_reference(dev, work_dir, tag)
             torch.cuda.empty_cache()
+    for tag in OPTION_CASES:                        # (w)
+        key = "options_reference_" + tag[2:].replace("-", "_")
+        if want(key):
+            pending[key] = phase_options_reference(dev, work_dir, tag)
+            torch.cuda.empty_cache()
     serving("serving")
     serving("serving_i4", tag="g", oar_int4=True)
     t_wait = time.perf_counter()
@@ -2070,6 +2399,7 @@ def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
 
     dec = report["decode"]
     slice1 = report["rollout"]["launches"]        # the bf16-ring slice (c)
+    spec = report["speculative"]["launches"]      # speculation, K = 8 (u)
     serve = report["serving"]["launches"]         # the serving path (e)
     serve4 = report["serving_i4"]["launches"]     # serving-i4 (g)
     slice4 = report["rollout_i4"]["launches"]     # slice-i4 (h)
@@ -2088,7 +2418,7 @@ def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
          **{k: f1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")}},
         entry("v5", 1363, slice1, B=1, cache_len=1100),
-        entry("v5mq", 3411, slice1, B=1, Q=6),
+        entry("v5mq", 3411, spec, B=1, Q=8, cache_len=1100),
         entry("w4", 2034, serve, B=10, cache_len=1100),
         entry("w4mq", 3488, serve, B=10, Q=6, cache_len=0),
         entry("v5i4", 2588, slice4, B=1, cache_len=1100),

@@ -936,3 +936,113 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# speculative verify chunks: Q = 8 (Q·H = 128) on the segment views the
+# chunks read, K = 8 slack rows past the segment's end (the bbox segment's,
+# S = 1693 + 8, and the image segment's last chunk, S = 2207 + 8, rows
+# 2205..2212 written)
+VERIFY_CASES = [(1, 1100, 1701), (10, 1100, 1701), (1, 2205, 2215),
+                (10, 2205, 2215)]
+
+
+@pytest.mark.parametrize("kind", ["v5", "w4"])
+@pytest.mark.parametrize("cache", ["int8", "int4"])
+@pytest.mark.parametrize("B,cache_len,S", VERIFY_CASES)
+def test_mq_kernels_take_verify_chunks(cuda_device, kind, cache, B,
+                                       cache_len, S):
+    """v5mq / w4mq / v5mqi4 / w4mqi4 at Q = 8 on a view with slack rows,
+    one layer at the model's width, against the plain version: h within
+    2e-2 of its scale (chip_smoke.py phase b's one-layer bound), the 8 new
+    rows equal up to a rounding tie (int8) or bit for bit (int4 nibbles and
+    scales), every other row — the slack rows past the chunk too —
+    untouched."""
+    dev = cuda_device
+    packs = dict(zip(("v5", "w4"), _oar_packs(dev)))
+    packed = packs[kind]
+    g = torch.Generator(device=dev).manual_seed(3)
+    if cache == "int8":
+        kv = list(torch.randint(-100, 101, (2, 1, B, S, 768), generator=g,
+                                device=dev, dtype=torch.int8))
+        name = f"fused_decode_step_{kind}mq"
+    else:
+        rows = 0.5 * torch.randn(2, 1, B, S, 768, generator=g, device=dev)
+        (kp, ks), (vp, vs) = (tdk.quantize_kv_int4(r, 16) for r in rows)
+        kv = [kp, vp, ks, vs]
+        name = f"fused_decode_step_{kind}mqi4"
+    x = torch.randn(B, 8, 768, generator=g, device=dev).bfloat16()
+    mine = [t.clone() for t in kv]
+    n0 = tdk.LAUNCHES[name]
+    h = getattr(tdk, name)(packed, x, *mine, cache_len, n_head=16)[0]
+    assert tdk.LAUNCHES[name] == n0 + 1
+    ref_kv = [t.clone() for t in kv]
+    ref = tdk.decode_step_plain(packed, x, ref_kv[0], ref_kv[1], cache_len,
+                                16, *ref_kv[2:])
+    rel = ((h.float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    assert math.isfinite(rel) and rel <= 2e-2
+    new = slice(cache_len, cache_len + 8)
+    for got, want in zip(mine, ref_kv):
+        if cache == "int8":
+            d = (got[:, :, new].int() - want[:, :, new].int()).abs().max()
+            assert d <= 1
+        else:
+            assert torch.equal(got[:, :, new], want[:, :, new])
+    for got, orig in zip(mine, kv):
+        assert torch.equal(got[:, :, :cache_len], orig[:, :, :cache_len])
+        assert torch.equal(got[:, :, cache_len + 8:],
+                           orig[:, :, cache_len + 8:])
+
+
+def test_greedy_speculative_frame_on_the_card(cuda_device):
+    """One greedy frame at debug scale (full width, one layer a stack; the
+    fused int8 decode, bf16 rings) with `speculative_k` = 8 on the card:
+    every verify chunk one v5mq launch at Q = 8 (and the three pushes), the
+    tokens inside their vocabularies, and against the sequential decode's
+    stream: bf16 logits tie often and a Q = 8 verify sums in another order
+    than a Q = 1 step, so the streams may part, but every run of differing
+    positions starts at a sequential decision whose top-2 logits lie within
+    4 bf16 ulps (chip_smoke.py `spec_divergences`, SPEC_GAP_ULPS)."""
+    from chip_smoke import SPEC_GAP_ULPS, _GreedyLog, spec_divergences
+    from umgen_tpu_torch.config import ModelConfig
+    from umgen_tpu_torch.data.synthetic import make_token_batch
+    from umgen_tpu_torch.models.rollout import Rollout
+    from umgen_tpu_torch.models.umgen import UMGen
+    from umgen_tpu_torch.params import init_params
+    from umgen_tpu_torch.runtime.quantize import pack_fused
+    cfg = ModelConfig(sample_method="greedy", tar_mode="temporal_cache",
+                      tar_cache_dtype="bfloat16", oar_cache_dtype="int8",
+                      fused_oar_kernel=True, tar_cache_window=20
+                      ).scaled("debug")
+    params = _to(pack_fused(quantize_params_int8(init_params(
+        cfg, torch.Generator().manual_seed(3), "cpu"))), cuda_device)
+    lo = UMGen(cfg).layout
+    cond = make_token_batch(lo, T=2, B=1, seed=0, config=cfg)
+    inputs = {m: torch.as_tensor(v, dtype=torch.long, device=cuda_device)
+              for m, v in cond.items()}
+    log, outs = _GreedyLog(), {}
+    for K in (0, 8):
+        ro = Rollout(UMGen(cfg.replace(speculative_k=K)))
+        if not K:
+            ro._samplers = {m: log for m in ro._samplers}
+        n0 = tdk.LAUNCHES["fused_decode_step_v5mq"]
+        outs[K] = ro.frame_step_prefill(params, inputs,
+                                        torch.Generator(cuda_device))[0]
+        launched = tdk.LAUNCHES["fused_decode_step_v5mq"] - n0
+    spec, seq = outs[8], outs[0]
+    assert spec.spec_chunks >= 2196 // 8 and seq.spec_chunks == 0
+    assert launched == spec.spec_chunks + 3
+
+    def by_mod(out):
+        tok = out.tokens.cpu().numpy()
+        return {m: tok[None, :, lo.segment(m).content_start - 1:
+                       lo.segment(m).content_end]
+                for m in ("map", "bbox3d", "image")}
+
+    mine, ref = by_mod(spec), by_mod(seq)
+    for m, V in (("map", 8192), ("bbox3d", 1028), ("image", 8192)):
+        assert mine[m].min() >= 0 and mine[m].max() < V
+    div = spec_divergences(mine, ref, log.top2, 1, first=0)[1]
+    print(div)
+    assert div["worst_run_start"] is None \
+        or div["worst_run_start"][2] <= SPEC_GAP_ULPS, div

@@ -11,6 +11,7 @@ import ast
 import dataclasses
 import os
 import pickle
+import re
 import subprocess
 import sys
 
@@ -54,6 +55,7 @@ def _run_cli(tmp_path, *flags):
     assert {m: v.shape for m, v in out.items()} == {
         "pose": (1, 21, 3), "map": (1, 21, 1024), "bbox3d": (1, 21, 660),
         "image": (1, 21, 512)}
+    return res.stdout
 
 
 def test_port_imports_and_runs_without_jax(tmp_path):
@@ -82,6 +84,21 @@ def test_cli_serves_the_dense_oar_caches_and_v7(tmp_path, flags):
     `--oar_kernel 7` (v7's) on the CPU: a frame decodes, token pickles of
     the right shapes, no JAX imported."""
     _run_cli(tmp_path, *FUSED, *flags)
+
+
+def test_cli_tar_options_and_speculation_stand_alone(tmp_path):
+    """`--speculative_k 4 --tar_w4 --kv_dtype int2 --temporal_pe relative`
+    (the reference CLI's default decode otherwise) on the CPU: a frame
+    decodes, no JAX imported, and the CLI prints the JAX CLI's speculative
+    line (drafts accepted a chunk, the factor of fewer OAR steps)."""
+    out = _run_cli(tmp_path, "--speculative_k", "4", "--tar_w4",
+                   "--kv_dtype", "int2", "--temporal_pe", "relative")
+    line = re.search(r"^speculative: (\d+\.\d\d) drafts accepted/chunk "
+                     r"\(K=4\), (\d+\.\d\d)x fewer OAR steps on "
+                     r"speculative segments$", out, re.M)
+    assert line, out[-2000:]
+    acc, speedup = (float(g) for g in line.groups())
+    assert 0 <= acc <= 4 and speedup == pytest.approx(1 + acc, abs=0.011)
 
 
 _CONTROL_CHILD = """

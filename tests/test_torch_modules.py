@@ -304,11 +304,8 @@ def test_samplers():
 
 @pytest.mark.parametrize("flags,item", [
     (["--oar_kv_dtype", "float16"], "as if it were fp8"),
-    (["--kv_dtype", "int2"], "int2 TAR rings"),
-    (["--speculative_k", "4"], "Speculative decoding"),
     (["--dp", "2"], "Multi-GPU"),
-    (["--tar_w4"], "W4 TAR weights"),
-    (["--temporal_pe", "relative"], "Relative temporal PE"),
+    (["--launcher", "torch"], "--dp, --launcher"),
     (["--oar_batch_block", "5"], "VMEM-driven blockings"),
     (["--oar_kv_dtype", "float32"], "served are int8, int4, bfloat16"),
     (["--profile_dir", "prof"], "Multi-GPU and runtime"),
@@ -350,12 +347,18 @@ def test_cli_rejects_flags_outside_the_port(flags, item):
     ["--fused_oar", "--kv_dtype", "float8_e4m3fn"],
     ["--fused_oar", "--kv_dtype", "bfloat16", "--int8", "off"],
     ["--fused_oar", "--kv_dtype", "bfloat16", "--tar_cache_refresh", "2"],
+    # speculative decoding, W4 TAR weights, int2 rings, the relative PE
+    ["--fused_oar", "--kv_dtype", "bfloat16", "--speculative_k", "8"],
+    ["--speculative_k", "4", "--no_spec_bbox"],
+    ["--fused_oar", "--kv_dtype", "int2", "--tar_w4", "--int8", "all"],
+    ["--kv_dtype", "int2", "--temporal_pe", "relative", "--tpe_clamp", "9"],
 ])
 def test_cli_serves_flag_sets_as_jax_maps_them(flags):
     """The served flag sets (the reference CLI's default run, recompute
-    mode, fp8 / int4 rings, ring refresh, --int8 off, int8 on every stack,
-    chunked prefill, a ring window, any batch, the int4 / bfloat16 / fp8 OAR
-    cache, --oar_kernel 7) pass check_args and give the ModelConfig the JAX
+    mode, fp8 / int4 / int2 rings, ring refresh, --int8 off, int8 on every
+    stack, chunked prefill, a ring window, any batch, the int4 / bfloat16 /
+    fp8 OAR cache, --oar_kernel 7, speculative decoding, W4 TAR weights, the
+    relative temporal PE) pass check_args and give the ModelConfig the JAX
     CLI gives them, field for field (the port's own ModelConfig class, so
     compared by fields; with --fused_oar or --kv_dtype int4 the OAR cache
     is int8 unless --oar_kv_dtype asks, without them the rings' type)."""
@@ -371,10 +374,30 @@ def test_cli_serves_flag_sets_as_jax_maps_them(flags):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.oar_cache_dtype == (
         flags[flags.index("--oar_kv_dtype") + 1] if "--oar_kv_dtype" in flags
-        else "int8" if "--fused_oar" in flags else "float8_e4m3fn")
+        else "int8" if "--fused_oar" in flags or "int2" in flags
+        else "float8_e4m3fn")
     assert got.oar_kernel_version == (7 if "--oar_kernel" in flags else 5)
     assert got.tar_mode == ("recompute" if "--tar_mode" in flags
                             else "temporal_cache")
+
+
+def test_cli_still_refuses_multi_gpu_profiling_and_the_videos():
+    """What the port's CLI does not serve after the TAR options and
+    speculation were ported: NotPortedError names `--dp`, `--launcher` and
+    `--profile_dir` with their ROADMAP item, and the run says that the VQ
+    pictures and videos are not written."""
+    for flags, names in ((["--dp", "2"], ("--dp", "Multi-GPU")),
+                         (["--launcher", "mpi"], ("--launcher",)),
+                         (["--profile_dir", "p"], ("--profile_dir",))):
+        args = evaluate.build_parser().parse_args(["--debug"] + flags)
+        with pytest.raises(NotPortedError) as e:
+            evaluate.check_args(args)
+        assert all(n in str(e.value) for n in names), str(e.value)
+    assert "videos are not ported yet" in evaluate.NOT_PORTED_OUTPUTS
+    args = evaluate.build_parser().parse_args(
+        ["--speculative_k", "8", "--no_spec_bbox", "--tar_w4", "--kv_dtype",
+         "int2", "--temporal_pe", "relative"])
+    evaluate.check_args(args)
 
 
 def test_cli_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):

@@ -53,7 +53,7 @@ from umgen_tpu_torch.data.pipeline import ScenePipeline
 from umgen_tpu_torch.models import modules as tnn
 from umgen_tpu_torch.models.generate import Generator
 from umgen_tpu_torch.models.rollout import Rollout
-from umgen_tpu_torch.models.umgen import NotPortedError, UMGen
+from umgen_tpu_torch.models.umgen import UMGen
 from umgen_tpu_torch.ops import decode_kernel as tdk
 from umgen_tpu_torch.params import from_jax
 from umgen_tpu_torch.runtime.quantize import pack_fused
@@ -172,13 +172,16 @@ def test_ego_logits_and_tar_priors_match_jax(window):
 
 
 def test_default_config_constructs():
-    """`UMGen(ModelConfig())`: the config's default is recompute mode."""
+    """`UMGen(ModelConfig())`: the config's default is recompute mode.
+    Every ring type of the JAX package constructs (int2 since the rings
+    were ported); an unknown one is refused by name."""
     cfg = tconfig.ModelConfig()
     assert cfg.tar_mode == "recompute"
     model = UMGen(cfg)
     assert model.t_max == 20
-    with pytest.raises(NotPortedError, match="int2 TAR rings"):
-        UMGen(cfg.replace(tar_cache_dtype="int2"))
+    assert UMGen(cfg.replace(tar_cache_dtype="int2")).ring_q2
+    with pytest.raises(ValueError, match="unknown TAR ring dtype 'int3'"):
+        UMGen(cfg.replace(tar_cache_dtype="int3"))
 
 
 # ---------------------------------------------------------------------------

@@ -53,6 +53,11 @@ class Generator:
         self.frame_seconds: List[float] = []
         # ring rebuilds under tar_cache_refresh
         self.refreshes = 0
+        # speculative decoding, summed over the generated frames: verify
+        # steps and accepted drafts (accepted / chunks drafts a chunk;
+        # sequential decode of the same tokens takes chunks + accepted steps)
+        self.spec_chunks = 0
+        self.spec_accepted = 0
 
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=torch.long,
@@ -157,6 +162,8 @@ class Generator:
                     self.params, {m: v[:, -1:] for m, v in last.items()},
                     cache, self.generator, **step_kw)
             tokens = res.tokens.cpu().numpy()
+            self.spec_chunks += res.spec_chunks
+            self.spec_accepted += res.spec_accepted
             if not (torch.isfinite(res.prior_seq).all()
                     and (res.ego_logits is None
                          or torch.isfinite(res.ego_logits).all())):

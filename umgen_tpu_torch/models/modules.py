@@ -7,8 +7,10 @@ stack is applied with a Python loop over `layer(stack, l)`.
 
 Weight-layout conventions are the JAX package's: linear y = x @ w + b with
 w [in, out]; int8 weight-only leaves are {"wq" int8 [in, out], "ws" f32
-[out]}; attention uses a fused qkv [d, 3d] + bias and an output proj + bias;
-MLPs have no bias; layer norms carry a weight only (eps 1e-5).
+[out]}, group-int4 ones {"wq4" int8 [in/2, out] nibble pairs along the
+input dim, "ws4" f32 [in/G, out]}; attention uses a fused qkv [d, 3d] + bias
+and an output proj + bias; MLPs have no bias; layer norms carry a weight
+only (eps 1e-5).
 
 Numerics follow the reference's: matmuls accumulate in float32 and round to
 the activation dtype once (bias added before the rounding), layer norm and
@@ -56,7 +58,18 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    if "wq" in p:
+    if "wq4" in p:
+        # group-int4 weights (runtime/quantize.py quantize_params_w4):
+        # one layer's [in, out] weight dequantized in the activation dtype,
+        # then the same product as the others
+        packed = p["wq4"]                               # [in/2, out]
+        q = torch.stack([(packed << 4) >> 4, packed >> 4], dim=-2)
+        q = q.reshape(*packed.shape[:-2], 2 * packed.shape[-2],
+                      packed.shape[-1])
+        scale = p["ws4"]                                # [in/G, out]
+        G = q.shape[-2] // scale.shape[-2]
+        w = q.to(x.dtype) * scale.repeat_interleave(G, dim=-2).to(x.dtype)
+    elif "wq" in p:
         # weight-only int8: dequantize in the activation dtype (the bf16
         # product rounds exactly as the reference's does)
         w = p["wq"].to(x.dtype) * p["ws"].to(x.dtype)
@@ -129,14 +142,18 @@ def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         causal: bool) -> torch.Tensor:
+         causal: bool, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scaled dot-product attention over [B, S, H, Dh]: float32 logits,
-    scale 1/√Dh, bottom-right-aligned causal mask when Sq < Sk; the
-    softmax weights round to q's dtype before the value product."""
+    scale 1/√Dh, plus `bias` [H, Sq, Sk] where given (the relative temporal
+    PE, the JAX package's `sdpa_bias`), bottom-right-aligned causal mask
+    when Sq < Sk; the softmax weights round to q's dtype before the value
+    product."""
     B, Sq, H, Dh = q.shape
     Sk = k.shape[1]
     scale = 1.0 / math.sqrt(Dh)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias.float()[None]
     if causal:
         qi = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
         ki = torch.arange(Sk, device=q.device)[None, :]
@@ -170,11 +187,14 @@ def cross_attention(p: Params, q_in: torch.Tensor, kv_in: torch.Tensor,
 # blocks
 # ---------------------------------------------------------------------------
 def block_tar(p: Params, x: torch.Tensor, n_head: int,
-              attn_impl: Callable = sdpa, collect_kv: bool = False):
+              attn_impl: Callable = sdpa, collect_kv: bool = False,
+              t_bias: Optional[torch.Tensor] = None):
     """Full-window factorized block over [B, T, S, D]: spatial (non-causal
     over S) → temporal (causal over T) → spatial, each with its own pre-LN
     and MLP.  Returns y [B, T, S, D], or with `collect_kv` (y, (k, v)): the
-    temporal attention's K/V ([B·S, T, H, Dh] each) for the ring prefill."""
+    temporal attention's K/V ([B·S, T, H, Dh] each) for the ring prefill.
+    t_bias [H, T, T]: the relative temporal PE's logit bias, on the
+    temporal attention only (plain `sdpa`: the kernels take no bias)."""
     B, T, S, D = x.shape
 
     xs = x.reshape(B * T, S, D)
@@ -187,7 +207,10 @@ def block_tar(p: Params, x: torch.Tensor, n_head: int,
         D, dim=-1)
     kh = _split_heads(k, n_head)
     vh = _split_heads(v, n_head)
-    y = attn_impl(_split_heads(q, n_head), kh, vh, True)
+    if t_bias is not None:
+        y = sdpa(_split_heads(q, n_head), kh, vh, True, bias=t_bias)
+    else:
+        y = attn_impl(_split_heads(q, n_head), kh, vh, True)
     xt = xt + linear(p["ta"]["proj"], y.reshape(B * S, T, D))
     xt = xt + mlp(p["mlp2"], layer_norm(p["ln4"], xt))
 
@@ -226,12 +249,31 @@ def q4_unpack_odd(packed: torch.Tensor) -> torch.Tensor:
     return packed >> 4
 
 
+def q2_pack(q: torch.Tensor) -> torch.Tensor:
+    """Pack int2 values (int8 storage, range [-2, 1]) four a byte along the
+    last dim: byte d holds dims (4d | bits 0-1, 4d+1 | bits 2-3, 4d+2 |
+    bits 4-5, 4d+3 | bits 6-7)."""
+    return ((q[..., 3::4] << 6) | ((q[..., 2::4] & 0x03) << 4)
+            | ((q[..., 1::4] & 0x03) << 2)
+            | (q[..., 0::4] & 0x03)).to(torch.int8)
+
+
+def q2_unpack(packed: torch.Tensor, j: int) -> torch.Tensor:
+    """Sign-extended 2-bit field j in [0, 4) (the original dims j::4)."""
+    return (packed << (6 - 2 * j)) >> 6 if j < 3 else packed >> 6
+
+
 def block_tar_decode_deferred(p: Params, x: torch.Tensor, n_head: int,
                               ring_k: torch.Tensor, ring_v: torch.Tensor,
                               slot: int, n_valid: int,
                               attn_impl: Callable = sdpa,
                               ring_scale_k: Optional[torch.Tensor] = None,
-                              ring_scale_v: Optional[torch.Tensor] = None):
+                              ring_scale_v: Optional[torch.Tensor] = None,
+                              t_bias_ring: Optional[torch.Tensor] = None,
+                              t_bias_self: Optional[torch.Tensor] = None,
+                              ring_chan_k: Optional[torch.Tensor] = None,
+                              ring_chan_v: Optional[torch.Tensor] = None,
+                              ring_bits: int = 4):
     """One new frame [B, S, D] through a factorized block whose temporal
     attention reads the rings [B·S, T_max, H, Dh] without writing them.
 
@@ -244,7 +286,19 @@ def block_tar_decode_deferred(p: Params, x: torch.Tensor, n_head: int,
     Dh/2] (q4_pack).  The contraction is over Dh only, so the per-(scene,
     frame, head) scales fold into the logits (k) and into the softmax
     weights (v, rounded to bf16 with them); no dequantized ring is
-    materialized."""
+    materialized.
+
+    int2 rings (ring_bits=2): ring_k/v are 2-bit-packed int8 [B·S, T_max,
+    H, Dh/4] (q2_pack), a stored level q meaning (q + 0.5)·scale·chan with
+    ring_chan_k/v [B, H, Dh] the equalizers frozen at the prefill (ones
+    where none were taken).  chan is T-independent, so it multiplies the
+    query (logits) and the output (values), and the +0.5 offset is a rank-1
+    correction (0.5·Σ_d q'_d on the logits, 0.5·Σ_t w_t·s_t on the
+    values).
+
+    t_bias_ring [H, T_max] / t_bias_self [H]: the relative temporal PE's
+    logit bias of each ring slot (its frame's age) and of the new frame's
+    self term (distance 0)."""
     B, S, D = x.shape
     xs = x + attention(p["sa1"], layer_norm(p["ln1"], x), n_head,
                        causal=False, attn_impl=attn_impl)
@@ -269,7 +323,21 @@ def block_tar_decode_deferred(p: Params, x: torch.Tensor, n_head: int,
         return (t5 * s_bth.permute(0, 2, 1)[:, None, :, None, :]).reshape(
             N, H, 1, T_max)
 
-    if packed:
+    if packed and ring_bits == 2:
+        # channel-equalized query q'_d = q_d · chan_k[b, h, d]
+        qk = q
+        if ring_chan_k is not None:
+            qk = (q.reshape(B, S, H, Dh)
+                  * ring_chan_k[:, None].to(q.dtype)).reshape(N, 1, H, Dh)
+        qkf = qk.float()
+        lp = 0
+        for j in range(4):
+            lp = lp + torch.einsum("nqhd,nkhd->nhqk", qkf[..., j::4],
+                                   q2_unpack(ring_k, j).float())
+        # the +0.5 level offset: a rank-1 logit correction
+        lp = (lp + 0.5 * qkf.sum(-1).permute(0, 2, 1)[..., None]) * scale
+        lp = fold(lp, ring_scale_k.float())
+    elif packed:
         qf = q.float()
         lp = (torch.einsum("nqhd,nkhd->nhqk", qf[..., 0::2],
                            q4_unpack_even(ring_k).float())
@@ -279,6 +347,8 @@ def block_tar_decode_deferred(p: Params, x: torch.Tensor, n_head: int,
     else:
         lp = torch.einsum("nqhd,nkhd->nhqk", q.float(),
                           ring_k.float()) * scale
+    if t_bias_ring is not None:
+        lp = lp + t_bias_ring.float()[None, :, None, :]
     tpos = torch.arange(T_max, device=x.device)
     valid = (tpos < n_valid) & (tpos != slot)
     lp = lp.masked_fill(~valid, float("-inf"))
@@ -286,13 +356,27 @@ def block_tar_decode_deferred(p: Params, x: torch.Tensor, n_head: int,
     # reference's bf16 reduction), then scaled in float32
     ls = ((q[:, 0] * k_new).float().sum(-1).to(q.dtype).float()
           [:, :, None, None] * scale)
+    if t_bias_self is not None:
+        ls = ls + t_bias_self.float()[None, :, None, None]
     m = torch.maximum(lp.amax(-1, keepdim=True), ls)
     ep = torch.exp(lp - m)
     es = torch.exp(ls - m)
     denom = ep.sum(-1, keepdim=True) + es
     wp = ep / denom
     wself = (es / denom).to(q.dtype)
-    if packed:
+    if packed and ring_bits == 2:
+        wps = fold(wp, ring_scale_v.float()).to(q.dtype)
+        y = torch.stack([torch.einsum("nhqk,nkhd->nqhd", wps.float(),
+                                      q2_unpack(ring_v, j).float()
+                                      ).to(q.dtype) for j in range(4)],
+                        dim=-1).reshape(N, 1, H, Dh)
+        # the +0.5 offset adds 0.5·Σ_t w_t·s_t to every channel
+        y = y + (0.5 * wps.float().sum(-1).to(q.dtype)).permute(
+            0, 2, 1)[..., None]
+        if ring_chan_v is not None:
+            y = (y.reshape(B, S, H, Dh)
+                 * ring_chan_v[:, None].to(q.dtype)).reshape(N, 1, H, Dh)
+    elif packed:
         wps = fold(wp, ring_scale_v.float()).to(q.dtype).float()
         y_e = torch.einsum("nhqk,nkhd->nqhd", wps,
                            q4_unpack_even(ring_v).float()).to(q.dtype)

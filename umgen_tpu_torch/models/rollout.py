@@ -19,7 +19,10 @@ The OAR KV cache is flat [L, B, 2208, H·Dh] — int8 for the integer-logit
 decode kernels, bfloat16 or float8_e4m3fn for the dense-cache ones (v2, v1)
 — or, with `oar_cache_dtype="int4"`, a `PackedKV` of nibble-packed rows and
 per-(row, head) scales; each is updated in place (the JAX package threads it
-functionally).
+functionally).  With `speculative_k` = K > 0 the map and image segments (and
+the bbox segment unless `speculative_bbox` is off) are decoded in verify
+chunks of K positions (models/speculative.py), and the cache has K slack
+rows.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 
 from umgen_tpu_torch.config import EGO_WHL, TASK_NAME_ID
 from umgen_tpu_torch.models import modules as nn
+from umgen_tpu_torch.models import speculative as spec
 from umgen_tpu_torch.models.sampling import make_sampler
 from umgen_tpu_torch.models.umgen import UMGen
 from umgen_tpu_torch.ops import decode_kernel as dk
@@ -68,6 +72,10 @@ class FrameOutputs(NamedTuple):
     # the frame's ego logits [B, 3, 1024] and TAR priors [B, 2207, D]
     ego_logits: Optional[torch.Tensor] = None
     prior_seq: Optional[torch.Tensor] = None
+    # verify steps and accepted drafts of the frame's speculatively decoded
+    # segments: sequential decode would have taken chunks + accepted steps
+    spec_chunks: int = 0
+    spec_accepted: int = 0
 
 
 class Rollout:
@@ -95,6 +103,20 @@ class Rollout:
                 "image": make_sampler("topk", cfg.top_k_image,
                                       cfg.sfmx_temp),
             }
+        if cfg.speculative_k > 0 and cfg.oar_cache_dtype == "int4" \
+                and not cfg.fused_oar_kernel:
+            # without the v5mqi4 / w4mqi4 kernels every verify chunk would
+            # dequantize the whole int4 prefix through the eager body
+            raise ValueError(
+                "speculative_k > 0 with the int4 OAR cache requires "
+                "fused_oar_kernel=True (the v5mqi4 verify kernel); use "
+                "oar_cache_dtype='int8' otherwise")
+        if (cfg.speculative_k > 0 and cfg.oar_cache_dtype == "int4"
+                and cfg.speculative_k * cfg.n_head > 128):
+            raise ValueError(
+                "speculative_k * n_head must be <= 128 with the int4 OAR "
+                "cache (v5mqi4 takes at most 128 query rows a scene; larger "
+                "chunks would fall back to the eager int4 body)")
         ego = EGO_WHL["nuplan"]
         self._ego_box = torch.tensor(
             [0, 0, 0, ego["l"], ego["w"], ego["h"], 0, 0, 0, 0],
@@ -110,10 +132,13 @@ class Rollout:
         with scales [L, B, 2208, H] float32.  The reference keeps bf16 / fp8
         caches 5-D [L, B, S, H, Dh]; here storage is always flat and 5-D is
         a view of it (`kv.view(L, B, S, H, Dh)`), which every step that
-        takes a 5-D cache accepts."""
+        takes a 5-D cache accepts.  Speculative decoding adds
+        `speculative_k` slack rows: a verify chunk may write up to K - 1
+        rows past a segment's end (never read, then overwritten)."""
         cfg = self.config
+        S = self.layout.input_len + max(cfg.speculative_k, 0)
         if cfg.oar_cache_dtype == "int4":
-            L, S, H = cfg.n_oar_layer, self.layout.input_len, cfg.n_head
+            L, H = cfg.n_oar_layer, cfg.n_head
 
             def half():
                 return PackedKV(
@@ -122,8 +147,7 @@ class Rollout:
                     torch.zeros(L, B, S, H, dtype=torch.float32,
                                 device=device))
             return half(), half()
-        shape = (cfg.n_oar_layer, B, self.layout.input_len,
-                 cfg.n_head * cfg.head_dim)
+        shape = (cfg.n_oar_layer, B, S, cfg.n_head * cfg.head_dim)
         dt = torch_dtype(cfg.oar_cache_dtype)
         return (torch.zeros(shape, dtype=dt, device=device),
                 torch.zeros(shape, dtype=dt, device=device))
@@ -458,14 +482,40 @@ class Rollout:
                           ).to(dt))
         head_for = {"map": "head_ar_map", "image": "head_ar_img",
                     "bbox3d": "head_ar_bbox3d"}
+        # speculative decoding drafts from the TAR heads (not under top-p)
+        spec_k = cfg.speculative_k if cfg.sample_method in ("topk",
+                                                            "greedy") else 0
+        greedy = cfg.sample_method == "greedy"
+        tar_head_for = {"map": "head_tar_map", "image": "head_tar_img"}
+        sample_k_for = {"map": cfg.top_k_map, "image": cfg.top_k_image}
+        chunks = accepted = 0                 # speculative telemetry
         forced_tokens = forced_tokens or {}
         for si, seg in enumerate(segs):
             tokens[:, seg.start] = seg.bos
             forced = forced_tokens.get(seg.mod)
-            part = self._sliced(state, min(seg.end, _kv_rows(state.kv_k)))
+            bbox_spec = (seg.mod == "bbox3d" and spec_k > 0
+                         and cfg.speculative_bbox and forced is None)
+            # the view's rows (and so the S-blocking) are the reference's:
+            # + K slack rows wherever a segment may be speculated
+            kv_len = min(seg.end + (spec_k if seg.mod != "bbox3d"
+                                    or bbox_spec else 0),
+                         _kv_rows(state.kv_k))
+            part = self._sliced(state, kv_len)
+            tel = None
             if forced is not None:
                 part, seg_tokens = self._decode_forced_segment(
                     params, seg.mod, seg, part, prior_seq, forced)
+            elif bbox_spec:
+                part, seg_tokens, tel = spec.decode_bbox_segment_speculative(
+                    self, params, seg, part, prior_seq, prev_frame_bbox,
+                    tar_box_logits, control_mask, K=spec_k, greedy=greedy,
+                    generator=generator)
+            elif seg.mod != "bbox3d" and spec_k > 0:
+                part, seg_tokens, tel = spec.decode_segment_speculative(
+                    self, params, seg, part, prior_seq, head_for[seg.mod],
+                    tar_head_for[seg.mod], k=sample_k_for[seg.mod],
+                    temp=cfg.sfmx_temp, K=spec_k, greedy=greedy,
+                    generator=generator)
             elif seg.mod == "bbox3d":
                 # the merge rule reads the control-OVERWRITTEN last frame
                 part, seg_tokens = self._decode_bbox_segment(
@@ -476,6 +526,8 @@ class Rollout:
                     params, seg.mod, seg, part, prior_seq, head_for[seg.mod],
                     generator)
             state = self._unsliced(state, part)
+            if tel is not None:
+                chunks, accepted = chunks + tel.chunks, accepted + tel.accepted
             tokens[:, seg.content_start:seg.content_end + 1] = seg_tokens
             tokens[:, seg.end] = seg.eos
 
@@ -491,7 +543,8 @@ class Rollout:
                 state = state._replace(prev_emb=(
                     self._aux_emb(params, nxt.bos, B)
                     + prior_seq[:, nxt.start:nxt.start + 1]).to(dt))
-        return FrameOutputs(tokens=tokens[:, 1:], pose_tokens=ego_tokens)
+        return FrameOutputs(tokens=tokens[:, 1:], pose_tokens=ego_tokens,
+                            spec_chunks=chunks, spec_accepted=accepted)
 
     def _control_setup(self, inputs, control_bbox):
         """Agent-control overwrite of the window's newest frame: inputs

@@ -11,13 +11,22 @@ in the reference's two modes:
     full-window pass) and create the rings, `ego_logits_cached` /
     `tar_priors_cached` push one new frame through every stack against
     them.  Rings are bf16, float8_e4m3fn or float32 [L, B·S, T_max, H,
-    Dh] pairs (fp8 written through `modules.saturate_cast`), or int4
+    Dh] pairs (fp8 written through `modules.saturate_cast`), int4
     (`tar_cache_dtype="int4"`): nibble-packed int8 [L, B·S, T_max, H,
     Dh/2] pairs plus float32 [L, B, T_max, H] dequantization scales, one
-    per (layer, scene, frame, head).  A new frame's K/V is written into its
+    per (layer, scene, frame, head), or int2 (`"int2"`): 2-bit-packed
+    [L, B·S, T_max, H, Dh/4] pairs, those scales, and float32 [L, B, H, Dh]
+    channel equalizers frozen at the full-window prefill (ones after a
+    chunked one).  A new frame's K/V is written into its
     ring slot in place, layer by layer (the JAX package scatters all layers
     at once after its layer scan — the slot being written is masked out of
     the frame's own temporal attention, so the two orders agree).
+
+The temporal PE is absolute (a learned [max_frame_len, D] table added to
+the embeddings) or, with `temporal_pe_mode="relative"`, a per-head bias
+`tpe_rel` [H, max_frame_len] on the temporal attention's logits by query-key
+frame distance (`_t_bias_window`, `_t_bias_ring`); the embeddings and the
+rings then carry no temporal position.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ from umgen_tpu_torch.params import torch_dtype
 Params = Dict[str, Any]
 
 
-RING_DTYPES = ("float8_e4m3fn", "bfloat16", "float32", "int4")
+RING_DTYPES = ("float8_e4m3fn", "bfloat16", "float32", "int4", "int2")
 
 
 class NotPortedError(NotImplementedError):
@@ -103,16 +112,11 @@ def check_served(cfg: ModelConfig) -> None:
     if cfg.tar_mode not in ("temporal_cache", "recompute"):
         raise ValueError(f"unknown tar_mode {cfg.tar_mode!r}")
     if cfg.tar_cache_dtype not in RING_DTYPES:
-        raise NotPortedError(
-            f"TAR ring dtype {cfg.tar_cache_dtype!r} is not ported yet; the "
-            f"port serves {', '.join(RING_DTYPES)} rings (ROADMAP.md: 'int2 "
-            "TAR rings')")
-    if cfg.temporal_pe_mode != "absolute":
-        raise NotPortedError("temporal_pe_mode=relative is not ported yet "
-                             "(ROADMAP.md: 'Relative temporal PE')")
-    if cfg.speculative_k > 0:
-        raise NotPortedError("speculative decoding is not ported yet "
-                             "(ROADMAP.md: 'Speculative decoding')")
+        raise ValueError(f"unknown TAR ring dtype {cfg.tar_cache_dtype!r}: "
+                         f"{', '.join(RING_DTYPES)}")
+    if cfg.temporal_pe_mode not in ("absolute", "relative"):
+        raise ValueError(f"unknown temporal_pe_mode "
+                         f"{cfg.temporal_pe_mode!r}")
     if cfg.n_step != 1 or cfg.bias:
         raise NotPortedError("the port serves the published heads "
                              "(n_step=1, bias=False)")
@@ -171,15 +175,44 @@ class UMGen:
 
     def add_pos_emb(self, params, x, t_offset: int = 0):
         """+ sequence PE + absolute temporal PE; the temporal index
-        saturates at config.tpe_clamp (default max_frame_len - 1)."""
+        saturates at config.tpe_clamp (default max_frame_len - 1).  In
+        relative mode the sequence PE only: the temporal position enters at
+        the temporal attention's logits."""
         B, T, S, D = x.shape
-        clamp = self.config.tpe_clamp
-        if clamp is None:
-            clamp = self.config.max_frame_len - 1
+        spe = params["spe"][:S][None, None]
+        if self.config.temporal_pe_mode == "relative":
+            return x + spe
         idx = torch.clamp(torch.arange(T, device=x.device) + t_offset,
-                          max=clamp)
-        return x + params["spe"][:S][None, None] \
-            + params["tpe"][idx][None, :, None, :]
+                          max=self._rel_clamp())
+        return x + spe + params["tpe"][idx][None, :, None, :]
+
+    # relative temporal PE (temporal_pe_mode="relative")
+    def _rel_clamp(self) -> int:
+        c = self.config.tpe_clamp
+        return self.config.max_frame_len - 1 if c is None else c
+
+    def _t_bias_window(self, params, T: int):
+        """[H, T, T] logit bias of a full-window temporal attention,
+        bias[h, t, s] = tpe_rel[h, t - s] (the distance clamped to the
+        trained range), or None in absolute mode."""
+        if self.config.temporal_pe_mode != "relative":
+            return None
+        t = torch.arange(T, device=params["tpe_rel"].device)
+        rel = torch.clamp(t[:, None] - t[None, :], 0, self._rel_clamp())
+        return params["tpe_rel"][:, rel]
+
+    def _t_bias_ring(self, params, slot: int, T_max: int):
+        """([H, T_max] bias of each ring slot, [H] the self term's) for the
+        one-frame path: slot j holds the frame (slot - j) % T_max frames
+        ago, the new frame is the self term at distance 0.  (None, None) in
+        absolute mode."""
+        if self.config.temporal_pe_mode != "relative":
+            return None, None
+        tpe_rel = params["tpe_rel"]
+        ages = torch.remainder(
+            slot - torch.arange(T_max, device=tpe_rel.device), T_max)
+        ages = torch.clamp(ages, max=self._rel_clamp())
+        return tpe_rel[:, ages], tpe_rel[:, 0]
 
     def decode_pose(self, params, pose_tokens):
         """pose tokens [..., 3] → metric (dx, dy, dθ) float32."""
@@ -252,24 +285,39 @@ class UMGen:
         """int4 rings: nibble-packed int8 + per-(L, B, T, H) scales."""
         return self.config.tar_cache_dtype == "int4"
 
+    @property
+    def ring_q2(self) -> bool:
+        """int2 rings: 2-bit-packed int8 + per-(L, B, T, H) scales + per-(L,
+        B, H, Dh) channel equalizers frozen at the prefill."""
+        return self.config.tar_cache_dtype == "int2"
+
     def _ring_zeros(self, L: int, N: int, B: int, device) -> tuple:
-        """Empty rings of one stack: (k, v) of the ring type, or int4 (k, v,
-        scale_k, scale_v)."""
+        """Empty rings of one stack: (k, v) of the ring type, int4 (k, v,
+        scale_k, scale_v), or int2 (k, v, scale_k, scale_v, chan_k, chan_v)
+        with the equalizers at ones."""
         cfg = self.config
-        if self.ring_q4 and cfg.head_dim % 2:
-            raise ValueError(f"tar_cache_dtype='int4' packs two head dims "
-                             f"a byte: head_dim {cfg.head_dim} must be even")
+        per_byte = 4 if self.ring_q2 else 2 if self.ring_q4 else 1
+        if cfg.head_dim % per_byte:
+            raise ValueError(
+                f"tar_cache_dtype={cfg.tar_cache_dtype!r} packs {per_byte} "
+                f"head dims a byte: head_dim {cfg.head_dim} must be "
+                + ("even" if per_byte == 2 else "a multiple of 4"))
         shape = (L, N, self.t_max, cfg.n_head, cfg.head_dim)
-        if not self.ring_q4:
+        if per_byte == 1:
             dt = torch_dtype(cfg.tar_cache_dtype)
             return (torch.zeros(shape, dtype=dt, device=device),
                     torch.zeros(shape, dtype=dt, device=device))
-        packed = shape[:-1] + (cfg.head_dim // 2,)
+        packed = shape[:-1] + (cfg.head_dim // per_byte,)
         sshape = (L, B, self.t_max, cfg.n_head)
-        return (torch.zeros(packed, dtype=torch.int8, device=device),
-                torch.zeros(packed, dtype=torch.int8, device=device),
-                torch.zeros(sshape, dtype=torch.float32, device=device),
-                torch.zeros(sshape, dtype=torch.float32, device=device))
+        rings = (torch.zeros(packed, dtype=torch.int8, device=device),
+                 torch.zeros(packed, dtype=torch.int8, device=device),
+                 torch.zeros(sshape, dtype=torch.float32, device=device),
+                 torch.zeros(sshape, dtype=torch.float32, device=device))
+        if self.ring_q2:
+            cshape = (L, B, cfg.n_head, cfg.head_dim)
+            rings += (torch.ones(cshape, dtype=torch.float32, device=device),
+                      torch.ones(cshape, dtype=torch.float32, device=device))
+        return rings
 
     def init_tar_cache(self, B: int, device=None) -> Dict[str, Any]:
         cfg = self.config
@@ -302,6 +350,35 @@ class UMGen:
         return packed[0], s[0]
 
     @staticmethod
+    def _ring_q2_quantize_layer(x: torch.Tensor, B: int, chan: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x [N, H, Dh] one new frame's K or V rows, chan [B, H, Dh] the
+        stack layer's frozen equalizer → (packed [N, H, Dh/4] int8, scales
+        [B, H] f32).  Levels {-1.5, -0.5, 0.5, 1.5}·s·chan: q = clip(round(
+        x/(chan·s) - 0.5), -2, 1); s is the frame's amax per (scene, head)
+        over the equalized values, / 1.5."""
+        N, H, Dh = x.shape
+        xf = x.float().reshape(B, N // B, H, Dh) / chan[:, None]
+        s = torch.clamp(xf.abs().amax(dim=(1, 3)), min=1e-6) * (1 / 1.5)
+        q = torch.clamp(torch.round(xf / s[:, None, :, None] - 0.5), -2, 1)
+        return nn.q2_pack(q.to(torch.int8).reshape(N, H, Dh)), s
+
+    @staticmethod
+    def _ring_q2_quantize_window(a: torch.Tensor, B: int, keep: int):
+        """A full-window prefill's K or V a [N, T, H, Dh] → (packed [N,
+        keep, H, Dh/4] int8 and scales [B, keep, H] of its last `keep`
+        frames, the equalizer [B, H, Dh]: each channel's amax over the
+        whole window, frozen for the cached frames that follow)."""
+        N, T, H, Dh = a.shape
+        af = a.float().reshape(B, N // B, T, H, Dh)
+        c = torch.clamp(af.abs().amax(dim=(1, 2)), min=1e-6)
+        ae = af / c[:, None, None]
+        s = torch.clamp(ae.abs().amax(dim=(1, 4)), min=1e-6) * (1.0 / 1.5)
+        q = torch.clamp(torch.round(ae / s[:, None, :, :, None] - 0.5), -2, 1)
+        packed = nn.q2_pack(q.to(torch.int8).reshape(N, T, H, Dh))
+        return packed[:, -keep:], s[:, -keep:], c
+
+    @staticmethod
     def _ring_store(ring: torch.Tensor, slots, a: torch.Tensor) -> None:
         """ring[:, slots] = a in the ring's storage type; fp8 saturates
         (`saturate_cast`) and is written as its bytes."""
@@ -316,7 +393,9 @@ class UMGen:
         stack's rings [L, B·S, T_max, ...] with `rings`, else None).  With T
         > T_max only the last T_max frames are kept, each at its absolute
         ring slot.  int4 rings quantize each window frame per (scene,
-        head)."""
+        head); int2 rings too, after the channel equalizer taken over the
+        whole window.  Relative temporal PE: the window's bias on every
+        temporal attention."""
         cfg = self.config
         B, T, S, _ = emb.shape
         stack = params[stack_name]
@@ -327,16 +406,24 @@ class UMGen:
             slots = torch.as_tensor(np.arange(T - keep, T) % self.t_max,
                                     device=emb.device)
             kv_rings = self._ring_zeros(L, B * S, B, emb.device)
+        t_bias = self._t_bias_window(params, T)
         h = emb
         for l in range(L):
             out = nn.block_tar(nn.layer(stack, l), h, cfg.n_head,
-                               attn_impl=self.attn, collect_kv=rings)
+                               attn_impl=self.attn, collect_kv=rings,
+                               t_bias=t_bias)
             if not rings:
                 h = out
                 continue
             h, kv = out
             for i, a in enumerate(kv):                 # [B·S, T, H, Dh]
-                if self.ring_q4:
+                if self.ring_q2:
+                    packed, sc, chan = self._ring_q2_quantize_window(a, B,
+                                                                     keep)
+                    kv_rings[i][l][:, slots] = packed
+                    kv_rings[2 + i][l][:, slots] = sc
+                    kv_rings[4 + i][l] = chan
+                elif self.ring_q4:
                     # each kept frame quantized as one new frame would be
                     packed, sc = self._ring_q4_quantize(
                         a[:, -keep:].transpose(0, 1), B)
@@ -353,15 +440,23 @@ class UMGen:
         cfg = self.config
         B = x.shape[0]
         stack = params[stack_name]
+        tb_ring, tb_self = self._t_bias_ring(params, slot, self.t_max)
         h = x
         for l in range(nn.n_layers(stack)):
-            scales = ({"ring_scale_k": kv[2][l], "ring_scale_v": kv[3][l]}
-                      if self.ring_q4 else {})
+            extra = ({"ring_scale_k": kv[2][l], "ring_scale_v": kv[3][l]}
+                     if self.ring_q4 or self.ring_q2 else {})
+            if self.ring_q2:
+                extra.update(ring_chan_k=kv[4][l], ring_chan_v=kv[5][l],
+                             ring_bits=2)
             h, k_new, v_new = nn.block_tar_decode_deferred(
                 nn.layer(stack, l), h, cfg.n_head, kv[0][l], kv[1][l],
-                slot, n_valid, attn_impl=self.attn, **scales)
+                slot, n_valid, attn_impl=self.attn, t_bias_ring=tb_ring,
+                t_bias_self=tb_self, **extra)
             for i, new in enumerate((k_new, v_new)):
-                if self.ring_q4:
+                if self.ring_q2:
+                    kv[i][l][:, slot], kv[2 + i][l][:, slot] = \
+                        self._ring_q2_quantize_layer(new, B, kv[4 + i][l])
+                elif self.ring_q4:
                     kv[i][l][:, slot], kv[2 + i][l][:, slot] = \
                         self._ring_q4_quantize_layer(new, B)
                 else:

@@ -7,7 +7,9 @@ umgen_tpu/runtime/quantize.py and of decode_kernel.py's W4A8 packer).
 `quantize_params_int8` turns the selected subtrees' linear weights into
 {"wq" int8 [in, out], "ws" f32 [out]} with per-output-channel symmetric
 scales — the same arithmetic as the JAX package (`DECODE_KEYS`, or
-`ALL_STACK_KEYS` for int8 on every stack).  `pack_decode_weights` lays the
+`ALL_STACK_KEYS` for int8 on every stack).  `quantize_params_w4` (the CLI's
+`--tar_w4`) turns the TAR-family stacks' into group-128 int4 {"wq4" [in/2,
+out], "ws4" [in/128, out]}.  `pack_decode_weights` lays the
 quantized OAR stack out for csrc/decode_step.cu: per-layer vectors in one
 float32 block and every weight matrix transposed to output-major, so the
 kernel's dp4a dot products read the input dimension contiguously.
@@ -58,6 +60,57 @@ def quantize_params_int8(params: Params,
             if "w" in t and (name in LINEAR_NAMES
                              or name.startswith("head_")):
                 return _quantize_linear(t)
+            return {k: walk(v, k) for k, v in t.items()}
+        return t
+
+    out = dict(params)
+    for key in keys:
+        if key in params:
+            out[key] = walk(params[key], key)
+    return out
+
+
+def _quantize_linear_w4(p: Params, group: int = W4_GROUP) -> Params:
+    """{"w": [..., in, out], "b"?} → {"wq4": int8 [..., in/2, out], "ws4":
+    f32 group scales [..., in/G, out], "b"?}: group-G (G = min(group, in))
+    symmetric int4 in [-7, 7] along the input dim, rows (2i, 2i+1)
+    nibble-packed low/high — the bytes and scales of the JAX package's
+    `_quantize_linear_w4` (the scale an IEEE division by 7 on every
+    device)."""
+    w = p["w"].float()
+    *lead, K, N = w.shape
+    G = min(group, K)
+    wg = w.reshape(*lead, K // G, G, N)
+    amax = wg.abs().amax(dim=-2, keepdim=True)
+    scale = torch.clamp(amax / torch.full_like(amax, 7.0), min=1e-8)
+    q = torch.clamp(torch.round(wg / scale), -7, 7).to(torch.int8)
+    q = q.reshape(*lead, K, N)
+    packed = ((q[..., 1::2, :] << 4) | (q[..., 0::2, :] & 0x0F)).to(
+        torch.int8)
+    out = {"wq4": packed, "ws4": scale.squeeze(-2)}
+    if "b" in p:
+        out["b"] = p["b"]
+    return out
+
+
+def quantize_params_w4(params: Params,
+                       keys: Iterable[str] = TAR_STACK_KEYS) -> Params:
+    """Group-128 int4 weights for the selected subtrees (default the
+    TAR-family stacks), read by `modules.linear`'s dequantizing branch (the
+    TAR cascade has no decode kernel).  Leaves already in int8 are
+    re-quantized from their dequantized values, as the JAX package does."""
+    def walk(t, name):
+        if isinstance(t, dict):
+            if name in LINEAR_NAMES or name.startswith("head_"):
+                if "w" in t:
+                    return _quantize_linear_w4(t)
+                if "wq" in t:
+                    # ws [..., out] scales wq [..., in, out] per column
+                    keep = {"w": t["wq"].float()
+                            * t["ws"].float()[..., None, :]}
+                    if "b" in t:
+                        keep["b"] = t["b"]
+                    return _quantize_linear_w4(keep)
             return {k: walk(v, k) for k, v in t.items()}
         return t
 

@@ -16,9 +16,14 @@ those modalities to the GT continuation.  Weights: the reference checkpoint
 projects/tokenizer/weights/ where present), or seeded random ones under
 `--debug` or when it is missing.  Served values: `--tar_mode
 temporal_cache|recompute` (recompute: the whole window through every TAR
-stack each frame), `--kv_dtype float8_e4m3fn|bfloat16|int4` (TAR rings;
-without `--fused_oar` the OAR cache takes the same type unless it is int4,
-with it int8 unless asked otherwise), `--tar_cache_refresh N`, `--fused_oar`
+stack each frame), `--kv_dtype float8_e4m3fn|bfloat16|float32|int4|int2`
+(TAR rings; without `--fused_oar` the OAR cache takes the same type unless
+it is int4 or int2, with it int8 unless asked otherwise), `--temporal_pe
+relative` (a per-head temporal-attention bias by frame distance in place of
+the absolute temporal PE), `--tar_w4` (group-128 int4 TAR-family weights),
+`--speculative_k K` (TAR-head drafts verified K at a time, on the
+multi-query decode kernels under `--fused_oar`; `--no_spec_bbox` keeps the
+bbox segment sequential), `--tar_cache_refresh N`, `--fused_oar`
 (the decode kernels), `--oar_kv_dtype int8|int4|bfloat16|float8_e4m3fn`
 (int4: the nibble-packed OAR cache with per-(row, head) scales, decoded by
 the v5i4 / v5mqi4 kernels; bfloat16 / float8_e4m3fn: the dense cache, its
@@ -30,10 +35,12 @@ unless `--int8 off` and packs the int8 OAR weights for the cache type under
 `--fused_oar` (`pack_fused(params, kv_dtype)`), whichever the weights'
 source; W4A8 weights are reached as the JAX bench reaches them, through
 `serving_params` and the same Generator (chip_smoke.py phases e and g).
-It prints the agent metrics the JAX CLI prints (the collision rate, MMD
-against the GT continuation) and writes the token pickles.
-Every flag value outside what the port serves raises NotPortedError naming
-the ROADMAP.md item that adds it; none is silently ignored.
+It prints the lines the JAX CLI prints (speculative decoding's drafts
+accepted a chunk, the collision rate, MMD against the GT continuation) and
+writes the token pickles.  What the port does not serve — multi-GPU
+(`--dp`, `--launcher`), `--profile_dir`, `--oar_batch_block` — raises
+NotPortedError naming the ROADMAP.md item; the VQ pictures and videos are
+not written, and the run says so (`NOT_PORTED_OUTPUTS`).
 """
 
 from __future__ import annotations
@@ -135,15 +142,11 @@ def check_args(args) -> None:
     if args.dp > 1 and args.infer_task == "control":
         raise SystemExit("--dp > 1 batches video scenes; control mode runs "
                          "per-scene (per-scene init dicts)")
-    no(args.kv_dtype not in RING_DTYPES, f"--kv_dtype {args.kv_dtype}",
-       "int2 TAR rings")
-    no(args.speculative_k > 0 or args.no_spec_bbox,
-       "speculative decoding", "Speculative decoding")
-    no(args.dp > 1 or args.launcher is not None, "multi-GPU serving",
-       "Multi-GPU and runtime")
-    no(args.tar_w4, "--tar_w4", "W4 TAR weights")
-    no(args.temporal_pe != "absolute", "--temporal_pe relative",
-       "Relative temporal PE")
+    if args.kv_dtype not in RING_DTYPES:
+        raise ValueError(f"unknown --kv_dtype {args.kv_dtype!r}: "
+                         f"{', '.join(RING_DTYPES)}")
+    no(args.dp > 1 or args.launcher is not None,
+       "multi-GPU serving (--dp, --launcher)", "Multi-GPU and runtime")
     if args.oar_kv_dtype not in (None,) + OAR_KV_DTYPES:
         raise NotPortedError(
             f"--oar_kv_dtype {args.oar_kv_dtype}: served are "
@@ -223,17 +226,20 @@ def _maybe(path: str) -> Optional[str]:
 def prepare_params(args, cfg, params):
     """Unless `--int8 off`, int8 over `DECODE_KEYS` (`--int8 decode`) or
     `ALL_STACK_KEYS` (`--int8 all`), then under `--fused_oar` the decode
-    kernels' packing for the OAR cache's type — whichever the weights'
-    source."""
+    kernels' packing for the OAR cache's type; then under `--tar_w4` group
+    int4 on `TAR_STACK_KEYS` — whichever the weights' source, in the JAX
+    CLI's order (umgen_tpu/tools/evaluate.py:230-242)."""
     from umgen_tpu_torch.runtime.quantize import (ALL_STACK_KEYS, DECODE_KEYS,
                                                   pack_fused,
-                                                  quantize_params_int8)
-    if args.int8 == "off":
-        return params
-    params = quantize_params_int8(
-        params, ALL_STACK_KEYS if args.int8 == "all" else DECODE_KEYS)
-    if cfg.fused_oar_kernel:
-        params = pack_fused(params, kv_dtype=cfg.oar_cache_dtype)
+                                                  quantize_params_int8,
+                                                  quantize_params_w4)
+    if args.int8 != "off":
+        params = quantize_params_int8(
+            params, ALL_STACK_KEYS if args.int8 == "all" else DECODE_KEYS)
+        if cfg.fused_oar_kernel:
+            params = pack_fused(params, kv_dtype=cfg.oar_cache_dtype)
+    if args.tar_w4:
+        params = quantize_params_w4(params)
     return params
 
 
@@ -305,9 +311,16 @@ def run_dataset(args, runner, infer_cfg, pipeline):
 
 
 def report(args, runner, dataset) -> None:
-    """The JAX CLI's closing lines (umgen_tpu/tools/evaluate.py:336-346):
-    the collision rate, MMD against the GT continuation, the error-scene
-    journal."""
+    """The JAX CLI's closing lines (umgen_tpu/tools/evaluate.py:329-346):
+    speculative decoding's drafts accepted a chunk, the collision rate, MMD
+    against the GT continuation, the error-scene journal."""
+    gen, K = runner.gen, runner.gen.model.config.speculative_k
+    if K > 0 and gen.spec_chunks:
+        # sequential decode of the same tokens costs chunks + accepted steps
+        acc = gen.spec_accepted / gen.spec_chunks
+        speedup = (gen.spec_chunks + gen.spec_accepted) / gen.spec_chunks
+        print(f"speculative: {acc:.2f} drafts accepted/chunk (K={K}), "
+              f"{speedup:.2f}x fewer OAR steps on speculative segments")
     ratio, scen = runner.box_overlap.average()
     print(f"collision rate: per-frame {ratio:.4f}, per-scenario {scen:.4f}")
     if any(runner.mmd.scores.values()):
