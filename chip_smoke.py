@@ -77,7 +77,10 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
   (n) slice-bf16kv at debug scale on the card and on the CPU, as (d);
   (o) the reference CLI's default run through the CLI's code path with no
       flag but `--debug --synthetic_data 1 --max_scenes 1
-      --set_num_new_frames 1`, its TAR and OAR stacks cut to 6 layers
+      --set_num_new_frames 1 --save_video false` (every CLI phase passes
+      `--save_video false`: the VQ decoders and the video are phase x's,
+      so the CLI phases' times, tokens and launches stay as they were and
+      none needs cv2), its TAR and OAR stacks cut to 6 layers
       (`DEFAULT_RUN_LAYERS`, to keep the script inside its time): full
       width, B = 1, 20-frame fp8 TAR rings,
       an fp8 OAR cache decoded by the reference's unfused body for all 2202
@@ -137,7 +140,21 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
       after a chunked window and a recompute frame; the card's run must
       launch the named decode kernels.  Phase b holds every mq kernel at Q
       = 8, the speculative chunk, on the views the chunks read (K slack
-      rows past a segment's end).
+      rows past a segment's end);
+  (x) the map and image VQ detokenizers (models.vq: MapDecoder at MAP_VQ,
+      ImageDecoder at IMAGE_VQ, seeded weights) on the card, on a
+      synthetic scene's 21 frames of phase c's layout:
+      `SceneRunner._postprocess` with the scene as its own GT (the token
+      pickle, the decode, the metrics and, where cv2 imports, the pred | GT
+      mp4, whose GT maps are decoded too; its frame count must be 21), then
+      `decode_tokens` alone: maps (21, 256, 256, 3) within [-1, 1], images
+      (21, 256, 512, 3), finite, no `undecoded_token.txt`, none of the
+      fifteen kernels launched.  Prints each decoder's ms a frame at its
+      chunk of 20 (CUDA events) beside its bound (the FLOPs a frame over
+      the float32 peak) and the peak memory; the first two frames are
+      decoded on the CPU in a child process, as (d), and must agree within
+      VQ_ATOL.  The decoders are XLA convolutions in the JAX package, not a
+      Pallas kernel: cuDNN's float32 convolutions here, TF32 off.
 
 Prints each phase's results, the card's name and power limit, a JSON line
 describing the kernels, and as its last line
@@ -262,11 +279,26 @@ SERVE_RTOL_LOGITS = 1e-1
 #   rounds as the decode step's plain version, and an fp8 row one step
 #   apart between the devices is one key of up to 2200 under the softmax.
 
+# phase x, the VQ decoders on the card against the CPU, 2 frames in one
+#   chunk: float32 products on both sides (TF32 off), cuDNN's convolution
+#   algorithms against oneDNN's, so sums in other orders through ~30 convs
+#   of random weights, each behind a group norm that keeps the activations
+#   O(1).  Bound on the largest absolute difference of the maps (to_rgb, in
+#   [-1, 1]) and of the images (the decoder's output, |x| of a few units):
+#   1e-4, set from the first reading on an H100 (maps 5.84e-6, images
+#   1.74e-5 of |x| <= 2.78) with room for other cuDNN algorithms.
+VQ_ATOL = 1e-4
+VQ_FRAMES = 21
+# a frame's picture from each decoder
+VQ_PICTURES = {"map": (256, 256, 3), "image": (256, 512, 3)}
+
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s,
-# bf16 tensor-core FLOP/s, int8 OP/s — the yardsticks of `bound_ms`
+# bf16 tensor-core FLOP/s, int8 OP/s, float32 FLOP/s outside the tensor
+# cores — the yardsticks of `bound_ms`
 H100_BYTES_S = 3.35e12
 H100_BF16_FLOPS = 989e12
 H100_INT8_OPS = 1979e12
+H100_FP32_FLOPS = 67e12
 
 
 def _time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1322,6 +1354,226 @@ def phase_serving_reference(dev, work_dir, tag="f", oar_cache_dtype="int8",
                       rtol_logits=SERVE_RTOL_LOGITS, work_dir=work_dir)
 
 
+def vq_decode_flops(cfg, grid) -> int:
+    """FLOPs (2 a multiply-add) of one frame's VQ decode at the token grid
+    `grid`: every convolution and the attention's products; the group
+    norms, swish and the nearest upsampling's copies not counted."""
+    H, W = grid
+
+    def conv(cin, cout, k):
+        return 2 * k * k * cin * cout * H * W
+
+    def res(cin, cout):
+        return conv(cin, cout, 3) + conv(cout, cout, 3) + \
+            (conv(cin, cout, 1) if cin != cout else 0)
+
+    def attn(c):
+        return 4 * conv(c, c, 1) + 4 * (H * W) ** 2 * c
+
+    c = cfg.ch * cfg.ch_mult[-1]
+    flops = conv(cfg.embed_dim, cfg.z_channels, cfg.post_quant_kernel) + \
+        conv(cfg.z_channels, c, 3) + 2 * res(c, c) + attn(c)
+    res_at = cfg.resolution // 2 ** (cfg.num_resolutions - 1)
+    for i_level in reversed(range(cfg.num_resolutions)):
+        out = cfg.ch * cfg.ch_mult[i_level]
+        for _ in range(cfg.num_res_blocks + 1):
+            flops += res(c, out)
+            c = out
+            if res_at in cfg.attn_resolutions:
+                flops += attn(c)
+        if i_level:
+            H, W, res_at = 2 * H, 2 * W, 2 * res_at
+            flops += conv(c, c, 3)
+    return flops + conv(c, cfg.out_ch, 3)
+
+
+def _vq_cpu_decode(job_path):
+    """Entry of phase x's child process: the same decoders on the CPU, the
+    same frames in one chunk.  Two intra-op threads, as `_cpu_replay`."""
+    import torch
+    from umgen_tpu_torch.models import vq
+    torch.set_num_threads(2)
+    job = torch.load(job_path, map_location="cpu", weights_only=False)
+    t0 = time.perf_counter()
+    out = {"maps": vq.MapDecoder(job["map"], device="cpu").decode(
+               job["map_tokens"]),
+           "images": vq.ImageDecoder(job["image"], device="cpu").decode(
+               job["image_tokens"])}
+    torch.save(dict(out, seconds=time.perf_counter() - t0),
+               job_path + ".out")
+
+
+class _VqCardVsCpu:
+    """Phase x's card-against-CPU check: the card's pictures of the first
+    frames are taken before; a child process decodes the same frames with
+    the same weights on the CPU while the card goes on.  `finish()`
+    compares them within VQ_ATOL."""
+
+    def __init__(self, job, card, work_dir):
+        import multiprocessing
+
+        import torch
+        self.card = card
+        self.job = os.path.join(work_dir, "replay_x.pt")
+        torch.save(job, self.job)
+        self.child = multiprocessing.get_context("spawn").Process(
+            target=_vq_cpu_decode, args=(self.job,))
+        self.child.start()
+
+    def stop(self):
+        if self.child.is_alive():
+            self.child.terminate()
+        self.child.join()
+
+    def finish(self):
+        import numpy as np
+        import torch
+        self.child.join()
+        if self.child.exitcode != 0:
+            raise AssertionError("phase x: the CPU decode exited with code "
+                                 f"{self.child.exitcode}")
+        cpu = torch.load(self.job + ".out", weights_only=False)
+        res = {"frames": len(self.card["maps"]), "cpu_s": cpu["seconds"],
+               "atol": VQ_ATOL}
+        for k in ("maps", "images"):
+            res[f"{k}_max_abs_err"] = float(np.abs(
+                cpu[k] - self.card[k]).max())
+            res[f"{k}_max_abs"] = float(np.abs(cpu[k]).max())
+        print(f"(x) VQ decoders on the card vs the CPU, {res['frames']} "
+              f"frames in one chunk: maps max abs err "
+              f"{res['maps_max_abs_err']:.3g} (of |x| <= "
+              f"{res['maps_max_abs']:.3g}), images "
+              f"{res['images_max_abs_err']:.3g} (of "
+              f"{res['images_max_abs']:.3g}); bound {VQ_ATOL:g}; "
+              f"{res['cpu_s']:.1f} s in the CPU's child process")
+        if max(res["maps_max_abs_err"], res["images_max_abs_err"]) > VQ_ATOL:
+            raise AssertionError(f"the VQ decoders on the card disagree with "
+                                 f"the CPU: {res}")
+        return res
+
+
+def phase_vq(dev, work_dir):
+    """(x) The map and image VQ detokenizers at full width (MAP_VQ,
+    IMAGE_VQ; seeded weights) on the card, on a synthetic scene's 21
+    frames of phase c's layout: SceneRunner._postprocess with the scene as
+    its own GT (token pickle, decode, metrics and, where cv2 imports, the
+    pred | GT mp4, whose GT maps are decoded too), then decode_tokens
+    alone; the pictures' shapes, finiteness and range, no decode journal,
+    none of the fifteen kernels launched.  Times each decoder in ms a frame
+    at its chunk of 20 (CUDA events) beside its bound (FLOPs over the
+    float32 peak), and starts the card-against-CPU check of the first two
+    frames (`_VqCardVsCpu`).  Returns (report, check)."""
+    import numpy as np
+    import torch
+    from umgen_tpu_torch.config import InferConfig, ModelConfig
+    from umgen_tpu_torch.data.pipeline import ScenePipeline
+    from umgen_tpu_torch.data.synthetic import make_token_batch
+    from umgen_tpu_torch.layout import SequenceLayout
+    from umgen_tpu_torch.models import vq
+    from umgen_tpu_torch.tools import visualize
+    from umgen_tpu_torch.tools.harness import SceneRunner
+
+    cfg = ModelConfig().scaled("larger")
+    scene = make_token_batch(SequenceLayout(cfg.task), T=VQ_FRAMES, B=1,
+                             seed=0, config=cfg)
+    t0 = time.perf_counter()
+    params = {"map": vq.init_normvq(torch.Generator(dev).manual_seed(0),
+                                    vq.MAP_VQ, dev),
+              "image": vq.init_normvq(torch.Generator(dev).manual_seed(1),
+                                      vq.IMAGE_VQ, dev)}
+    decoders = {"map": vq.MapDecoder(params["map"], device=dev),
+                "image": vq.ImageDecoder(params["image"], device=dev)}
+    torch.cuda.synchronize()
+    res = {"build_s": time.perf_counter() - t0}
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+        runner = SceneRunner(None, InferConfig(), output_path=out_dir,
+                             pipeline=ScenePipeline(),
+                             map_decoder=decoders["map"],
+                             image_decoder=decoders["image"],
+                             save_video=visualize.HAS_CV2)
+        _reset_launches()
+        t0 = time.perf_counter()
+        runner._postprocess(scene, scene, "vq_scene", input_cond=20)
+        res["postprocess_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decoded = runner.decode_tokens(scene)
+        res["decode_tokens_s"] = time.perf_counter() - t0
+        _launches((), flash=False)
+        if os.path.exists(os.path.join(runner.token_save_path,
+                                       "undecoded_token.txt")):
+            raise AssertionError("(x) a decode failed: undecoded_token.txt "
+                                 "was written")
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        if visualize.HAS_CV2:
+            import cv2
+            cap = cv2.VideoCapture(os.path.join(runner.video_save_path,
+                                                "vq_scene.mp4"))
+            res["mp4"] = {"frames": int(cap.get(cv2.CAP_PROP_FRAME_COUNT)),
+                          "width": int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+                          "height": int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))}
+            cap.release()
+            if res["mp4"]["frames"] != VQ_FRAMES:
+                raise AssertionError(f"(x) the mp4 has {res['mp4']} frames, "
+                                     f"not {VQ_FRAMES}")
+        else:
+            print("(x) cv2 does not import here: no mp4 written (the CPU "
+                  "tests hold the mp4 path)")
+            res["mp4"] = "not written: no cv2"
+    frame = VQ_PICTURES
+    want = {"maps_rgb": (VQ_FRAMES,) + frame["map"],
+            "images": (VQ_FRAMES,) + frame["image"]}
+    for k, shape in want.items():
+        x = decoded[k]
+        if x.shape != shape or x.dtype != np.float32 or \
+                not np.isfinite(x).all():
+            raise AssertionError(f"(x) {k}: {x.shape} {x.dtype}, finite "
+                                 f"{np.isfinite(x).all()}; want {shape}")
+    if decoded["maps_rgb"].min() < -1 or decoded["maps_rgb"].max() > 1:
+        raise AssertionError("(x) maps_rgb outside [-1, 1]")
+
+    # ms a frame at the chunk of 20, on the card's own tensors
+    for name, grid in (("map", (32, 32)), ("image", (16, 32))):
+        dec = decoders[name]
+        idx = torch.as_tensor(scene[name][0, :20].reshape(20, *grid),
+                              dtype=torch.long, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad(), vq.float32_products():
+            ms = _time_ms(lambda: dec._pictures(idx), reps=3, warmup=1) / 20
+        peak = torch.cuda.max_memory_allocated()
+        flops = vq_decode_flops(dec.cfg, grid)
+        weights = sum(t.numel() * t.element_size() for k, v in
+                      dec.params.items() if k not in ("encoder", "quant_conv")
+                      for t in _tensors(v))
+        # a frame's bytes: its tokens in, its picture out, a twentieth of
+        # the weights (read once a chunk)
+        nbytes = 8 * math.prod(grid) + 4 * math.prod(frame[name]) \
+            + weights / 20
+        res[name] = {"ms_per_frame": ms, "gflop_per_frame": flops / 1e9,
+                     "tflop_s": flops / (ms * 1e9),
+                     "max_memory_allocated": peak,
+                     **_bound(nbytes, flops / H100_FP32_FLOPS)}
+        print(f"(x) {name} decoder: {ms:.2f} ms a frame at chunk 20 "
+              f"({flops / 1e9:.1f} GFLOP a frame, {flops / (ms * 1e9):.1f} "
+              f"TFLOP/s); bound {res[name]['bound_ms']:.2f} ms "
+              f"({res[name]['bound_by']}, the float32 peak 67 TFLOP/s); "
+              f"peak device memory {peak / 2**30:.2f} GiB")
+    print(f"(x) built in {res['build_s']:.1f} s; _postprocess (decode, "
+          f"pred | GT video: mp4 {res['mp4']}) {res['postprocess_s']:.1f} s, "
+          f"decode_tokens {res['decode_tokens_s']:.1f} s; peak device "
+          f"memory over both {res['max_memory_allocated'] / 2**30:.2f} GiB")
+
+    first = {"map": scene["map"][0, :2], "image": scene["image"][0, :2]}
+    card = {"maps": decoders["map"].decode(first["map"]),
+            "images": decoders["image"].decode(first["image"])}
+    job = {name: {k: v for k, v in p.items()
+                  if k not in ("encoder", "quant_conv")}
+           for name, p in params.items()}
+    job.update(map_tokens=first["map"], image_tokens=first["image"])
+    return res, _VqCardVsCpu(job, card, work_dir)
+
+
 VOCAB = {"pose": 1024, "map": 8192, "bbox3d": 1028, "image": 8192}
 
 
@@ -1431,7 +1683,8 @@ def phase_slice_v1(dev, out_dir):
         "--kv_dtype", "bfloat16", "--oar_kv_dtype", "bfloat16", "--debug",
         "--synthetic_data", "1", "--max_scenes", "1",
         "--set_num_new_frames", "1", "--sample_method", "topk",
-        "--output_path", out_dir, "--device", str(dev)])
+        "--output_path", out_dir, "--device", str(dev), "--save_video",
+        "false"])
     evaluate.check_args(args)
     cfg = evaluate.config_from_args(args)
     pipeline = ScenePipeline()
@@ -1444,7 +1697,8 @@ def phase_slice_v1(dev, out_dir):
     if "oar_packed" in params:
         raise AssertionError("slice-v1 runs on unpacked OAR weights")
     gen = Generator(UMGen(cfg), params, seed=args.seed, device=dev)
-    runner = SceneRunner(gen, infer_cfg, output_path=out_dir)
+    runner = SceneRunner(gen, infer_cfg, output_path=out_dir,
+                         save_video=False)
     _reset_launches()
     t0 = time.perf_counter()
     evaluate.run_dataset(args, runner, infer_cfg, pipeline)
@@ -1511,7 +1765,8 @@ def _cli_frames(dev, out_dir, argv, tag, what, must, frames, B=1):
     args = evaluate.build_parser().parse_args(
         argv + ["--debug", "--synthetic_data", str(B), "--max_scenes",
                 str(B), "--batch_size", str(B), "--set_num_new_frames",
-                str(frames), "--output_path", out_dir, "--device", str(dev)])
+                str(frames), "--output_path", out_dir, "--device", str(dev),
+                "--save_video", "false"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with _FrameSplit() as split:
@@ -1896,7 +2151,7 @@ def phase_control(dev, out_dir, work_dir, frames=2):
         "--infer_task", "control", "--model_scale", "larger", "--fused_oar",
         "--kv_dtype", "bfloat16", "--int8", "decode", "--sample_method",
         "greedy", "--ckpt_dir", ckpt, "--output_path", out_dir, "--device",
-        str(dev)])
+        str(dev), "--save_video", "false"])
     cfg = evaluate.config_from_args(args)
     pipeline = ScenePipeline()
 
@@ -1982,7 +2237,8 @@ def phase_control(dev, out_dir, work_dir, frames=2):
     direct = SceneRunner(
         Generator(UMGen(cfg), mem, seed=args.seed, device=dev),
         cut("control"),
-        output_path=os.path.join(run_dir, "direct"), pipeline=pipeline)
+        output_path=os.path.join(run_dir, "direct"), pipeline=pipeline,
+        save_video=False)
     mine = direct.run_scene(scene, control_test=True)
     same = all(np.array_equal(mine[m], out[m]) for m in VOCAB)
     res = {"weights": n_weights, "checkpoint_bytes": os.path.getsize(ckpt),
@@ -2009,8 +2265,8 @@ def phase_control(dev, out_dir, work_dir, frames=2):
 
 
 def _tensors(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from _tensors(v)
     else:
         yield tree
@@ -2109,7 +2365,7 @@ SERVING_FLAGS = [
     "--kv_dtype", "int4", "--int8", "all", "--chunked_prefill",
     "--tar_cache_window", "8", "--debug", "--synthetic_data", "10",
     "--max_scenes", "10", "--set_num_new_frames", "1", "--batch_size", "10",
-    "--sample_method", "topk"]
+    "--sample_method", "topk", "--save_video", "false"]
 
 
 def phase_serving(dev, out_dir, tag="e", oar_int4=False):
@@ -2146,7 +2402,8 @@ def phase_serving(dev, out_dir, tag="e", oar_int4=False):
         cfg, g, dev, buffers=build_buffers(cfg, pipeline, device=dev))
     setup_s = time.perf_counter() - t0
     gen = Generator(UMGen(cfg), params, seed=args.seed, device=dev)
-    runner = SceneRunner(gen, infer_cfg, output_path=out_dir)
+    runner = SceneRunner(gen, infer_cfg, output_path=out_dir,
+                         save_video=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
@@ -2209,9 +2466,9 @@ def main(argv=None) -> int:
                     "tar_options options_reference_spec_serving "
                     "options_reference_spec_i4 options_reference_w4_int2 "
                     "options_reference_relative_cached "
-                    "options_reference_relative_recompute; refresh needs "
-                    "recompute), for work on one of them; prints no result "
-                    "line")
+                    "options_reference_relative_recompute vq; refresh "
+                    "needs recompute; vq runs its card-vs-CPU check too), "
+                    "for work on one of them; prints no result line")
     only = ap.parse_args(argv).phases
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2336,6 +2593,11 @@ def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
     if want("control"):
         with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
             report["control"] = phase_control(dev, out_dir, work_dir)
+        torch.cuda.empty_cache()
+    # the VQ detokenizers (x): the card's side now, the CPU's in a child
+    # process beside the checks below
+    if want("vq"):
+        report["vq"], pending["vq_reference"] = phase_vq(dev, work_dir)
         torch.cuda.empty_cache()
     # then the card-against-CPU checks (d, n, f, i): the card's side of each
     # runs now, its CPU side in a child process while the card runs the two

@@ -27,7 +27,8 @@ from umgen_tpu_torch.tools import evaluate
 VOCAB = {"pose": 1024, "map": 8192, "bbox3d": 1028, "image": 8192}
 ROW = {"pose": 3, "map": 1024, "bbox3d": 660, "image": 512}
 BASE = ["--model_scale", "tiny", "--device", "cpu", "--fused_oar",
-        "--kv_dtype", "bfloat16", "--sample_method", "greedy"]
+        "--kv_dtype", "bfloat16", "--sample_method", "greedy",
+        "--save_video", "false"]
 
 
 @pytest.fixture(autouse=True)

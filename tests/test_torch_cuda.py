@@ -1046,3 +1046,67 @@ def test_greedy_speculative_frame_on_the_card(cuda_device):
     print(div)
     assert div["worst_run_start"] is None \
         or div["worst_run_start"][2] <= SPEC_GAP_ULPS, div
+
+
+def _vq_pair(cfg, device, seed):
+    """One codec's decoder on the card and on the CPU, from the same seeded
+    weights (drawn on the CPU)."""
+    from umgen_tpu_torch.models import vq
+    params = vq.init_normvq(torch.Generator().manual_seed(seed), cfg, "cpu")
+    del params["encoder"], params["quant_conv"]
+    cls = vq.MapDecoder if cfg == vq.MAP_VQ else vq.ImageDecoder
+    return cls(params, device=device), cls(params, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["map", "image"])
+def test_vq_decoders_on_the_card_match_the_cpu(cuda_device, name):
+    """The full-width map and image decoders (MAP_VQ, IMAGE_VQ; cuDNN's
+    float32 convolutions, TF32 off) on 2 frames in one chunk, against the
+    CPU within chip_smoke.py's VQ_ATOL, as phase x."""
+    import numpy as np
+
+    from chip_smoke import VQ_ATOL
+    from umgen_tpu_torch.models import vq
+    cfg, n = {"map": (vq.MAP_VQ, 1024), "image": (vq.IMAGE_VQ, 512)}[name]
+    card, cpu = _vq_pair(cfg, cuda_device, seed=0)
+    tokens = np.random.default_rng(0).integers(0, 8192, (2, n))
+    got, want = card.decode(tokens), cpu.decode(tokens)
+    assert got.shape == want.shape and got.dtype == np.float32
+    assert np.abs(got - want).max() <= VQ_ATOL
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def test_map_decoder_chunks_on_the_card_as_on_the_cpu(cuda_device):
+    """21 frames of the full-width map decoder in its chunks of 20 (the
+    last frame normalized alone) on the card and on the CPU: the same
+    pictures within VQ_ATOL, and the last frame is its own chunk's."""
+    import numpy as np
+
+    from chip_smoke import VQ_ATOL
+    from umgen_tpu_torch.models import vq
+    card, cpu = _vq_pair(vq.MAP_VQ, cuda_device, seed=1)
+    tokens = np.random.default_rng(1).integers(0, 8192, (21, 1024))
+    got = card.decode(tokens)
+    assert got.shape == (21, 256, 256, 3)
+    assert np.abs(got - cpu.decode(tokens)).max() <= VQ_ATOL
+    assert np.abs(got[20:] - card.decode(tokens[20:])).max() <= VQ_ATOL
+    assert got[20].min() == -1 and got[20].max() == 1
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_native_collision_helper_matches_numpy(cuda_device, seed):
+    """The native helper, built with g++ on the card's host at first use,
+    against the numpy version."""
+    import numpy as np
+
+    from umgen_tpu_torch import native
+    from umgen_tpu_torch.ops.collision import collision_matrix_np
+    rng = np.random.default_rng(seed)
+    boxes = np.zeros((40, 10), np.float32)
+    boxes[:, 0:2] = rng.uniform(-20, 20, (40, 2))
+    boxes[:, 3] = rng.uniform(2, 6, 40)
+    boxes[:, 4] = rng.uniform(1, 3, 40)
+    boxes[:, 6] = rng.uniform(-np.pi, np.pi, 40)
+    got = native.collision_matrix(boxes)
+    assert got.any()
+    np.testing.assert_array_equal(got, collision_matrix_np(boxes))

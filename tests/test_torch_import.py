@@ -1,10 +1,12 @@
 """The port stands alone: it runs without JAX and without the JAX package.
 
 Importing it and running a tiny rollout through its CLI (the reference
-CLI's default run, and the decode kernels' paths), in a fresh interpreter, leaves `jax` and `umgen_tpu` out of sys.modules; no source file
-of the port (or chip_smoke.py) imports either; and the framework-free
-modules the port copied from the JAX package (config, layout, data) still
-say what their originals say.
+CLI's default run, with its videos and without, and the decode kernels'
+paths), in a fresh interpreter, leaves `jax` and `umgen_tpu` out of
+sys.modules; no source file of the port (or chip_smoke.py) imports either;
+and the framework-free modules the port copied from the JAX package
+(config, layout, data, the visualizer) and the VQ configs still say what
+their originals say.
 """
 
 import ast
@@ -18,20 +20,26 @@ import sys
 import numpy as np
 import pytest
 
+from test_torch_vq import TINY_IMAGE, TINY_MAP
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHILD = """
 import sys
+from umgen_tpu_torch.models import vq
 from umgen_tpu_torch.tools import evaluate
+if sys.argv[2] == "tiny_vq":      # tests/test_torch_vq.py's tiny codecs
+    vq.MAP_VQ = vq.VQConfig(**%r)
+    vq.IMAGE_VQ = vq.VQConfig(**%r)
 rc = evaluate.main(["--model_scale", "tiny", "--debug", "--synthetic_data",
                     "1", "--max_scenes", "1", "--set_num_new_frames", "1",
                     "--device", "cpu", "--output_path", sys.argv[1]]
-                   + sys.argv[2:])
+                   + sys.argv[3:])
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "umgen_tpu"))
 assert rc == 0 and not foreign, (rc, foreign[:5])
 print("PORT_STANDS_ALONE_OK")
-"""
+""" % (TINY_MAP, TINY_IMAGE)
 
 
 # the bf16-ring slice: the decode kernels' plain versions, greedy
@@ -39,16 +47,23 @@ FUSED = ("--infer_task", "video", "--fused_oar", "--kv_dtype", "bfloat16",
          "--sample_method", "greedy")
 
 
-def _run_cli(tmp_path, *flags):
+def _run_cli(tmp_path, *flags, videos=False):
+    """The CLI in a fresh interpreter; `--save_video false` unless
+    `videos`, then with tests/test_torch_vq.py's tiny VQ configs."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     # two intra-op threads: the suite runs several workers on the same
     # cores, and torch's default (one thread per core) oversubscribes them
     env["OMP_NUM_THREADS"] = "2"
-    res = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path), *flags],
+    if not videos:
+        flags += ("--save_video", "false")
+    res = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path),
+                          "tiny_vq" if videos else "-", *flags],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "PORT_STANDS_ALONE_OK" in res.stdout
+    assert "decode failed" not in res.stdout
+    assert len(os.listdir(tmp_path / "video")) == (1 if videos else 0)
     [name] = os.listdir(tmp_path / "saved_token")
     with open(tmp_path / "saved_token" / name, "rb") as f:
         out = pickle.load(f)
@@ -67,6 +82,20 @@ def test_cli_default_run_stands_alone(tmp_path):
     fp8 OAR cache, int8 decode weights, top-k) at the tiny scale: no JAX
     imported, token pickles of the right shapes."""
     _run_cli(tmp_path)
+
+
+def test_cli_writes_videos_stands_alone(tmp_path):
+    """The reference CLI's default run with its videos (`--save_video` on,
+    the default; the tiny VQ configs patched in): the map and image
+    decoders and the pred | GT video, still without JAX — the scene's mp4
+    has 21 frames of two 512-wide panels."""
+    import cv2
+    _run_cli(tmp_path, videos=True)
+    [mp4] = os.listdir(tmp_path / "video")
+    cap = cv2.VideoCapture(str(tmp_path / "video" / mp4))
+    assert (int(cap.get(cv2.CAP_PROP_FRAME_COUNT)),
+            int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))) == (21, 1024)
+    cap.release()
 
 
 def test_cli_serves_the_int4_oar_cache(tmp_path):
@@ -112,7 +141,8 @@ write_control_scenes(evaluate.CONTROL_ROOT,
                      SequenceLayout("pose_map_bbox3d_image"))
 args = evaluate.build_parser().parse_args(
     ["--infer_task", "control", "--model_scale", "tiny", "--debug",
-     "--device", "cpu", "--output_path", "out"] + sys.argv[1:])
+     "--device", "cpu", "--output_path", "out", "--save_video", "false"]
+    + sys.argv[1:])
 for_task = InferConfig.for_task                  # one generated frame
 InferConfig.for_task = staticmethod(lambda *a, **k: dataclasses.replace(
     for_task(*a, **k), num_new_frames=1))
@@ -177,13 +207,16 @@ def test_no_port_source_imports_jax_or_the_jax_package():
 @pytest.mark.parametrize("what", ["ModelConfig", "larger", "tiny",
                                   "InferConfig", "DataConfig", "constants",
                                   "layout", "synthetic", "pipeline",
-                                  "control_keys", "metrics"])
+                                  "control_keys", "metrics", "visualize",
+                                  "vq_configs"])
 def test_copied_modules_equal_the_jax_packages(what):
     """Drift guard for the port's copies of config.py, layout.py, data/,
-    tools/load_control_tokens.py and ops/metrics.py: the same fields and
-    defaults, layout offsets, synthetic scenes, pipeline constants, control
-    keys and their aliases, MMD attribute views, bandwidth and kernel
-    defaults as the JAX package's (none of these imports jax)."""
+    tools/load_control_tokens.py, ops/metrics.py and tools/visualize.py,
+    and for the VQ configs: the same fields and defaults, layout offsets,
+    synthetic scenes, pipeline constants, control keys and their aliases,
+    MMD attribute views, bandwidth and kernel defaults, the visualizer's
+    constants and a rendered frame, VQConfig, MAP_VQ and IMAGE_VQ as the JAX
+    package's."""
     from umgen_tpu import config as jc
     from umgen_tpu import layout as jl
     from umgen_tpu.data import pipeline as jp
@@ -255,6 +288,33 @@ def test_copied_modules_equal_the_jax_packages(what):
         boxes, cats = rng.normal(size=(4, 10)), np.arange(4)
         np.testing.assert_equal(tm.scene_attribute_views(boxes, cats),
                                 jm.scene_attribute_views(boxes, cats))
+    elif what == "visualize":
+        from umgen_tpu.tools import visualize as jvz
+        from umgen_tpu_torch.tools import visualize as tvz
+        names = [n for n in dir(jvz) if n.isupper()]
+        assert "WAYMO_POINT_COLORS" in names and \
+            names == [n for n in dir(tvz) if n.isupper()]
+        for n in names:
+            assert getattr(tvz, n) == getattr(jvz, n), n
+        rng = np.random.default_rng(0)
+        boxes = np.zeros((8, 10), np.float32)
+        boxes[:, 0:2] = rng.uniform(-30, 30, (8, 2))
+        boxes[:, 3:5] = rng.uniform(0.5, 5, (8, 2))
+        boxes[:, 6:9] = rng.uniform(-3, 3, (8, 3))
+        cats, valid = rng.integers(0, 3, 8), rng.random(8) < 0.8
+        maps = rng.uniform(-1, 1, (32, 32, 3))
+        np.testing.assert_array_equal(
+            tvz.render_frame(boxes, cats, valid, maps, collision_ids=[1]),
+            jvz.render_frame(boxes, cats, valid, maps, collision_ids=[1]))
+    elif what == "vq_configs":
+        from umgen_tpu.models import vq as jvq
+        from umgen_tpu_torch.models import vq as tvq
+        for name in ("VQConfig", "MAP_VQ", "IMAGE_VQ"):
+            got, want = getattr(tvq, name), getattr(jvq, name)
+            if name == "VQConfig":
+                got, want = got(), want()
+            assert asdict(got) == asdict(want), name
+            assert got.num_resolutions == want.num_resolutions
     else:
         a, b = tp.ScenePipeline().device_constants(), \
             jp.ScenePipeline().device_constants()

@@ -382,10 +382,11 @@ def test_cli_serves_flag_sets_as_jax_maps_them(flags):
 
 
 def test_cli_still_refuses_multi_gpu_profiling_and_the_videos():
-    """What the port's CLI does not serve after the TAR options and
-    speculation were ported: NotPortedError names `--dp`, `--launcher` and
-    `--profile_dir` with their ROADMAP item, and the run says that the VQ
-    pictures and videos are not written."""
+    """What the port's CLI does not serve after the TAR options,
+    speculation and the videos were ported: NotPortedError names `--dp`,
+    `--launcher` and `--profile_dir` with their ROADMAP item; the VQ
+    pictures and videos are served now (`--save_video` on by default, as in
+    the JAX CLI), so the run no longer says that they are not written."""
     for flags, names in ((["--dp", "2"], ("--dp", "Multi-GPU")),
                          (["--launcher", "mpi"], ("--launcher",)),
                          (["--profile_dir", "p"], ("--profile_dir",))):
@@ -393,7 +394,8 @@ def test_cli_still_refuses_multi_gpu_profiling_and_the_videos():
         with pytest.raises(NotPortedError) as e:
             evaluate.check_args(args)
         assert all(n in str(e.value) for n in names), str(e.value)
-    assert "videos are not ported yet" in evaluate.NOT_PORTED_OUTPUTS
+    assert not hasattr(evaluate, "NOT_PORTED_OUTPUTS")
+    assert evaluate.build_parser().parse_args([]).save_video
     args = evaluate.build_parser().parse_args(
         ["--speculative_k", "8", "--no_spec_bbox", "--tar_w4", "--kv_dtype",
          "int2", "--temporal_pe", "relative"])

@@ -611,9 +611,10 @@ def test_cli_default_run_writes_its_tokens(tmp_path):
         [sys.executable, "-m", "umgen_tpu_torch.tools.evaluate", "--device",
          "cpu", "--debug", "--model_scale", "tiny", "--synthetic_data", "1",
          "--max_scenes", "1", "--set_num_new_frames", "1", "--output_path",
-         str(tmp_path)], cwd=ROOT, env=env, capture_output=True, text=True,
-        timeout=300)
+         str(tmp_path), "--save_video", "false"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
+    assert os.listdir(tmp_path / "video") == []
     [name] = os.listdir(tmp_path / "saved_token")
     with open(tmp_path / "saved_token" / name, "rb") as f:
         out = pickle.load(f)

@@ -8,15 +8,17 @@ module layout so each module's counterpart is found by path:
     ...
 
 It imports `torch`, never `jax`, and nothing of the JAX package: it keeps its
-own copies of the framework-free numpy modules it needs (`config.py`,
+own copies of the framework-free modules it needs (`config.py`,
 `layout.py`, `data/*`, `ops/metrics.py`, `tools/load_control_tokens.py`,
-each its counterpart with only the imports rewritten).  The TPU's Pallas
+`tools/visualize.py`, each its counterpart with only the imports
+rewritten, and the C++ collision helper `native/collision.cc`, as it is).  The TPU's Pallas
 kernels on the slice's path are hand-written CUDA kernels (`csrc/*.cu`,
 built with nvcc for sm_90a at first use and bound through ctypes); every
 kernel wrapper keeps a plain PyTorch version beside it, which serves CPU
 tensors and the tests.
 
-TF32 is switched off for float32 matmuls and cuDNN convolutions at import:
+TF32 is switched off for float32 matmuls and cuDNN convolutions at import
+(and `models.vq.float32_products` keeps it off while the VQ codecs run):
 the reference computes float32 products in full float32, and a TF32 product
 keeps only ~3 decimal digits.
 """

@@ -6,12 +6,11 @@ other's corners; boundary contact does not count.  Two halves:
 
   * the rule constraint, fixed-shape tensor ops on the device, so the bbox
     decode loop never leaves it (`candidate_collides`);
-  * the host-side metrics, numpy (`collision_matrix`, `BoxOverlap` — the
-    collision rate — `box_iou_3d` and `generate_collision_attribute`,
-    ref:misc.py:314-736).  The JAX package's optional C++ helper for the
-    matrix (umgen_tpu/native/) is not ported yet (ROADMAP.md: 'VQ
-    detokenizers, videos and metrics'); the numpy path gives the same
-    matrix.
+  * the host-side metrics on numpy arrays (`collision_matrix`, `BoxOverlap`
+    — the collision rate — `box_iou_3d` and `generate_collision_attribute`,
+    ref:misc.py:314-736).  The matrix runs the native C++ helper
+    (umgen_tpu_torch/native/, built with g++ at first use), as the JAX
+    package's does; `collision_matrix_np` is its numpy twin, for the tests.
 """
 
 from __future__ import annotations
@@ -136,8 +135,10 @@ def _pairwise_collision_np(corners_a, corners_b):
 
 
 def collision_matrix(boxes: np.ndarray) -> np.ndarray:
-    """(N, 10) metric boxes → (N, N) bool collision matrix (numpy)."""
-    return collision_matrix_np(np.asarray(boxes, dtype=np.float32))
+    """(N, 10) metric boxes → (N, N) bool collision matrix, by the native
+    helper (a failed build raises; nothing falls back to numpy)."""
+    from umgen_tpu_torch import native
+    return native.collision_matrix(boxes)
 
 
 def collision_matrix_np(boxes: np.ndarray) -> np.ndarray:

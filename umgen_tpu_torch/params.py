@@ -1,6 +1,7 @@
 """Parameter bridge: the JAX package's params pytree ↔ the port's.
 
-The port keeps the JAX tree as it is — nested dicts with the same names,
+The port keeps the JAX tree as it is — nested dicts (and the VQ tree's
+lists) with the same names,
 shapes and dtypes, stacked layers along a leading L axis, linear leaves
 {"w", "b"} or the int8 {"wq", "ws", "b"} of runtime/quantize — with torch
 tensors as leaves.  `from_jax` converts a tree that came from the JAX
@@ -46,9 +47,12 @@ def to_tensor(a, device=None) -> torch.Tensor:
 
 
 def from_jax(tree: Params, device=None) -> Params:
-    """The JAX params pytree (numpy/jax leaves) → the port's params."""
+    """The JAX params pytree (numpy/jax leaves; dict and list nodes, as the
+    VQ tree's `up` / `block` lists) → the port's params."""
     if isinstance(tree, dict):
         return {k: from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [from_jax(v, device) for v in tree]
     return to_tensor(tree, device)
 
 

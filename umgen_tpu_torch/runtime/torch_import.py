@@ -7,9 +7,13 @@ names from ref:UMGen.py:176-245).  `import_umgen` maps it straight onto the
 port's tree (`params.py`: the JAX package's names, shapes and dtypes, layers
 stacked along L): torch's [out, in] linear weights transpose to [in, out];
 the attention projections carry biases and the MLPs do not (the reference's
-quirk), and whatever biases the state dict holds come along.  The VQ
-checkpoints' importer is not ported yet (ROADMAP.md: 'VQ detokenizers,
-videos and metrics').
+quirk), and whatever biases the state dict holds come along.
+
+`import_vq` maps the VQGAN checkpoints (`map_vae.ckpt`, `image_vae.tar`:
+the reference's NormVQModel, ref:vq_model.py:65-78) onto the VQ tree of
+models/vq.py: conv weights OIHW → HWIO (the JAX tree's layout; the codecs
+turn them back once when they are built), the 1×1 attention convs kept as
+convs, `quantize.embedding.weight` → the codebook.
 """
 
 from __future__ import annotations
@@ -200,3 +204,105 @@ def load_umgen_checkpoint(path: str, config, pipeline=None,
         config, pipeline=pipeline, map_codebook=codebook(map_codebook_path),
         img_codebook=codebook(img_codebook_path), device=device), dt)
     return params
+
+
+# ---------------------------------------------------------------------------
+# VQGAN import (umgen_tpu/runtime/torch_import.py:213-297)
+# ---------------------------------------------------------------------------
+class _VQReader:
+    """Reads the VQGAN state dict's tensors in float32 on `device`."""
+
+    def __init__(self, sd: Dict[str, Any], device):
+        self.sd, self.device = sd, device
+
+    def t(self, name: str) -> torch.Tensor:
+        return self.sd[name].detach().to(device=self.device,
+                                          dtype=torch.float32)
+
+    def conv(self, name: str) -> Params:
+        return {"w": self.t(f"{name}.weight").permute(2, 3, 1, 0)
+                .contiguous(), "b": self.t(f"{name}.bias")}
+
+    def gn(self, name: str) -> Params:
+        return {"w": self.t(f"{name}.weight"), "b": self.t(f"{name}.bias")}
+
+    def resnet(self, name: str) -> Params:
+        p = {"norm1": self.gn(f"{name}.norm1"),
+             "conv1": self.conv(f"{name}.conv1"),
+             "norm2": self.gn(f"{name}.norm2"),
+             "conv2": self.conv(f"{name}.conv2")}
+        if f"{name}.nin_shortcut.weight" in self.sd:
+            p["nin_shortcut"] = self.conv(f"{name}.nin_shortcut")
+        return p
+
+    def attn(self, name: str) -> Params:
+        return {"norm": self.gn(f"{name}.norm"),
+                **{n: self.conv(f"{name}.{n}")
+                   for n in ("q", "k", "v", "proj_out")}}
+
+    def mid(self, prefix: str) -> Params:
+        return {"block_1": self.resnet(f"{prefix}.mid.block_1"),
+                "attn_1": self.attn(f"{prefix}.mid.attn_1"),
+                "block_2": self.resnet(f"{prefix}.mid.block_2")}
+
+    def tower(self, prefix: str, n_blocks: int, n_levels: int,
+              sub: str) -> list:
+        """`up` / `down`: each level's blocks and attentions (lists), and
+        its `sub` (upsample / downsample) conv where the state dict has
+        one."""
+        levels = []
+        for i in range(n_levels):
+            lvl = {"block": [], "attn": []}
+            for j in range(n_blocks):
+                bname = f"{prefix}.{i}.block.{j}"
+                if f"{bname}.conv1.weight" not in self.sd:
+                    break
+                lvl["block"].append(self.resnet(bname))
+                if f"{prefix}.{i}.attn.{j}.q.weight" in self.sd:
+                    lvl["attn"].append(self.attn(f"{prefix}.{i}.attn.{j}"))
+            if f"{prefix}.{i}.{sub}.conv.weight" in self.sd:
+                lvl[sub] = {"conv": self.conv(f"{prefix}.{i}.{sub}.conv")}
+            levels.append(lvl)
+        return levels
+
+
+def import_vq(state_dict: Dict[str, Any], cfg, device="cpu") -> Params:
+    """VQGAN state dict (ref:vq_model.py NormVQModel) → the VQ tree, float32
+    on `device`; the encoder and `quant_conv` where the state dict holds
+    them."""
+    r = _VQReader(state_dict, device)
+    n_res = cfg.num_resolutions
+    params: Params = {
+        "decoder": {
+            "conv_in": r.conv("decoder.conv_in"),
+            "mid": r.mid("decoder"),
+            "up": r.tower("decoder.up", cfg.num_res_blocks + 1, n_res,
+                          "upsample"),
+            "norm_out": r.gn("decoder.norm_out"),
+            "conv_out": r.conv("decoder.conv_out"),
+        },
+        "codebook": r.t("quantize.embedding.weight"),
+        "post_quant_conv": r.conv("post_quant_conv"),
+    }
+    if "encoder.conv_in.weight" in state_dict:
+        params["encoder"] = {
+            "conv_in": r.conv("encoder.conv_in"),
+            "down": r.tower("encoder.down", cfg.num_res_blocks, n_res,
+                            "downsample"),
+            "mid": r.mid("encoder"),
+            "norm_out": r.gn("encoder.norm_out"),
+            "conv_out": r.conv("encoder.conv_out"),
+        }
+        params["quant_conv"] = r.conv("quant_conv")
+    return params
+
+
+def load_vq_checkpoint(path: str, cfg, device="cpu") -> Params:
+    """A VQGAN checkpoint, with or without its {"state_dict": ...} wrapper
+    (ref:vq_model.py:65-78), as the VQ tree on `device`.  A pickle, read
+    with `torch.load(..., weights_only=False)` as the JAX package reads it:
+    load only files you trust."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    return import_vq(sd, cfg, device)

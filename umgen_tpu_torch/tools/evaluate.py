@@ -36,11 +36,20 @@ unless `--int8 off` and packs the int8 OAR weights for the cache type under
 source; W4A8 weights are reached as the JAX bench reaches them, through
 `serving_params` and the same Generator (chip_smoke.py phases e and g).
 It prints the lines the JAX CLI prints (speculative decoding's drafts
-accepted a chunk, the collision rate, MMD against the GT continuation) and
-writes the token pickles.  What the port does not serve — multi-GPU
-(`--dp`, `--launcher`), `--profile_dir`, `--oar_batch_block` — raises
-NotPortedError naming the ROADMAP.md item; the VQ pictures and videos are
-not written, and the run says so (`NOT_PORTED_OUTPUTS`).
+accepted a chunk, the collision rate, MMD against the GT continuation),
+writes the token pickles and, under `--save_video` (on by default, as in
+the JAX CLI), one mp4 a scene under `video/`: the map and image VQ decoders
+(models.vq, on the run's device; each from `--map_decoder_weights_path` /
+`--image_decoder_weights_path` where that file exists, seeded at random
+otherwise) decode every frame, and the video is the prediction | GT panel
+unless `--no_gt_video`.  Unlike the JAX CLI, the port builds and runs the
+decoders only under `--save_video`: the JAX CLI decodes the pictures under
+`--save_video false` too and drops them, and its outputs (token pickles,
+metrics) are the same either way.  Where cv2 does not import, `--save_video`
+stops the run before the rollout (the JAX CLI fails after it, at the first
+rendered frame).  What the port does not serve — multi-GPU (`--dp`,
+`--launcher`), `--profile_dir`, `--oar_batch_block` — raises NotPortedError
+naming the ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -52,10 +61,6 @@ from typing import Optional
 
 from umgen_tpu_torch.models.umgen import RING_DTYPES, NotPortedError
 
-NOT_PORTED_OUTPUTS = ("the map and image pictures and the videos are not "
-                      "ported yet (ROADMAP.md: 'VQ detokenizers, videos and "
-                      "metrics'); writing token pickles and the agent "
-                      "metrics")
 # where the JAX CLI looks for the VQ codebooks (umgen_tpu/tools/
 # evaluate.py:223-229)
 MAP_CODEBOOK = "projects/tokenizer/weights/map_codebook.pth"
@@ -258,6 +263,40 @@ def serving_params(cfg, generator, device, buffers=None):
                          raw["oar"])
 
 
+def require_cv2(args) -> None:
+    """`--save_video` writes mp4s with cv2: where it does not import, stop
+    before anything is built."""
+    if not args.save_video:
+        return
+    try:
+        import cv2  # noqa: F401
+    except ImportError as e:
+        raise SystemExit(f"--save_video writes the videos with cv2, which "
+                         f"does not import here ({e}): install it, or run "
+                         "with --save_video false (token pickles and "
+                         "metrics only)") from e
+
+
+def build_decoders(args, device):
+    """The map and image VQ decoders as the JAX CLI builds them
+    (umgen_tpu/tools/evaluate.py:244-262), on `device`: each loaded from
+    its weights path where that file exists, seeded at random otherwise.
+    (None, None) unless `--save_video`."""
+    if not args.save_video:
+        return None, None
+    from umgen_tpu_torch.models import vq
+    from umgen_tpu_torch.runtime.torch_import import load_vq_checkpoint
+
+    def weights(path, cfg):
+        return load_vq_checkpoint(path, cfg, device) \
+            if os.path.exists(path) else None
+
+    return (vq.MapDecoder(weights(args.map_decoder_weights_path, vq.MAP_VQ),
+                          device=device),
+            vq.ImageDecoder(weights(args.image_decoder_weights_path,
+                                    vq.IMAGE_VQ), device=device))
+
+
 def run_dataset(args, runner, infer_cfg, pipeline):
     """The scenes of `--data_root` (`data/controlled_scenes` under
     `--infer_task control`; `--synthetic_data N` generates video scenes
@@ -346,6 +385,7 @@ def run(args):
     from umgen_tpu_torch.tools.harness import SceneRunner
 
     check_args(args)
+    require_cv2(args)
     cfg = config_from_args(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -358,12 +398,15 @@ def run(args):
     pipeline = ScenePipeline()
     model = UMGen(cfg)
     params = build_params(args, cfg, device, pipeline)
-    print(NOT_PORTED_OUTPUTS)
+    map_dec, image_dec = build_decoders(args, device)
     gen = Generator(model, params, seed=args.seed, device=device)
     runner = SceneRunner(gen, infer_cfg, output_path=args.output_path,
-                         pipeline=pipeline,
+                         pipeline=pipeline, map_decoder=map_dec,
+                         image_decoder=image_dec,
+                         save_video=args.save_video,
                          init_token_mod=[m for m in
-                                         args.init_token_mod.split(",") if m])
+                                         args.init_token_mod.split(",") if m],
+                         gt_video=not args.no_gt_video)
     dataset = run_dataset(args, runner, infer_cfg, pipeline)
     report(args, runner, dataset)
     return runner, gen

@@ -1,15 +1,18 @@
-"""Scene-rollout harness (port of umgen_tpu/tools/harness.py, without the
-videos).
+"""Scene-rollout harness (port of umgen_tpu/tools/harness.py).
 
 Runs the rollout for one scene (`run_scene`: a video clip, or a control pkl
 with its ego trajectory and controlled agents) or a batch of video scenes
 (`run_scenes`: one rollout with the scenes on the batch axis), writes the
 token pickles ``saved_token/<scene>_tokens.pkl`` (skipping scenes already
 done), reports per-frame seconds and frames/s, decodes the boxes and the
-pose, and accumulates the agent metrics: the collision rate (`BoxOverlap`)
-over every frame, MMD against the GT continuation.  The map and image
-pictures and the videos are not ported yet (ROADMAP.md: 'VQ detokenizers,
-videos and metrics').
+pose, and with the VQ decoders the map rasters and camera images (the
+scenes whose decode fails are journaled to ``saved_token/undecoded_token.
+txt``, as the reference does), accumulates the agent metrics — the
+collision rate (`BoxOverlap`) over every frame, MMD against the GT
+continuation — and under `save_video` writes one mp4 a scene under
+``video/``: by default the prediction | GT panel with the GT maps decoded,
+or the single panel with the GT pose (`gt_video=False`, or a scene without
+boxes).
 """
 
 from __future__ import annotations
@@ -43,16 +46,29 @@ class SceneRunner:
     def __init__(self, generator: Generator, infer_config: InferConfig,
                  output_path: str = "output/UMGen",
                  pipeline: Optional[ScenePipeline] = None,
-                 init_token_mod: Optional[Sequence[str]] = None):
-        """init_token_mod: modalities forced to the GT continuation during
-        generation (the reference's init-token replay for FID / MMD
-        evaluation, ref:model_pl.py:103-130), e.g. ("map", "image")."""
+                 map_decoder=None, image_decoder=None,
+                 save_video: bool = True,
+                 init_token_mod: Optional[Sequence[str]] = None,
+                 gt_video: bool = True):
+        """map_decoder / image_decoder: models.vq.MapDecoder / ImageDecoder,
+        or None (no pictures).  init_token_mod: modalities forced to the GT
+        continuation during generation (the reference's init-token replay
+        for FID / MMD evaluation, ref:model_pl.py:103-130), e.g. ("map",
+        "image").  gt_video: render the pred | GT side-by-side panel when
+        the clip has a GT continuation (ref:model_pl.py:283-315 +
+        visulize.py:1607-1633)."""
         self.gen = generator
         self.cfg = infer_config
         self.pipeline = pipeline or ScenePipeline()
+        self.map_decoder = map_decoder
+        self.image_decoder = image_decoder
+        self.save_video = save_video
         self.init_token_mod = tuple(init_token_mod or ())
+        self.gt_video = gt_video
         self.token_save_path = os.path.join(output_path, "saved_token")
+        self.video_save_path = os.path.join(output_path, "video")
         os.makedirs(self.token_save_path, exist_ok=True)
+        os.makedirs(self.video_save_path, exist_ok=True)
         self.box_overlap = BoxOverlap()
         self.mmd = MMDMetric()
         self.timings: List[Dict] = []
@@ -154,7 +170,7 @@ class SceneRunner:
         return outs
 
     def _postprocess(self, out, gt, name: str, input_cond: int) -> None:
-        """Save the tokens, decode them, score the agents."""
+        """Save the tokens, decode them, score the agents, render."""
         with open(self._token_path(name), "wb") as f:
             pickle.dump(out, f)
         try:
@@ -168,6 +184,8 @@ class SceneRunner:
             print(f"decode failed for {name}: {e}")
             return
         if "bbox3d" not in out:      # agent-free task: no agent metrics
+            if self.save_video:
+                self.render_video(decoded, name, cond_frames=input_cond)
             return
         # MMD between the generated frames and the GT continuation when the
         # clip is long enough (the paper's agent-realism metric)
@@ -183,9 +201,12 @@ class SceneRunner:
                 self.mmd.update(pb[:n][pv[:n]], pc[:n][pv[:n]],
                                 gt_boxes[:n][gt_valid[:n]],
                                 gt_cats[:n][gt_valid[:n]])
+        if self.save_video:
+            self.render_video(decoded, name, cond_frames=input_cond, gt=gt)
 
     def decode_tokens(self, out_tokens: Dict[str, np.ndarray]) -> Dict:
-        """Token streams → metric boxes and pose values
+        """Token streams → metric boxes, pose values and, with the VQ
+        decoders, `maps_rgb` / `images` (T, H, W, 3) in [-1, 1]
         (ref:model_pl.py:357-457); adds the frames to the collision
         rate."""
         T = out_tokens["pose"].shape[1]
@@ -198,6 +219,58 @@ class SceneRunner:
             valid = np.zeros((T, 0), bool)
         res = {"boxes": boxes, "cat_ids": cats, "valid": valid,
                "pose": self.pipeline.decode_pose(out_tokens["pose"][0])}
+        if self.map_decoder is not None and "map" in out_tokens:
+            res["maps_rgb"] = self.map_decoder.decode(out_tokens["map"][0])
+        if self.image_decoder is not None and "image" in out_tokens:
+            res["images"] = self.image_decoder.decode(
+                out_tokens["image"][0])
         self.box_overlap.update([boxes[t][valid[t]]
                                  for t in range(boxes.shape[0])])
         return res
+
+    def render_video(self, decoded: Dict, name: str, cond_frames: int,
+                     gt: Optional[Dict] = None) -> str:
+        """Render the rollout's mp4, ``video/<name>.mp4``.  With `gt` (and
+        gt_video on) the reference's prediction | GT side-by-side panel
+        (ref:model_pl.py:283-315 + visulize.py:1607-1633), the GT maps
+        decoded by the map decoder; otherwise the single-panel scene video
+        (map underlay, camera panel, the GT pose where `gt` has one)."""
+        from umgen_tpu_torch.tools import visualize as vz
+        if not vz.HAS_CV2:
+            raise RuntimeError("writing a video needs cv2, which does not "
+                               "import here: run with save_video=False "
+                               "(the CLI's --save_video false)")
+        pose = decoded["pose"].copy()
+        pose[:, 2] = pose[:, 2] * 180.0 / np.pi
+        path = os.path.join(self.video_save_path, f"{name}.mp4")
+        T = decoded["boxes"].shape[0]
+        if gt is not None and self.gt_video and "bbox3d" in gt:
+            gb, gc, gv = (_pad_to(a, T) for a in self.pipeline.decode_bboxes(
+                _frames(gt["bbox3d"])[0, :T]))
+            gt_maps = None
+            if self.map_decoder is not None and "map" in gt:
+                gt_maps = _pad_to(self.map_decoder.decode(
+                    _frames(gt["map"])[0, :T]), T)
+            return vz.render_pred_gt_video(
+                path, decoded["boxes"], decoded["cat_ids"],
+                decoded["valid"], gt_boxes=gb, gt_cats=gc, gt_valid=gv,
+                pred_maps=decoded.get("maps_rgb"), gt_maps=gt_maps,
+                pose=pose, cond_frames=cond_frames)
+        gt_pose = None
+        if gt is not None and "pose" in gt:
+            gt_pose = self.pipeline.decode_pose(_frames(gt["pose"])[0])
+            gt_pose[:, 2] = gt_pose[:, 2] * 180.0 / np.pi
+        return vz.render_scene_video(
+            path, decoded["boxes"], decoded["cat_ids"], decoded["valid"],
+            pose=pose, maps_rgb=decoded.get("maps_rgb"),
+            images=decoded.get("images"), cond_frames=cond_frames,
+            scene_name=name, gt_pose=gt_pose)
+
+
+def _pad_to(a: np.ndarray, T: int) -> np.ndarray:
+    """GT shorter than the rollout: zeros (invalid boxes, black maps)
+    after its end."""
+    if a.shape[0] >= T:
+        return a
+    return np.concatenate([a, np.zeros((T - a.shape[0],) + a.shape[1:],
+                                       a.dtype)])
