@@ -154,7 +154,21 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
       the float32 peak) and the peak memory; the first two frames are
       decoded on the CPU in a child process, as (d), and must agree within
       VQ_ATOL.  The decoders are XLA convolutions in the JAX package, not a
-      Pallas kernel: cuDNN's float32 convolutions here, TF32 off.
+      Pallas kernel: cuDNN's float32 convolutions here, TF32 off;
+  (y) training (`--phases train`; the JAX trainer runs XLA attention and no
+      Pallas kernel has a backward, so none of the fifteen may launch):
+      UMGen_Large, seeded bf16 weights, use_pallas_attention=False, remat,
+      AdamW at lr 3e-4 warming up over 1 of 10 steps, B = 1, a 4-frame
+      window of one synthetic scene, three steps on that batch — the loss
+      and grad norm finite at each, the third step's loss below the
+      first's; prints each step's seconds (CUDA events, host clock), the
+      peak device memory, the TFLOP of a step and the rate, and a
+      `torch.profiler` table of a fourth step (`train.profile`).  Then one AdamW
+      step at the tiny scale in float32, card against a CPU child process
+      (TRAIN_*), a checkpoint round trip at debug scale (the next step from
+      the loaded state and from the one in memory equal bit for bit), and
+      three Adam steps of the map VQ codec at MAP_VQ's size, B = 2, decoded
+      by MapDecoder from its save.
 
 Prints each phase's results, the card's name and power limit, a JSON line
 describing the kernels, and as its last line
@@ -291,6 +305,24 @@ VQ_ATOL = 1e-4
 VQ_FRAMES = 21
 # a frame's picture from each decoder
 VQ_PICTURES = {"map": (256, 256, 3), "image": (256, 512, 3)}
+
+# phase y, training.  The full-width run: a 4-frame window (3 slots for the
+#   ego and TAR losses, the last frame for the OAR's), B = 1.  The tiny
+#   float32 step on the card against the CPU (TF32 off): the loss terms are
+#   sums of the same float32 ops in other orders, 1e-5 relative (the CPU
+#   tests hold the port to JAX at that bound, first reading ~1e-7); each
+#   gradient leaf within 1e-4 relative L2 (as the CPU tests hold it to
+#   JAX's), read from the first Adam moment mu = 0.1·g; the params after
+#   the step within 1e-5: the trainer's first step is its warmup (lr 0), so
+#   they stay where they were on both devices, and Adam's state carries
+#   the step.  (An Adam move proper is g / (|g| + 1e-8), which roundoff
+#   steers wherever |g| is near 1e-8: tests/test_torch_train_steps.py
+#   holds two steps against JAX with that rule.)
+TRAIN_WINDOW = 4
+TRAIN_PROFILE_TOP = 15
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_PARAM_ATOL = 1e-5
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s,
 # bf16 tensor-core FLOP/s, int8 OP/s, float32 FLOP/s outside the tensor
@@ -1574,6 +1606,421 @@ def phase_vq(dev, work_dir):
     return res, _VqCardVsCpu(job, card, work_dir)
 
 
+# ---------------------------------------------------------------------------
+# (y) training
+# ---------------------------------------------------------------------------
+def train_step_flops(cfg, B, T):
+    """(bf16 FLOPs, float32 FLOPs) of one forward pass of the trainer's
+    loss at 2 FLOPs a multiply-add: the products of every linear layer in
+    the activation dtype (bf16), the attention's QKᵀ and PV in float32 (the
+    plain `sdpa` contracts float32 copies), over the W = T - 1 window slots
+    of the ego net and the TAR cascade and the final frame's OAR pass, the
+    heads and the token embeddings' MLPs.  A step's backward pass costs
+    twice the forward, and remat recomputes the stacks' forward once more
+    (`train_step_work`)."""
+    from umgen_tpu_torch.layout import SequenceLayout
+    lo = SequenceLayout(cfg.task)
+    D, W, S = cfg.n_embd, T - 1, lo.seq_len
+    seg = {s.mod: s.content_len for s in lo.segments}
+    lin = {"stacks": 0, "other": 0}
+    att = {"stacks": 0, "other": 0}
+
+    def tar(L, S_):                        # L factorized blocks over W frames
+        lin["stacks"] += L * 2 * 36 * D * D * B * W * S_
+        att["stacks"] += L * (2 * 4 * B * W * S_ * S_ * D
+                              + 4 * B * S_ * W * W * D)
+
+    tar(cfg.n_tar_layer, S)
+    tar(cfg.n_ego_tar_layer, S)
+    tar(cfg.n_map_tar_layer, 5 + 1026)
+    tar(cfg.n_box_tar_layer, 5 + 1026 + 662)
+    # ego queries: 3 a frame, self + cross attention over the frame's S
+    q = B * W * 3
+    lin["stacks"] += cfg.n_ego_ca_layer * 2 * (14 * D * D * q
+                                               + 2 * D * D * B * W * S)
+    att["stacks"] += cfg.n_ego_ca_layer * B * W * (4 * 9 * D + 4 * 3 * S * D)
+    # the OAR pass over the final frame (causal, computed in full)
+    lin["stacks"] += cfg.n_oar_layer * 2 * 12 * D * D * B * S
+    att["stacks"] += cfg.n_oar_layer * 4 * B * S * S * D
+    # heads: ego, TAR (content + separators, every slot), OAR (final frame)
+    vocab = {"pose": cfg.pose_vocab_size, "map": cfg.map_vocab_size,
+             "bbox3d": cfg.bbox3d_vocab_size, "image": cfg.img_vocab_size}
+    heads = q * cfg.pose_vocab_size
+    for mod, n in seg.items():
+        if mod != "pose":
+            heads += B * W * (n * vocab[mod] + 2 * cfg.aux_vocab_size)
+        heads += B * n * vocab[mod]
+    # map / image token embeddings (16 → 4D → D): the trunk's, the ego
+    # net's, the map and box stacks' inputs over W frames, the OAR's one
+    emb_tokens = (4 * W + 1) * B * seg["map"] + (2 * W + 1) * B * seg["image"]
+    lin["other"] += 2 * D * heads + 2 * emb_tokens * (16 * 4 * D + 4 * D * D)
+    return lin, att
+
+
+def train_step_work(cfg, B, T, remat=True):
+    """(executed bf16 FLOPs, executed float32 FLOPs, the model's FLOPs
+    3 × forward) of one train step."""
+    lin, att = train_step_flops(cfg, B, T)
+    fwd16, fwd32 = sum(lin.values()), sum(att.values())
+    redo16 = lin["stacks"] if remat else 0
+    redo32 = att["stacks"] if remat else 0
+    return 3 * fwd16 + redo16, 3 * fwd32 + redo32, 3 * (fwd16 + fwd32)
+
+
+def _kernel_kind(name):
+    """A kernel's kind, from its name, for phase y's profile."""
+    low = name.lower()
+    if "gemm" in low or "nvjet" in low or "xmma" in low:
+        return "float32 GEMM" if "f32f32" in low else "bf16 GEMM"
+    if "softmax" in low:
+        return "softmax"
+    if "reduce" in low:
+        return "reductions"
+    if "elementwise" in low or "copy" in low:
+        return "elementwise"
+    return "other"
+
+
+def _device_table(fn):
+    """fn once under torch.profiler (CUDA activity only; a full-width
+    train step launches ~170k kernels, so the raw kineto events are summed
+    here, which takes seconds where `key_averages` took minutes): the
+    device seconds and launches by kernel name (the TRAIN_PROFILE_TOP
+    largest) and by kind, the busy share over the host clock."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            row = by_name.setdefault(e.name(), [0, 0.0])
+            row[0] += 1
+            row[1] += e.duration_ns() / 1e9
+    kinds = {}
+    for name, (n, sec) in by_name.items():
+        row = kinds.setdefault(_kernel_kind(name), [0, 0.0])
+        row[0] += n
+        row[1] += sec
+    device = sum(sec for _, sec in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    return {"wall_s": wall, "device_s": device, "busy": device / wall,
+            "launches": sum(n for n, _ in by_name.values()),
+            "kinds": dict(sorted(kinds.items(), key=lambda kv: -kv[1][1])),
+            "kernels": dict(top[:TRAIN_PROFILE_TOP])}
+
+
+def _train_cpu_step(job_path):
+    """Entry of phase y's child process: the same AdamW step on the CPU,
+    from the same weights and batch.  Two intra-op threads, as
+    `_cpu_replay`."""
+    import torch
+    from umgen_tpu_torch.models.umgen import UMGen
+    from umgen_tpu_torch.parallel import optim
+    from umgen_tpu_torch.parallel.train import UMGenTrainer
+    torch.set_num_threads(2)
+    job = torch.load(job_path, weights_only=False)
+    trainer = UMGenTrainer(UMGen(job["cfg"]), **job["trainer"])
+    state = trainer.init_state(job["params"])
+    t0 = time.perf_counter()
+    state, metrics = trainer.train_step(state, job["batch"])
+    torch.save({"metrics": metrics,
+                "params": optim.tree_map(lambda t: t.detach(), state.params),
+                "opt_state": state.opt_state,
+                "seconds": time.perf_counter() - t0}, job_path + ".out")
+
+
+class _TrainCardVsCpu:
+    """Phase y's card-against-CPU check: the card's step is taken before;
+    a child process takes the same step on the CPU while the card goes on.
+    `finish()` holds the loss terms and grad_norm (TRAIN_LOSS_RTOL), each
+    gradient leaf read from the first moment mu = 0.1·g (TRAIN_GRAD_RTOL
+    relative L2; a leaf zero on the CPU zero on the card, a roundoff leaf
+    below 1e-7 of the global norm on both) and the params after the step
+    (TRAIN_PARAM_ATOL)."""
+
+    def __init__(self, job, card, work_dir):
+        import multiprocessing
+
+        import torch
+        self.card = card
+        self.job = os.path.join(work_dir, "replay_y.pt")
+        torch.save(job, self.job)
+        self.child = multiprocessing.get_context("spawn").Process(
+            target=_train_cpu_step, args=(self.job,))
+        self.child.start()
+
+    def stop(self):
+        if self.child.is_alive():
+            self.child.terminate()
+        self.child.join()
+
+    def finish(self):
+        import torch
+        from umgen_tpu_torch.parallel import optim
+        self.child.join()
+        if self.child.exitcode != 0:
+            raise AssertionError("phase y: the CPU step exited with code "
+                                 f"{self.child.exitcode}")
+        cpu = torch.load(self.job + ".out", weights_only=False)
+        card = self.card
+        res = {"cpu_s": cpu["seconds"], "card_s": card["seconds"]}
+        res["metrics_rel_err"] = {
+            k: abs(float(card["metrics"][k]) - float(v)) / abs(float(v))
+            for k, v in cpu["metrics"].items()}
+        mu_cpu = list(optim.tree_leaves(cpu["opt_state"][1][0]["mu"]))
+        mu_card = list(optim.tree_leaves(card["opt_state"][1][0]["mu"]))
+        gnorm = float(optim.global_norm(mu_cpu))
+        worst, zeros, roundoff = 0.0, 0, 0
+        for a, b in zip(mu_cpu, mu_card):
+            b = b.float()
+            na = float(a.norm())
+            if na == 0:
+                zeros += 1
+                if b.any():
+                    worst = math.inf
+            elif na <= 1e-7 * gnorm:
+                roundoff += 1
+                if float(b.norm()) > 1e-7 * gnorm:
+                    worst = math.inf
+            else:
+                worst = max(worst, float((b - a).norm()) / na)
+        res.update(grad_rel_l2_max=worst, zero_leaves=zeros,
+                   roundoff_leaves=roundoff)
+        res["params_max_abs_err"] = max(
+            float((b.float() - a).abs().max()) for a, b in zip(
+                optim.tree_leaves(cpu["params"]),
+                optim.tree_leaves(card["params"])))
+        print(f"(y) tiny float32 AdamW step on the card vs the CPU: loss "
+              f"terms rel err max {max(res['metrics_rel_err'].values()):.3g} "
+              f"(bound {TRAIN_LOSS_RTOL:g}), gradients (mu / 0.1) rel L2 "
+              f"max {worst:.3g} (bound {TRAIN_GRAD_RTOL:g}; {zeros} zero and "
+              f"{roundoff} roundoff leaves), params after the step max abs "
+              f"err {res['params_max_abs_err']:.3g} (bound "
+              f"{TRAIN_PARAM_ATOL:g}); {res['cpu_s']:.1f} s in the CPU's "
+              "child process")
+        if (max(res["metrics_rel_err"].values()) > TRAIN_LOSS_RTOL
+                or worst > TRAIN_GRAD_RTOL
+                or res["params_max_abs_err"] > TRAIN_PARAM_ATOL):
+            raise AssertionError(f"the trainer on the card disagrees with "
+                                 f"the CPU: {res}")
+        return res
+
+
+def _train_batch(layout, cfg, T, dev, seed=0):
+    import torch
+    from umgen_tpu_torch.data.synthetic import make_token_batch
+    raw = make_token_batch(layout, T=T, B=1, seed=seed, config=cfg)
+    return {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+            for k, v in raw.items()}
+
+
+def phase_train(dev, work_dir):
+    """(y) Training on the card.  (1) UMGen_Large (`--model_scale larger`),
+    seeded bf16 weights, use_pallas_attention=False, remat, AdamW at lr
+    3e-4 warming up over 1 of 10 steps, B = 1, a 4-frame window of one
+    synthetic scene, three steps on that batch: the loss and the grad norm
+    finite at each, the third step's loss below the first's (the first
+    update is the warmup no-op), none of the fifteen kernels launched;
+    each step's seconds (CUDA events and the host clock), the peak device
+    memory, the FLOPs of a step and the rate.  (2) One AdamW step at the
+    tiny scale in float32 on the card, and in a child process on the CPU
+    from the same weights and batch (`_TrainCardVsCpu`).  (3) At debug
+    scale (full width, one layer a stack): a step, the train state saved
+    and loaded, one more step from each: params and optimizer state equal
+    bit for bit.  (4) The map VQ codec at MAP_VQ's published size, B = 2,
+    three Adam steps (tools.train_vq.VQTrainer): finite losses,
+    perplexity >= 1; saved in the inference layout, and two frames of
+    tokens decoded by MapDecoder from that save.  Returns (report,
+    check)."""
+    import numpy as np
+    import torch
+    from umgen_tpu_torch.config import ModelConfig
+    from umgen_tpu_torch.layout import SequenceLayout
+    from umgen_tpu_torch.models import vq
+    from umgen_tpu_torch.models.umgen import UMGen
+    from umgen_tpu_torch.parallel import optim
+    from umgen_tpu_torch.parallel.train import UMGenTrainer
+    from umgen_tpu_torch.params import init_params
+    from umgen_tpu_torch.runtime import checkpoint as ckpt
+    from umgen_tpu_torch.tools.train_vq import VQTrainer, synthetic_rasters
+
+    kw = dict(learning_rate=3e-4, warmup_steps=1, total_steps=10)
+    res = {}
+    # (1) full width and depth
+    cfg = ModelConfig(use_pallas_attention=False, remat=True).scaled(
+        "larger")
+    model = UMGen(cfg)
+    trainer = UMGenTrainer(model, **kw)
+    t0 = time.perf_counter()
+    state = trainer.init_state(init_params(
+        cfg, torch.Generator(dev).manual_seed(0), dev))
+    batch = _train_batch(model.layout, cfg, TRAIN_WINDOW, dev)
+    n_params = sum(t.numel() for t in optim.tree_leaves(state.params))
+    torch.cuda.synchronize()
+    res["build_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    steps = []
+    for i in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        state, metrics = trainer.train_step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        row = {"host_s": time.perf_counter() - t0,
+               "device_s": start.elapsed_time(end) / 1e3,
+               **{k: float(v) for k, v in metrics.items()}}
+        steps.append(row)
+        print(f"(y) UMGen_Large step {i + 1}: loss {row['loss']:.4f} (ego "
+              f"{row['ego_loss']:.3f} tar {row['tar_loss']:.3f} oar "
+              f"{row['oar_loss']:.3f}) grad norm {row['grad_norm']:.3f}; "
+              f"{row['device_s']:.3f} s (CUDA events), {row['host_s']:.3f} s "
+              "(host clock)")
+    res["launches"] = _launches((), flash=False)
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    bf16, f32, model_flops = train_step_work(cfg, 1, TRAIN_WINDOW)
+    s = min(r["device_s"] for r in steps[1:])
+    res.update(steps=steps, params=n_params, window=TRAIN_WINDOW,
+               tflop_bf16=bf16 / 1e12, tflop_f32=f32 / 1e12,
+               model_tflop=model_flops / 1e12,
+               tflop_s=(bf16 + f32) / (s * 1e12),
+               bound_s=bf16 / H100_BF16_FLOPS + f32 / H100_FP32_FLOPS)
+    print(f"(y) {n_params / 1e9:.3f} B params; a step executes "
+          f"{res['tflop_bf16']:.1f} TFLOP of bf16 products and "
+          f"{res['tflop_f32']:.1f} of float32 attention (remat included; the "
+          f"model's 3 x forward {res['model_tflop']:.1f}): "
+          f"{res['tflop_s']:.1f} TFLOP/s at the faster step's {s:.3f} s, "
+          f"against {res['bound_s']:.3f} s at the bf16 and float32 peaks; "
+          f"peak device memory {res['max_memory_allocated'] / 2**30:.2f} GiB")
+    if not all(math.isfinite(r[k]) for r in steps
+               for k in ("loss", "grad_norm")):
+        raise AssertionError(f"(y) a step's loss or grad norm is not "
+                             f"finite: {steps}")
+    if not steps[2]["loss"] < steps[0]["loss"]:
+        raise AssertionError(f"(y) the loss did not fall over three steps "
+                             f"on one batch: {[r['loss'] for r in steps]}")
+    # where a step's time goes: torch.profiler over a fourth step
+    res["profile"] = prof = _device_table(
+        lambda: trainer.train_step(state, batch))
+    print(f"(y) profile of a step: {prof['device_s']:.3f} device s in "
+          f"{prof['wall_s']:.3f} s (busy {100 * prof['busy']:.1f}%), "
+          f"{prof['launches']} launches; by kind (s, launches): "
+          + ", ".join(f"{k} {v[1]:.3f} ({v[0]})"
+                      for k, v in prof["kinds"].items()))
+    for name, (n, sec) in prof["kernels"].items():
+        print(f"      {sec:8.3f}  ({n})  {name[:100]}")
+    del state, trainer, batch
+    torch.cuda.empty_cache()
+
+    # (2) tiny, float32: the card's step, the CPU's in a child process
+    cfg = ModelConfig(use_pallas_attention=False, dtype="float32").scaled(
+        "tiny")
+    params = init_params(cfg, torch.Generator(dev).manual_seed(1), dev)
+    trainer = UMGenTrainer(UMGen(cfg), **kw)
+    batch = _train_batch(SequenceLayout(cfg.task), cfg, 3, dev, seed=1)
+    job = {"cfg": cfg, "trainer": kw,
+           "params": optim.tree_map(lambda t: t.cpu(), params),
+           "batch": {k: v.cpu() for k, v in batch.items()}}
+    state = trainer.init_state(params)
+    t0 = time.perf_counter()
+    with vq.float32_products():
+        state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    card = {"metrics": {k: v.cpu() for k, v in metrics.items()},
+            "params": optim.tree_map(lambda t: t.detach().cpu(),
+                                     state.params),
+            "opt_state": optim.tree_map(lambda t: t.cpu(), state.opt_state),
+            "seconds": time.perf_counter() - t0}
+    check = _TrainCardVsCpu(job, card, work_dir)
+    del state, trainer, params
+
+    # (3) debug scale: a checkpoint round trip
+    cfg = ModelConfig(use_pallas_attention=False).scaled("debug")
+    trainer = UMGenTrainer(UMGen(cfg), **kw)
+    state = trainer.init_state(init_params(
+        cfg, torch.Generator(dev).manual_seed(2), dev))
+    batch = _train_batch(SequenceLayout(cfg.task), cfg, TRAIN_WINDOW, dev,
+                         seed=2)
+    state, _ = trainer.train_step(state, batch)
+    path = os.path.join(work_dir, "train_state")
+    t0 = time.perf_counter()
+    ckpt.save_train_state(path, state)
+    res["ckpt_bytes"] = os.path.getsize(path)
+    res["ckpt_save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = ckpt.load_train_state(path, trainer.init_state(init_params(
+        cfg, torch.Generator(dev).manual_seed(3), dev)))
+    torch.cuda.synchronize()
+    res["ckpt_load_s"] = time.perf_counter() - t0
+    os.remove(path)
+    a, _ = trainer.train_step(state, batch)
+    b, _ = trainer.train_step(loaded, batch)
+    same = all(torch.equal(x, y) for x, y in zip(
+        optim.tree_leaves((a.params, a.opt_state, a.step)),
+        optim.tree_leaves((b.params, b.opt_state, b.step))))
+    print(f"(y) debug-scale train state ({res['ckpt_bytes'] / 2**30:.2f} "
+          f"GiB) saved in {res['ckpt_save_s']:.2f} s, loaded in "
+          f"{res['ckpt_load_s']:.2f} s; the next step from each equal bit "
+          f"for bit: {same}")
+    if not same:
+        raise AssertionError("(y) a step from the loaded train state differs "
+                             "from the step from the state in memory")
+    res["ckpt_round_trip_equal"] = same
+    del a, b, state, loaded, trainer
+    torch.cuda.empty_cache()
+
+    # (4) the map VQ codec at its published size
+    torch.cuda.reset_peak_memory_stats()
+    vq_trainer = VQTrainer(vq.MAP_VQ, vq.init_normvq(
+        torch.Generator(dev).manual_seed(4), vq.MAP_VQ, dev), 1e-4)
+    rng = np.random.default_rng(0)
+    vq_steps = []
+    for i in range(3):
+        x = torch.as_tensor(synthetic_rasters(rng, 2, vq.MAP_VQ.resolution,
+                                              vq.MAP_VQ.in_channels),
+                            device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = vq_trainer.step(x)
+        torch.cuda.synchronize()
+        vq_steps.append({"s": time.perf_counter() - t0,
+                         **{k: float(v) for k, v in m.items()}})
+    path = ckpt.save_params(os.path.join(work_dir, "map_final"),
+                            vq_trainer.inference_params())
+    tokens = rng.integers(0, vq.MAP_VQ.n_embed,
+                          (2, math.prod(vq.MapDecoder.grid)))
+    maps = vq.MapDecoder(ckpt.load_params(path), device=dev).decode(tokens)
+    os.remove(path)
+    res["vq"] = {"steps": vq_steps, "max_memory_allocated":
+                 torch.cuda.max_memory_allocated(),
+                 "decoded": list(maps.shape)}
+    print(f"(y) map VQ codec (MAP_VQ), B = 2: losses "
+          f"{[round(r['loss'], 4) for r in vq_steps]}, perplexity "
+          f"{[round(r['perp'], 1) for r in vq_steps]}, "
+          f"{[round(r['s'], 3) for r in vq_steps]} s a step; peak device "
+          f"memory {res['vq']['max_memory_allocated'] / 2**30:.2f} GiB; "
+          f"MapDecoder from the save: {maps.shape}")
+    if not all(math.isfinite(r["loss"]) and r["perp"] >= 1
+               for r in vq_steps):
+        raise AssertionError(f"(y) VQ training: {vq_steps}")
+    if maps.shape != (2,) + VQ_PICTURES["map"] or \
+            not np.isfinite(maps).all():
+        raise AssertionError(f"(y) MapDecoder on the trained save: "
+                             f"{maps.shape}")
+    del vq_trainer
+    torch.cuda.empty_cache()
+    return res, check
+
+
 VOCAB = {"pose": 1024, "map": 8192, "bbox3d": 1028, "image": 8192}
 
 
@@ -2440,9 +2887,11 @@ def _load_tokens(out_dir):
 
 
 def _check_stands_alone():
-    """The port imports neither jax nor the JAX package."""
+    """The port imports neither jax nor the JAX package (nor optax or
+    orbax)."""
     foreign = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "umgen_tpu"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "umgen_tpu",
+                                            "optax", "orbax"))
     if foreign:
         raise AssertionError(f"the port imported {foreign[:5]}")
 
@@ -2466,8 +2915,10 @@ def main(argv=None) -> int:
                     "tar_options options_reference_spec_serving "
                     "options_reference_spec_i4 options_reference_w4_int2 "
                     "options_reference_relative_cached "
-                    "options_reference_relative_recompute vq; refresh "
-                    "needs recompute; vq runs its card-vs-CPU check too), "
+                    "options_reference_relative_recompute vq train; "
+                    "refresh "
+                    "needs recompute; vq and train run their card-vs-CPU "
+                    "checks too), "
                     "for work on one of them; prints no result line")
     only = ap.parse_args(argv).phases
     if not torch.cuda.is_available():
@@ -2629,6 +3080,12 @@ def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
         if want(key):
             pending[key] = phase_options_reference(dev, work_dir, tag)
             torch.cuda.empty_cache()
+    # training (y), device-bound like the serving paths, while the CPU
+    # sides above run; its own tiny step's CPU side in a child too
+    if want("train"):
+        report["train"], pending["train_reference"] = phase_train(dev,
+                                                                  work_dir)
+        torch.cuda.empty_cache()
     serving("serving")
     serving("serving_i4", tag="g", oar_int4=True)
     t_wait = time.perf_counter()

@@ -1110,3 +1110,142 @@ def test_native_collision_helper_matches_numpy(cuda_device, seed):
     got = native.collision_matrix(boxes)
     assert got.any()
     np.testing.assert_array_equal(got, collision_matrix_np(boxes))
+
+
+# ---------------------------------------------------------------------------
+# training: no kernel under autograd, the optimizers and the trainer's step
+# on the card against the CPU
+# ---------------------------------------------------------------------------
+def test_kernels_refuse_autograd_on_the_card(cuda_device):
+    """The kernels have no backward: a CUDA input that requires a gradient
+    raises before any launch; under no_grad the kernel launches."""
+    q = torch.randn(1, 64, 16, 48, device=cuda_device).bfloat16()
+    q.requires_grad_(True)
+    n0 = tfa.LAUNCHES["flash_attention"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        tfa.flash_attention(q, q, q, causal=False)
+    assert tfa.LAUNCHES["flash_attention"] == n0
+    with torch.no_grad():
+        tfa.flash_attention(q, q, q, causal=False)
+    assert tfa.LAUNCHES["flash_attention"] == n0 + 1
+    x = torch.zeros(1, 1, 768, dtype=torch.bfloat16, device=cuda_device,
+                    requires_grad=True)
+    kv = torch.zeros(1, 1, 8, 768, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tdk.fused_decode_step_v5({}, x, kv, kv, 0, 16)
+
+
+def _opt_trees(device, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+
+    def leaf(*shape, scale, dt=dtype):
+        return (torch.randn(*shape, generator=g) * scale).to(dt).to(device)
+
+    def tree(scale):
+        return {"tar": {"w": leaf(3, 64, 48, scale=scale),
+                        "b": leaf(48, scale=scale)},
+                "tpe_rel": leaf(4, 9, scale=scale, dt=torch.float32)}
+
+    return tree(0.02), [tree(s) for s in (0.05, 3.0, 0.01)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_on_the_card_matches_the_cpu(cuda_device, dtype):
+    """The trainer's AdamW chain behind the clip (warmup 0: every update
+    moves), three updates on the same seeded gradients on both devices:
+    the params and the moments within 1e-6 of each leaf's scale (float32:
+    the schedule's cos and the bias corrections' pow may differ by an ulp
+    between the devices) and within one bf16 ulp of it on bf16 leaves."""
+    from umgen_tpu_torch.parallel import optim
+    sched = optim.warmup_cosine_decay_schedule(0.0, 3e-4, 0, 10, 3e-5)
+    tx = optim.chain(optim.clip_by_global_norm(1.0),
+                     optim.adamw(sched, weight_decay=0.01))
+    out = []
+    for dev in ("cpu", cuda_device):
+        params, grads = _opt_trees(dev, dtype, seed=0)
+        state = tx.init(params)
+        for g in grads:
+            u, state = tx.update(g, state, params)
+            params = optim.apply_updates(params, u)
+        out.append((params, state))
+    for a, b in zip(optim.tree_leaves(out[0]), optim.tree_leaves(out[1])):
+        a, b = a.float(), b.float().cpu()
+        scale = max(float(a.abs().max()), 1e-30)
+        tol = 2.0 ** -8 if a.dtype == torch.bfloat16 else 1e-6
+        assert float((a - b).abs().max()) <= tol * scale
+
+
+def _tiny_step(device, cfg, params, batch):
+    from umgen_tpu_torch.models.umgen import UMGen
+    from umgen_tpu_torch.parallel import optim
+    from umgen_tpu_torch.parallel.train import UMGenTrainer
+    trainer = UMGenTrainer(UMGen(cfg), learning_rate=3e-4, warmup_steps=1,
+                           total_steps=10)
+    state = trainer.init_state(optim.tree_map(lambda t: t.to(device),
+                                              params))
+    state, metrics = trainer.train_step(
+        state, {k: v.to(device) for k, v in batch.items()})
+    return state, metrics
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One AdamW step of the trainer at the tiny scale in float32 (TF32
+    off), card against CPU, with chip_smoke.py phase y's bounds: the loss
+    terms and grad_norm, each gradient leaf read from mu = 0.1·g, the
+    params after the (warmup) step."""
+    import numpy as np
+
+    from chip_smoke import (TRAIN_GRAD_RTOL, TRAIN_LOSS_RTOL,
+                            TRAIN_PARAM_ATOL)
+    from umgen_tpu_torch.config import ModelConfig
+    from umgen_tpu_torch.data.synthetic import make_token_batch
+    from umgen_tpu_torch.layout import SequenceLayout
+    from umgen_tpu_torch.parallel import optim
+    from umgen_tpu_torch.params import init_params
+    cfg = ModelConfig(use_pallas_attention=False, dtype="float32").scaled(
+        "tiny")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    raw = make_token_batch(SequenceLayout(cfg.task), T=3, B=1, seed=0,
+                           config=cfg)
+    batch = {k: torch.as_tensor(np.asarray(v), dtype=torch.long)
+             for k, v in raw.items()}
+    card, mcard = _tiny_step(cuda_device, cfg, params, batch)
+    cpu, mcpu = _tiny_step("cpu", cfg, params, batch)
+    for k, v in mcpu.items():
+        assert abs(float(mcard[k]) - float(v)) <= TRAIN_LOSS_RTOL * abs(
+            float(v)), k
+    gnorm = float(mcpu["grad_norm"])
+    for a, b in zip(optim.tree_leaves(cpu.opt_state[1][0]["mu"]),
+                    optim.tree_leaves(card.opt_state[1][0]["mu"])):
+        b = b.cpu()
+        na = float(a.norm())
+        if na <= 1e-8 * gnorm:            # zero, or roundoff of a zero
+            assert float(b.norm()) <= 1e-8 * gnorm
+        else:
+            assert float((b - a).norm()) <= TRAIN_GRAD_RTOL * na
+    for a, b in zip(optim.tree_leaves(cpu.params),
+                    optim.tree_leaves(card.params)):
+        assert float((b.detach().cpu() - a.detach()).abs().max()) <= \
+            TRAIN_PARAM_ATOL
+
+
+def test_train_steps_are_deterministic_on_the_card(cuda_device):
+    """Two runs of the same step from the same state give the same bits
+    (the trained tables' and the map warp's gradients are scatter-adds
+    by F.embedding, deterministic on the card; chip_smoke.py phase y's
+    checkpoint round trip relies on it)."""
+    from umgen_tpu_torch.config import ModelConfig
+    from umgen_tpu_torch.data.synthetic import make_token_batch
+    from umgen_tpu_torch.layout import SequenceLayout
+    from umgen_tpu_torch.parallel import optim
+    from umgen_tpu_torch.params import init_params
+    cfg = ModelConfig(use_pallas_attention=False).scaled("tiny")
+    params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    raw = make_token_batch(SequenceLayout(cfg.task), T=3, B=1, seed=1,
+                           config=cfg)
+    batch = {k: torch.as_tensor(v, dtype=torch.long) for k, v in raw.items()}
+    a, _ = _tiny_step(cuda_device, cfg, params, batch)
+    b, _ = _tiny_step(cuda_device, cfg, params, batch)
+    for x, y in zip(optim.tree_leaves((a.params, a.opt_state)),
+                    optim.tree_leaves((b.params, b.opt_state))):
+        assert torch.equal(x, y)

@@ -23,6 +23,9 @@ import pytest
 from test_torch_vq import TINY_IMAGE, TINY_MAP
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# what the port must never import: JAX, the JAX package, JAX's optimizer
+# and checkpoint libraries
+FOREIGN = ("jax", "jaxlib", "umgen_tpu", "optax", "orbax")
 
 _CHILD = """
 import sys
@@ -36,10 +39,10 @@ rc = evaluate.main(["--model_scale", "tiny", "--debug", "--synthetic_data",
                     "--device", "cpu", "--output_path", sys.argv[1]]
                    + sys.argv[3:])
 foreign = sorted(m for m in sys.modules
-                 if m.split(".")[0] in ("jax", "jaxlib", "umgen_tpu"))
+                 if m.split(".")[0] in %r)
 assert rc == 0 and not foreign, (rc, foreign[:5])
 print("PORT_STANDS_ALONE_OK")
-""" % (TINY_MAP, TINY_IMAGE)
+""" % (TINY_MAP, TINY_IMAGE, FOREIGN)
 
 
 # the bf16-ring slice: the decode kernels' plain versions, greedy
@@ -148,10 +151,10 @@ InferConfig.for_task = staticmethod(lambda *a, **k: dataclasses.replace(
     for_task(*a, **k), num_new_frames=1))
 evaluate.run(args)
 foreign = sorted(m for m in sys.modules
-                 if m.split(".")[0] in ("jax", "jaxlib", "umgen_tpu"))
+                 if m.split(".")[0] in %r)
 assert not foreign, foreign[:5]
 print("PORT_STANDS_ALONE_OK")
-"""
+""" % (FOREIGN,)
 
 
 def test_cli_control_task_stands_alone(tmp_path):
@@ -174,6 +177,85 @@ def test_cli_control_task_stands_alone(tmp_path):
     assert out["pose"].shape == (1, 14, 3)
 
 
+_TRAIN_CHILD = """
+import sys
+from umgen_tpu_torch.tools import train, train_vq
+out = sys.argv[1]
+if sys.argv[2] == "train":
+    rc = train.main(["--device", "cpu", "--model_scale", "tiny", "--steps",
+                     "1", "--synthetic_data", "1", "--batch_size", "1",
+                     "--window", "3", "--ckpt_dir", out, "--data_root",
+                     out + "/absent"])
+else:
+    rc = train_vq.main(["--device", "cpu", "--res", "32", "--ch", "32",
+                        "--steps", "1", "--batch_size", "2", "--ckpt_dir",
+                        out])
+foreign = sorted(m for m in sys.modules
+                 if m.split(".")[0] in %r)
+assert rc == 0 and not foreign, (rc, foreign[:5])
+print("PORT_STANDS_ALONE_OK")
+""" % (FOREIGN,)
+
+
+@pytest.mark.parametrize("tool", ["train", "train_vq"])
+def test_training_clis_stand_alone(tmp_path, tool):
+    """`tools.train` (one step at the tiny scale) and `tools.train_vq` (one
+    step at --res 32 --ch 32) on the CPU, in a fresh interpreter: neither
+    imports jax, optax, orbax or the JAX package; each saves its final
+    state."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "2"
+    res = subprocess.run([sys.executable, "-c", _TRAIN_CHILD, str(tmp_path),
+                          tool], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "PORT_STANDS_ALONE_OK" in res.stdout
+    assert os.path.exists(tmp_path / ("final" if tool == "train"
+                                      else "map_final"))
+
+
+def _jax_parser(main):
+    """The argparse parser a JAX CLI builds inside its `main`: caught at
+    its parse_args, before anything runs."""
+    import argparse
+
+    class Caught(Exception):
+        pass
+
+    def catch(parser, *a, **k):
+        raise Caught(parser)
+
+    orig = argparse.ArgumentParser.parse_args
+    argparse.ArgumentParser.parse_args = catch
+    try:
+        main([])
+    except Caught as e:
+        return e.args[0]
+    finally:
+        argparse.ArgumentParser.parse_args = orig
+    raise AssertionError("the JAX CLI parsed no arguments")
+
+
+@pytest.mark.parametrize("tool", ["train", "train_vq"])
+def test_training_cli_flags_equal_the_jax_clis(tool):
+    """Drift guard: every flag of the JAX training CLIs is the port's, with
+    the same default, type, choices and action; the port adds only
+    `--device` (default cuda)."""
+    import importlib
+    jax_cli = importlib.import_module(f"umgen_tpu.tools.{tool}")
+    port_cli = importlib.import_module(f"umgen_tpu_torch.tools.{tool}")
+
+    def flags(parser):
+        return {a.dest: (a.default, a.type, a.choices, type(a).__name__,
+                         tuple(a.option_strings))
+                for a in parser._actions if a.dest != "help"}
+
+    want, got = flags(_jax_parser(jax_cli.main)), \
+        flags(port_cli.build_parser())
+    assert got.pop("device")[0] == "cuda"
+    assert got == want
+
+
 def _port_sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     for base, _, files in os.walk(os.path.join(ROOT, "umgen_tpu_torch")):
@@ -184,7 +266,8 @@ def _port_sources():
 
 def test_no_port_source_imports_jax_or_the_jax_package():
     """Every import statement of umgen_tpu_torch/**/*.py and chip_smoke.py,
-    at any depth: none names `jax`, `jaxlib` or `umgen_tpu`."""
+    at any depth: none names `jax`, `jaxlib`, `umgen_tpu`, `optax` or
+    `orbax`."""
     paths = list(_port_sources())
     assert len(paths) > 20
     bad = []
@@ -200,7 +283,7 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                 continue
             bad += [(os.path.relpath(path, ROOT), node.lineno, n)
                     for n in names
-                    if n.split(".")[0] in ("jax", "jaxlib", "umgen_tpu")]
+                    if n.split(".")[0] in FOREIGN]
     assert not bad, bad
 
 

@@ -1,9 +1,10 @@
 """Transformer building blocks over parameter dicts (port of
-umgen_tpu/models/modules.py, the subset the cached rollout runs).
+umgen_tpu/models/modules.py: the subset the rollouts and the trainer run).
 
 Parameters are the JAX package's pytree as nested dicts of tensors (see
 umgen_tpu_torch/params.py): stacked layers carry a leading L axis and a
-stack is applied with a Python loop over `layer(stack, l)`.
+stack is applied with a Python loop over `layer(stack, l)` (`apply_stack`,
+which can recompute each block in the backward pass).
 
 Weight-layout conventions are the JAX package's: linear y = x @ w + b with
 w [in, out]; int8 weight-only leaves are {"wq" int8 [in, out], "ws" f32
@@ -44,6 +45,15 @@ def n_layers(stack: Params) -> int:
 # ---------------------------------------------------------------------------
 # primitive ops
 # ---------------------------------------------------------------------------
+def lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx]: the rows of a trained table for `idx` of any shape.  Its
+    gradient is F.embedding's scatter-add, deterministic on both devices,
+    where indexing's `index_put_` accumulates in a thread-dependent order
+    on the CPU (and with atomics on the card): a training step gives the
+    same bits run after run, with remat and without."""
+    return torch.nn.functional.embedding(idx, table)
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with float32 accumulation, returned in float32.
 
@@ -120,16 +130,48 @@ def _erfc_f32(z: torch.Tensor) -> torch.Tensor:
     return torch.where(az < 1.0, small, tail)
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """Exact-erf GELU, 0.5·x·erfc(-x/√2), with the reference's rounding
-    points: the erfc argument stays float32, erfc and the final product
-    round to x's dtype."""
+def _gelu(x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     xf = x.float()
     c = float(torch.tensor(math.sqrt(0.5), dtype=dt))
     e = _erfc_f32((-xf) * c).to(dt).float()
     half = (0.5 * xf).to(dt).float()
     return (half * e).to(dt)
+
+
+class _GeluFn(torch.autograd.Function):
+    """`_gelu` with the derivative JAX takes: erfc's own, -2/√π·exp(-z²)
+    (lax's jvp rule), not the derivative of the polynomial that evaluates
+    it — and no gradient through the branches `_erfc_f32` selects away,
+    whose 1/|z| is infinite at z = 0.  d/dx = 0.5·erfc(-cx) + 0.5·x·c·
+    (2/√π)·exp(-c²x²), in float32, rounded to x's dtype once."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _gelu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        dt = x.dtype
+        xf = x.float()
+        c = float(torch.tensor(math.sqrt(0.5), dtype=dt))
+        z = (-xf) * c
+        e = _erfc_f32(z).to(dt).float()
+        d = 0.5 * e + (0.5 * xf) * c * (2.0 / math.sqrt(math.pi)) \
+            * torch.exp(-z * z)
+        return (g.float() * d).to(dt)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact-erf GELU, 0.5·x·erfc(-x/√2), with the reference's rounding
+    points: the erfc argument stays float32, erfc and the final product
+    round to x's dtype.  Under autograd its gradient is erfc's exact one
+    (`_GeluFn`)."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _GeluFn.apply(x)
+    return _gelu(x)
 
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -220,6 +262,31 @@ def block_tar(p: Params, x: torch.Tensor, n_head: int,
     xs = xs + mlp(p["mlp3"], layer_norm(p["ln6"], xs))
     out = xs.reshape(B, T, S, D)
     return (out, (kh, vh)) if collect_kv else out
+
+
+def block_oar(p: Params, x: torch.Tensor, n_head: int,
+              attn_impl: Callable = sdpa) -> torch.Tensor:
+    """The OAR's causal block over a whole frame [B, S, D] (the teacher-
+    forced training pass; decoding runs the step kernels)."""
+    x = x + attention(p["attn"], layer_norm(p["ln1"], x), n_head,
+                      causal=True, attn_impl=attn_impl)
+    return x + mlp(p["mlp"], layer_norm(p["ln2"], x))
+
+
+def apply_stack(stack: Params, x: torch.Tensor, block_fn: Callable,
+                remat: bool = False) -> torch.Tensor:
+    """x through every layer of a stacked tree, `block_fn(layer_params, h)`
+    each.  With `remat` (and autograd recording) each block runs under
+    `torch.utils.checkpoint`: its activations are recomputed in the
+    backward pass instead of kept (the JAX package's `jax.checkpoint`).  The
+    blocks draw no random numbers, so the recomputation is exact."""
+    from torch.utils.checkpoint import checkpoint
+    remat = remat and torch.is_grad_enabled()
+    for l in range(n_layers(stack)):
+        p = layer(stack, l)
+        x = (checkpoint(block_fn, p, x, use_reentrant=False) if remat
+             else block_fn(p, x))
+    return x
 
 
 def saturate_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

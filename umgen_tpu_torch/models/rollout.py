@@ -299,7 +299,7 @@ class Rollout:
             return nn.mlp(params["map_mlp_pre"],
                           params["buffers"]["map_codebook"][token])
         if mod == "bbox3d":
-            return params["be"][token]
+            return nn.lookup(params["be"], token)
         if mod == "image":
             return nn.mlp(params["img_mlp_pre"],
                           params["buffers"]["img_codebook"][token])
@@ -308,6 +308,29 @@ class Rollout:
     def _aux_emb(self, params: Params, aux_id: int, B: int) -> torch.Tensor:
         axe = params["axe"]
         return axe[aux_id][None, None].expand(B, 1, axe.shape[-1])
+
+    def oar_inputs_from_tokens(self, params: Params,
+                               frame_tokens: torch.Tensor,
+                               prior_seq: torch.Tensor) -> torch.Tensor:
+        """The OAR's input sequence of a complete token stream (the
+        trainer's teacher-forced pass).  frame_tokens [B, seq_len] with its
+        separators (position p at column p-1), prior_seq [B, seq_len, D] →
+        [B, seq_len, D] in cfg.dtype: index 0 the task embedding, index k >=
+        1 token k's embedding by its modality (the aux embedding at a
+        separator), every index + prior_seq[k]; the output of
+        `UMGen.oar_forward` at index p-1 predicts position p."""
+        cfg, lo = self.config, self.layout
+        B = frame_tokens.shape[0]
+        tske = params["tske"][TASK_NAME_ID[cfg.task]]
+        parts = [tske[None, None].expand(B, 1, tske.shape[-1])]
+        for seg in lo.segments:
+            content = frame_tokens[:, seg.content_start - 1:seg.content_end]
+            parts += [self._aux_emb(params, seg.bos, B),
+                      self._embed_token(params, seg.mod, content),
+                      self._aux_emb(params, seg.eos, B)]
+        # the final EOS is never an input
+        full = torch.cat(parts, dim=1)[:, :lo.seq_len]
+        return (full + prior_seq[:, :lo.seq_len]).to(torch_dtype(cfg.dtype))
 
     # While decoding a segment the cache never grows past the segment's
     # end, so the steps get a prefix VIEW of it (writes land in the full

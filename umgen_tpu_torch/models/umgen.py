@@ -22,6 +22,12 @@ in the reference's two modes:
     at once after its layer scan — the slot being written is masked out of
     the frame's own temporal attention, so the two orders agree).
 
+The trainer's teacher-forced pass (parallel/train.py) keeps every frame of
+the window: `forward_ego_net` runs the ego queries of all T frames,
+`tar_cascade` returns every frame's TAR embeddings, and `oar_forward` is the
+OAR's full causal pass over one frame; with config.remat each block is
+recomputed in the backward pass (`modules.apply_stack`).
+
 The temporal PE is absolute (a learned [max_frame_len, D] table added to
 the embeddings) or, with `temporal_pe_mode="relative"`, a per-head bias
 `tpe_rel` [H, max_frame_len] on the temporal attention's logits by query-key
@@ -155,7 +161,7 @@ class UMGen:
     def embed_bbox(self, params, tokens, spatial_pe: bool):
         """tokens [..., 660]; the spatial PE adds per-object x/y table
         entries broadcast over the 11 attribute tokens."""
-        feats = params["be"][tokens]
+        feats = nn.lookup(params["be"], tokens)
         if spatial_pe:
             shape = tokens.shape[:-1]
             boxes = tokens.reshape(*shape, self.config.pad_to_length, 11)
@@ -184,7 +190,7 @@ class UMGen:
             return x + spe
         idx = torch.clamp(torch.arange(T, device=x.device) + t_offset,
                           max=self._rel_clamp())
-        return x + spe + params["tpe"][idx][None, :, None, :]
+        return x + spe + nn.lookup(params["tpe"], idx)[None, :, None, :]
 
     # relative temporal PE (temporal_pe_mode="relative")
     def _rel_clamp(self) -> int:
@@ -199,7 +205,7 @@ class UMGen:
             return None
         t = torch.arange(T, device=params["tpe_rel"].device)
         rel = torch.clamp(t[:, None] - t[None, :], 0, self._rel_clamp())
-        return params["tpe_rel"][:, rel]
+        return nn.lookup(params["tpe_rel"].t(), rel).permute(2, 0, 1)
 
     def _t_bias_ring(self, params, slot: int, T_max: int):
         """([H, T_max] bias of each ring slot, [H] the self term's) for the
@@ -257,9 +263,10 @@ class UMGen:
         ego = params["egoe"][None, None].expand(B, T, 3, D)
         q = self.add_pos_emb(params, ego, t_offset=t_offset).reshape(
             B * T, 3, D)
-        stack = params["ego_ca"]
-        for l in range(nn.n_layers(stack)):
-            q = nn.decoder_block(nn.layer(stack, l), q, ctx, cfg.n_head)
+        q = nn.apply_stack(
+            params["ego_ca"], q,
+            lambda p, h: nn.decoder_block(p, h, ctx, cfg.n_head),
+            remat=cfg.remat)
         return nn.layer_norm(params["ln_ego"], q).reshape(B, T, 3, D)
 
     # ------------------------------------------------------------------
@@ -395,27 +402,31 @@ class UMGen:
         ring slot.  int4 rings quantize each window frame per (scene,
         head); int2 rings too, after the channel equalizer taken over the
         whole window.  Relative temporal PE: the window's bias on every
-        temporal attention."""
+        temporal attention.  Without rings the stack runs through
+        `nn.apply_stack` (config.remat recomputes each block in the
+        backward pass)."""
         cfg = self.config
         B, T, S, _ = emb.shape
         stack = params[stack_name]
-        L = nn.n_layers(stack)
-        kv_rings = None
-        if rings:
-            keep = min(T, self.t_max)
-            slots = torch.as_tensor(np.arange(T - keep, T) % self.t_max,
-                                    device=emb.device)
-            kv_rings = self._ring_zeros(L, B * S, B, emb.device)
         t_bias = self._t_bias_window(params, T)
+        if not rings:
+            h = nn.apply_stack(
+                stack, emb,
+                lambda p, x: nn.block_tar(p, x, cfg.n_head,
+                                          attn_impl=self.attn,
+                                          t_bias=t_bias),
+                remat=cfg.remat)
+            return nn.layer_norm(params[ln_name], h), None
+        L = nn.n_layers(stack)
+        keep = min(T, self.t_max)
+        slots = torch.as_tensor(np.arange(T - keep, T) % self.t_max,
+                                device=emb.device)
+        kv_rings = self._ring_zeros(L, B * S, B, emb.device)
         h = emb
         for l in range(L):
-            out = nn.block_tar(nn.layer(stack, l), h, cfg.n_head,
-                               attn_impl=self.attn, collect_kv=rings,
-                               t_bias=t_bias)
-            if not rings:
-                h = out
-                continue
-            h, kv = out
+            h, kv = nn.block_tar(nn.layer(stack, l), h, cfg.n_head,
+                                 attn_impl=self.attn, collect_kv=True,
+                                 t_bias=t_bias)
             for i, a in enumerate(kv):                 # [B·S, T, H, Dh]
                 if self.ring_q2:
                     packed, sc, chan = self._ring_q2_quantize_window(a, B,
@@ -463,47 +474,72 @@ class UMGen:
                     self._ring_store(kv[i][l], slot, new)
         return nn.layer_norm(params[ln_name], h), kv
 
-    def _priors(self, params, frame_emb, run_stack):
-        """Shared tail of the two TAR cascades: trunk, then the map and box
+    def _tar_embs(self, params, frame_emb, run_stack):
+        """Shared body of the TAR cascades: trunk, then the map and box
         refinement stacks overriding their segments, then the warped-map
-        residual on the map content positions → prior_seq [B, 2207, D].
+        residual on the map content positions → {mod: [..., seg_len, D]}.
 
-        frame_emb(mods, grid_pe) → (emb, warped map of the prior frame);
-        run_stack(stack_name, ln_name, emb) → per-frame output [B, S, D]."""
+        frame_emb(mods, grid_pe) → (emb, warped map of the same frames);
+        run_stack(stack_name, ln_name, emb) → output [..., S, D]: one frame
+        [B, S, D] (the rollouts) or every frame [B, T, S, D] (the
+        trainer's `tar_cascade`)."""
         cfg, lo = self.config, self.layout
         emb, _ = frame_emb(lo.mod_order, cfg.add_spatial_pos_embedd_on_map)
         trunk = run_stack("tar", "ln_tar", emb)
         seg_lens = [s.end - s.start + 1 for s in lo.segments]
         offs = np.cumsum([0] + seg_lens)
-        tar_emb = {s.mod: trunk[:, int(offs[i]):int(offs[i + 1])]
+        tar_emb = {s.mod: trunk[..., int(offs[i]):int(offs[i + 1]), :]
                    for i, s in enumerate(lo.segments)}
         warped_prior = None
         if cfg.split_map_tar and "map" in lo.mod_order:
             emb_m, warped_prior = frame_emb(TASKS["pose_map"], False)
-            tar_emb["map"] = run_stack("map_tar", "ln_map_tar", emb_m)[:, 5:]
+            tar_emb["map"] = run_stack("map_tar", "ln_map_tar",
+                                       emb_m)[..., 5:, :]
         if cfg.split_box_tar and "bbox3d" in lo.mod_order:
             emb_b, warped_b = frame_emb(TASKS["pose_map_bbox3d"], False)
             out_b = run_stack("box_tar", "ln_box_tar", emb_b)
-            tar_emb["bbox3d"] = out_b[:, 5 + 1026:]
+            tar_emb["bbox3d"] = out_b[..., 5 + 1026:, :]
             if not cfg.split_map_tar:
-                tar_emb["map"] = out_b[:, 5:5 + 1026]
+                tar_emb["map"] = out_b[..., 5:5 + 1026, :]
                 warped_prior = warped_b
         if cfg.map_transform and "map" in lo.mod_order \
                 and warped_prior is not None:
             m = tar_emb["map"]
             tar_emb["map"] = torch.cat(
-                [m[:, :1], m[:, 1:-1] + warped_prior, m[:, -1:]], dim=1)
-        return torch.cat([tar_emb[s.mod] for s in lo.segments], dim=1)
+                [m[..., :1, :], m[..., 1:-1, :] + warped_prior,
+                 m[..., -1:, :]], dim=-2)
+        return tar_emb
 
-    def _ego_window(self, params, inputs, rings: bool):
+    def _priors(self, params, frame_emb, run_stack):
+        """`_tar_embs` of one frame → prior_seq [B, 2207, D], its
+        segments in decode order."""
+        tar_emb = self._tar_embs(params, frame_emb, run_stack)
+        return torch.cat([tar_emb[s.mod] for s in self.layout.segments],
+                         dim=1)
+
+    def _ego_context(self, params, inputs, rings: bool):
         """The raw window {mod: [B, T, len]} through the ego stack (no map
         warp, no grid PE: the reference's ego net sees the raw window) →
-        (last-frame ego logits [B, 3, 1024], the ego rings or None)."""
+        (out [B, T, S, D], the ego rings or None)."""
         emb, _ = self._tar_input(params, inputs, self.layout.mod_order,
                                  map_grid_pe=False, pose_diff=None,
                                  warp=False, t_offset=0)
-        out, kv = self._run_tar_stack(params, "ego_tar", "ln_ego_tar", emb,
-                                      rings=rings)
+        return self._run_tar_stack(params, "ego_tar", "ln_ego_tar", emb,
+                                   rings=rings)
+
+    def forward_ego_net(self, params, inputs):
+        """The ego net over the raw window {mod: [B, T, len]} with the
+        queries of every frame (at t_offset 0) → ego embeddings [B, T, 3,
+        D] (the trainer's; the rollouts read the last frame's only)."""
+        out, _ = self._ego_context(params, inputs, rings=False)
+        B, T, S, D = out.shape
+        return self._ego_queries(params, out.reshape(B * T, S, D), B, T,
+                                 t_offset=0)
+
+    def _ego_window(self, params, inputs, rings: bool):
+        """`_ego_context`'s last frame through the ego queries → (ego
+        logits [B, 3, 1024], the ego rings or None)."""
+        out, kv = self._ego_context(params, inputs, rings)
         B, T = out.shape[:2]
         q = self._ego_queries(params, out[:, -1], B, 1, t_offset=T - 1)
         return nn.linear(params["head_ego"], q[:, 0]), kv
@@ -560,6 +596,35 @@ class UMGen:
 
         prior = self._priors(params, frame_emb, run_stack)
         return {"prior_seq": prior, "pose_diff": pose_diff, "cache": cache}
+
+    def tar_cascade(self, params, shifted_inputs):
+        """The shifted window {mod: [B, T, len]} through every TAR stack,
+        every frame kept (the trainer's teacher-forced pass) → {"tar_emb":
+        {mod: [B, T, seg_len, D]} with the split stacks' overrides and the
+        warped-map residual, "pose_diff" [B, T, 3]}."""
+        pose_diff = self.decode_pose(params, shifted_inputs["pose"])
+
+        def frame_emb(mods, grid_pe):
+            return self._tar_input(params, shifted_inputs, mods,
+                                   map_grid_pe=grid_pe, pose_diff=pose_diff,
+                                   t_offset=0)
+
+        def run_stack(name, ln, emb):
+            return self._run_tar_stack(params, name, ln, emb)[0]
+
+        return {"tar_emb": self._tar_embs(params, frame_emb, run_stack),
+                "pose_diff": pose_diff}
+
+    def oar_forward(self, params, oar_input):
+        """The OAR's full causal pass over a frame's inputs [B, S, D]
+        (`Rollout.oar_inputs_from_tokens`) → ln_oar(h) [B, S, D]: the
+        output at input index p-1 predicts position p."""
+        cfg = self.config
+        h = nn.apply_stack(
+            params["oar"], oar_input,
+            lambda p, x: nn.block_oar(p, x, cfg.n_head, attn_impl=self.attn),
+            remat=cfg.remat)
+        return nn.layer_norm(params["ln_oar"], h)
 
     def tar_priors(self, params, shifted_inputs):
         """Recompute mode: the whole shifted window {mod: [B, T, len]} (the

@@ -163,3 +163,29 @@ def require(t: torch.Tensor, dtype: torch.dtype, what: str,
         raise ValueError(f"{what}: expected a contiguous tensor")
     if t.data_ptr() % align:
         raise ValueError(f"{what}: data pointer not {align}-byte aligned")
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _tensors(v)
+
+
+def refuse_autograd(what: str, *inputs) -> None:
+    """Raise where autograd is recording and an input (a tensor, or a tree
+    of them) requires a gradient: the kernels are launched on raw pointers
+    and have no backward, so autograd could not see them and the gradient
+    through them would be silently dropped.  Checked before the device is:
+    the plain versions of CPU tensors refuse alike."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for x in inputs for t in _tensors(x)):
+        raise RuntimeError(
+            f"{what}: an input requires a gradient, and the kernel has no "
+            "backward; train on the plain PyTorch path "
+            "(use_pallas_attention=False, no fused decode), or call it "
+            "under torch.no_grad()")

@@ -58,7 +58,9 @@ wrappers take the packed caches [L, B, S, H·Dh/2] int8 and the scale planes
 written in place.  v1-v4 take the reference's 5-D caches (v1 and v2 flat
 ones too).
 
-For CUDA tensors the kernel launches or the wrapper raises.  For CPU
+Every wrapper refuses inputs that require a gradient while autograd
+records (`_cuda.refuse_autograd`: the kernels have no backward).  For CUDA
+tensors the kernel launches or the wrapper raises.  For CPU
 tensors the wrappers run `decode_step_plain` (`decode_step_dense_plain` for
 v1 and v2): the reference kernel's arithmetic in plain PyTorch, including
 its S-block online softmax (`pick_block_s`) and the bf16 rounding of the
@@ -742,6 +744,7 @@ def _step(name: str, packed: Params, x: torch.Tensor, kv_k: torch.Tensor,
     the name, then launches the kernel (CUDA tensors) or runs the plain
     version (CPU tensors).  The caches are flat, written in place, and
     returned as they were passed."""
+    _cuda.refuse_autograd(name, packed, x, kv_k, kv_v, k_scale, v_scale)
     kind = name[len("fused_decode_step_"):]
     Q = x.shape[1]
     if "mq" in kind and (Q < 2 or Q * n_head > 128):
@@ -783,6 +786,7 @@ def _dense_step(name: str, packed: Params, x: torch.Tensor,
     launches `umgen_decode_step_dense` (CUDA tensors) or runs
     `decode_step_dense_plain` (CPU tensors) on the flat view of the
     caches."""
+    _cuda.refuse_autograd(name, packed, x, kv_k, kv_v)
     if x.shape[1] != 1:
         raise ValueError(f"{name} takes one row per scene, got "
                          f"Q={x.shape[1]}")

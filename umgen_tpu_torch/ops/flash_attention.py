@@ -9,7 +9,8 @@ kernel takes bf16 tensors with head_dim 48 — the model's width at every
 scale the port serves on the card.
 
 `flash_attention(q, k, v, causal)` launches the kernel for CUDA tensors and
-raises for anything the kernel does not take; for CPU tensors it runs
+raises for anything the kernel does not take, and for inputs that require
+a gradient while autograd records (the kernel has no backward); for CPU tensors it runs
 `flash_attention_plain`, the same function in plain PyTorch (the JAX
 package's `sdpa` numerics: float32 logits, softmax weights rounded to the
 input dtype before the value product).
@@ -40,7 +41,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool) -> torch.Tensor:
     """softmax(q·kᵀ/√Dh)·v for q [B, Sq, H, Dh], k/v [B, Sk, H, Dh];
-    causal masks bottom-right aligned."""
+    causal masks bottom-right aligned.  Raises under autograd (no
+    backward)."""
+    _cuda.refuse_autograd("flash_attention", q, k, v)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal)
     B, Sq, H, Dh = q.shape

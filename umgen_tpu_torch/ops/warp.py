@@ -18,20 +18,22 @@ def _bilinear_sample_zeros(feat: torch.Tensor, fx: torch.Tensor,
     """feat [N, H, W, C] sampled at pixel coords fx/fy [N, H, W]; taps
     outside the grid contribute zero."""
     N, H, W, C = feat.shape
+    rows = feat.reshape(N * H * W, C)
+    base = (torch.arange(N, device=feat.device) * (H * W))[:, None, None]
     x0 = torch.floor(fx)
     y0 = torch.floor(fy)
     wx1 = fx - x0
     wy1 = fy - y0
     wx0 = 1.0 - wx1
     wy0 = 1.0 - wy1
-    flat = feat.reshape(N, H * W, C)
 
     def tap(xi, yi, w):
         inb = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
         xc = torch.clamp(xi, 0, W - 1).long()
         yc = torch.clamp(yi, 0, H - 1).long()
-        idx = (yc * W + xc).reshape(N, H * W, 1).expand(N, H * W, C)
-        g = torch.gather(flat, 1, idx).reshape(N, H, W, C)
+        # a row lookup, whose backward (the trainer's scatter-add into the
+        # map features) is deterministic on both devices
+        g = torch.nn.functional.embedding(base + yc * W + xc, rows)
         return g * (w * inb.to(w.dtype))[..., None]
 
     return (tap(x0, y0, wx0 * wy0) + tap(x0 + 1, y0, wx1 * wy0)
