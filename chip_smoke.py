@@ -89,13 +89,14 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
       steps 500-1499, the peak device memory, and a `torch.profiler` table
       of 20 eager steps at cache_len 1100 (`eager_profile`);
   (p) recompute (`--tar_mode recompute --fused_oar --kv_dtype bfloat16
-      --sample_method greedy`), full width and depth, B = 1, two frames
+      --sample_method greedy`), full width, the TAR / OAR stacks at
+      DEFAULT_RUN_LAYERS (cut from 36 for the script's time), B = 1, two frames
       (the second one's window has slid): the whole 20-frame window through
-      every TAR stack each frame.  Flash must launch 192 times a frame, v5
-      and v5mq must launch; prints each frame's TAR / OAR split and the
-      peak memory;
+      every TAR stack each frame.  Flash must launch twice a TAR-family
+      block a frame (192 at 36 layers, 132 at 6), v5 and v5mq must launch;
+      prints each frame's TAR / OAR split and the peak memory;
   (q) ring refresh on fp8 rings (`--fused_oar --tar_cache_refresh 1
-      --sample_method greedy`, an int8 OAR cache), two frames: the refresh
+      --sample_method greedy`, an int8 OAR cache), p's depth, two frames: the refresh
       must fire once (Generator.refreshes); flash, v5 and v5mq must launch.
       Prints the share of its second frame's tokens equal to (p)'s, for the
       record;
@@ -120,8 +121,9 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
       `control_test`) in cached and in recompute mode, and the video task's
       `--init_token_mod map,image` replay;
   (u) speculative decoding (`--speculative_k 8 --sample_method greedy`
-      with the flags of (c)), UMGen_Large, B = 1, the prefill frame and a
-      cached one: every verify chunk one v5mq launch at Q = 8 (launches =
+      with the flags of (c)), UMGen_Large width, the TAR / OAR stacks at
+      DEFAULT_RUN_LAYERS (cut from 36 for the script's time), B = 1, the prefill
+      frame and a cached one: every verify chunk one v5mq launch at Q = 8 (launches =
       chunks + 3 pushes a frame), no other decode kernel; then the same run
       without speculation, against whose stream every run of differing
       positions of the prefill frame must start at a near tie
@@ -168,7 +170,29 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
       (TRAIN_*), a checkpoint round trip at debug scale (the next step from
       the loaded state and from the one in memory equal bit for bit), and
       three Adam steps of the map VQ codec at MAP_VQ's size, B = 2, decoded
-      by MapDecoder from its save.
+      by MapDecoder from its save;
+  (z) data parallelism and the profiler (`--phases dp`): (z1) `--dp 2`
+      through the ranks the CLI starts (parallel.mesh.launch →
+      evaluate.rank_main), two ranks sharing the one card over gloo, phase
+      c's flags with `--sample_method greedy` at UMGen_Large width, the TAR
+      / OAR stacks cut to DEFAULT_RUN_LAYERS, B = 2 synthetic scenes (one a
+      rank), the prefill frame and a cached one: flash, v5 and v5mq must
+      launch in each rank and no other decode kernel, tokens in range, each
+      scene's tokens equal bit for bit to a one-process B = 1 run of it on
+      the same seeded weights, the collision rate and MMD finite; (z2) the
+      same path at world size 1 over NCCL, tokens equal to the one-process
+      run's; (z3) `--profile_dir` on a debug-scale CLI run (full width, one
+      layer a stack, the prefill frame): the trace must name the flash and
+      decode-step kernels, its size printed; (z4) in z1's ranks: one AdamW
+      step of the tiny float32 trainer on a global batch of 2 (params and
+      moments equal across the ranks bit for bit, within TRAIN_* of the
+      one-process step on the whole batch) and one Adam step of the map VQ
+      codec at MAP_VQ, global B = 2 (codebook, params and Adam state equal
+      across the ranks).  Prints each rank's frame times beside the
+      one-process run's, and which gloo collectives take CUDA tensors (the
+      mesh reaches gloo through host copies).  The reference, z1 and z4 run
+      after phase l, on a quiet host; z2 and z3 after the serving paths,
+      while the CPU sides of the card-against-CPU phases finish;
 
 Prints each phase's results, the card's name and power limit, a JSON line
 describing the kernels, and as its last line
@@ -179,6 +203,7 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1735,6 +1760,32 @@ def _train_cpu_step(job_path):
                 "seconds": time.perf_counter() - t0}, job_path + ".out")
 
 
+def _grad_errors(ref_opt, opt):
+    """Each gradient leaf, read from the first Adam moment mu = 0.1·g, of
+    `opt` against `ref_opt`: the largest relative L2 error; a leaf zero in
+    the reference must be zero, a roundoff leaf (below 1e-7 of the global
+    norm) must stay below that.  Returns (worst, zeros, roundoff)."""
+    from umgen_tpu_torch.parallel import optim
+    mu_ref = list(optim.tree_leaves(ref_opt[1][0]["mu"]))
+    mu = list(optim.tree_leaves(opt[1][0]["mu"]))
+    gnorm = float(optim.global_norm(mu_ref))
+    worst, zeros, roundoff = 0.0, 0, 0
+    for a, b in zip(mu_ref, mu):
+        b = b.float()
+        na = float(a.norm())
+        if na == 0:
+            zeros += 1
+            if b.any():
+                worst = math.inf
+        elif na <= 1e-7 * gnorm:
+            roundoff += 1
+            if float(b.norm()) > 1e-7 * gnorm:
+                worst = math.inf
+        else:
+            worst = max(worst, float((b - a).norm()) / na)
+    return worst, zeros, roundoff
+
+
 class _TrainCardVsCpu:
     """Phase y's card-against-CPU check: the card's step is taken before;
     a child process takes the same step on the CPU while the card goes on.
@@ -1773,23 +1824,8 @@ class _TrainCardVsCpu:
         res["metrics_rel_err"] = {
             k: abs(float(card["metrics"][k]) - float(v)) / abs(float(v))
             for k, v in cpu["metrics"].items()}
-        mu_cpu = list(optim.tree_leaves(cpu["opt_state"][1][0]["mu"]))
-        mu_card = list(optim.tree_leaves(card["opt_state"][1][0]["mu"]))
-        gnorm = float(optim.global_norm(mu_cpu))
-        worst, zeros, roundoff = 0.0, 0, 0
-        for a, b in zip(mu_cpu, mu_card):
-            b = b.float()
-            na = float(a.norm())
-            if na == 0:
-                zeros += 1
-                if b.any():
-                    worst = math.inf
-            elif na <= 1e-7 * gnorm:
-                roundoff += 1
-                if float(b.norm()) > 1e-7 * gnorm:
-                    worst = math.inf
-            else:
-                worst = max(worst, float((b - a).norm()) / na)
+        worst, zeros, roundoff = _grad_errors(cpu["opt_state"],
+                                              card["opt_state"])
         res.update(grad_rel_l2_max=worst, zero_leaves=zeros,
                    roundoff_leaves=roundoff)
         res["params_max_abs_err"] = max(
@@ -2261,26 +2297,41 @@ def _tar_bytes(gen, B):
 
 # phase o's depth: its TAR and OAR stacks cut to 6 layers (the CLI's
 # smallest named scale has 24; 36 until PR 8, 24 in PR 9), the map / box /
-# ego stacks as they are
+# ego stacks as they are; phases p, q, u and z too
 DEFAULT_RUN_LAYERS = 6
+
+
+@contextlib.contextmanager
+def _depth(layers):
+    """While entered, the CLI's config has its TAR and OAR stacks cut to
+    `layers` (the rest of its code path as it is)."""
+    from umgen_tpu_torch.tools import evaluate
+    config_from_args = evaluate.config_from_args
+    evaluate.config_from_args = lambda args: config_from_args(args).replace(
+        n_tar_layer=layers, n_oar_layer=layers)
+    try:
+        yield
+    finally:
+        evaluate.config_from_args = config_from_args
+
+
+def _flash_a_frame(cfg):
+    """Flash launches of a full-window TAR pass (a prefill or recompute
+    frame) and of a cached one: two a TAR-family block."""
+    return 2 * (cfg.n_tar_layer + cfg.n_map_tar_layer + cfg.n_box_tar_layer
+                + cfg.n_ego_tar_layer)
 
 
 def phase_default_run(dev, out_dir):
     """(o) the reference CLI's default run: no flag but the run's size, its
     TAR and OAR stacks cut to DEFAULT_RUN_LAYERS (the CLI's config with the
     depth replaced, the rest of its code path as it is)."""
-    from umgen_tpu_torch.tools import evaluate
-    config_from_args = evaluate.config_from_args
-    evaluate.config_from_args = lambda args: config_from_args(args).replace(
-        n_tar_layer=DEFAULT_RUN_LAYERS, n_oar_layer=DEFAULT_RUN_LAYERS)
-    try:
+    with _depth(DEFAULT_RUN_LAYERS):
         res, gen, split = _cli_frames(
             dev, out_dir, ["--model_scale", "stander"], "o", "the reference "
             f"CLI's default run at {DEFAULT_RUN_LAYERS} TAR / OAR layers "
             "(B=1, fp8 rings, the unfused decode on an fp8 OAR cache, int8 "
             "decode weights, top-k)", must=(), frames=1)
-    finally:
-        evaluate.config_from_args = config_from_args
     cfg = gen.model.config
     want = {"tar_mode": "temporal_cache", "tar_cache_dtype": "float8_e4m3fn",
             "oar_cache_dtype": "float8_e4m3fn", "fused_oar_kernel": False,
@@ -2313,30 +2364,35 @@ def phase_default_run(dev, out_dir):
 
 
 def phase_recompute(dev, out_dir):
-    """(p) recompute at full width and depth, two frames."""
-    res, _, _ = _cli_frames(
-        dev, out_dir, ["--tar_mode", "recompute", "--fused_oar",
-                       "--kv_dtype", "bfloat16", "--sample_method",
-                       "greedy"], "p", "recompute, UMGen_Large, B=1, the "
-        "whole window through every TAR stack", must=("v5", "v5mq"),
-        frames=2)
-    if res["launches"]["flash_attention"] != 192 * 2:
+    """(p) recompute at full width, the TAR / OAR stacks at
+    DEFAULT_RUN_LAYERS (cut from 36), two frames."""
+    with _depth(DEFAULT_RUN_LAYERS):
+        res, gen, _ = _cli_frames(
+            dev, out_dir, ["--tar_mode", "recompute", "--fused_oar",
+                           "--kv_dtype", "bfloat16", "--sample_method",
+                           "greedy"], "p", "recompute, UMGen_Large width, "
+            f"{DEFAULT_RUN_LAYERS} TAR / OAR layers, B=1, the whole window "
+            "through every TAR stack", must=("v5", "v5mq"), frames=2)
+    want = _flash_a_frame(gen.model.config)
+    if res["launches"]["flash_attention"] != want * 2:
         raise AssertionError(f"recompute launched flash "
                              f"{res['launches']['flash_attention']} times "
-                             "in two frames, expected 192 a frame")
+                             f"in two frames, expected {want} a frame")
     res["tokens"] = _load_tokens(out_dir)[0]
     return res
 
 
 def phase_refresh(dev, out_dir, recompute_tokens):
     """(q) ring refresh on fp8 rings, two frames: the second one refreshes
-    the rings."""
+    the rings; p's depth."""
     import numpy as np
-    res, gen, _ = _cli_frames(
-        dev, out_dir, ["--fused_oar", "--tar_cache_refresh", "1",
-                       "--sample_method", "greedy"], "q",
-        "ring refresh every frame, UMGen_Large, B=1, fp8 rings, int8 OAR "
-        "cache", must=("v5", "v5mq"), frames=2)
+    with _depth(DEFAULT_RUN_LAYERS):
+        res, gen, _ = _cli_frames(
+            dev, out_dir, ["--fused_oar", "--tar_cache_refresh", "1",
+                           "--sample_method", "greedy"], "q",
+            "ring refresh every frame, UMGen_Large width, "
+            f"{DEFAULT_RUN_LAYERS} TAR / OAR layers, B=1, fp8 rings, int8 "
+            "OAR cache", must=("v5", "v5mq"), frames=2)
     if gen.refreshes != 1 or gen.model.config.tar_cache_dtype != \
             "float8_e4m3fn":
         raise AssertionError(f"{gen.refreshes} refreshes on "
@@ -2367,7 +2423,8 @@ SLICE_FLAGS = ["--infer_task", "video", "--model_scale", "larger",
 # layer; DECODE_RTOL_36), and the logits with it: 16 ulps (2^-4).  This
 # bound was set after the first full-depth reading (7 ulps), from that
 # spread.  Only the prefill frame is held to it: the cached frame reads a
-# window holding each run's own first frame
+# window holding each run's own first frame.  Phase u runs DEFAULT_RUN_LAYERS
+# (cut from 36): fewer layers drift less, and the bound stays
 SPEC_GAP_ULPS = 4
 SPEC_GAP_ULPS_36 = 16
 
@@ -2423,9 +2480,10 @@ def spec_divergences(mine, ref, top2, frames, first=20):
 
 
 def phase_speculative(dev, out_dir, seq_dir, K=8, frames=2):
-    """(u) speculative decoding at full width and depth: the bf16-ring
-    slice's flags, greedy, `--speculative_k 8`, B = 1, the prefill frame and
-    a cached one through the CLI's code path.  Every verify chunk must be
+    """(u) speculative decoding at full width, the TAR / OAR stacks at
+    DEFAULT_RUN_LAYERS (cut from 36): the bf16-ring slice's flags,
+    greedy, `--speculative_k 8`, B = 1, the prefill frame and a cached one
+    through the CLI's code path.  Every verify chunk must be
     one v5mq launch at Q = K (launches = chunks + 3 pushes a frame) and no
     other decode kernel may launch; then the same run without speculation
     (v5, v5mq), its prefill frame only (the cached frame reads a window
@@ -2447,10 +2505,12 @@ def phase_speculative(dev, out_dir, seq_dir, K=8, frames=2):
 
     dk.fused_decode_step_v5mq = counted
     try:
-        res, gen, _ = _cli_frames(
-            dev, out_dir, flags + ["--speculative_k", str(K)], "u",
-            f"speculative decoding, K={K}, greedy, UMGen_Large, B=1",
-            must=("v5mq",), frames=frames)
+        with _depth(DEFAULT_RUN_LAYERS):
+            res, gen, _ = _cli_frames(
+                dev, out_dir, flags + ["--speculative_k", str(K)], "u",
+                f"speculative decoding, K={K}, greedy, UMGen_Large width, "
+                f"{DEFAULT_RUN_LAYERS} TAR / OAR layers, B=1",
+                must=("v5mq",), frames=frames)
     finally:
         dk.fused_decode_step_v5mq = real
     chunks, acc = gen.spec_chunks, gen.spec_accepted
@@ -2463,9 +2523,10 @@ def phase_speculative(dev, out_dir, seq_dir, K=8, frames=2):
     log, make = _GreedyLog(), rollout_mod.make_sampler
     rollout_mod.make_sampler = lambda *a, **k: log
     try:
-        seq, _, _ = _cli_frames(dev, seq_dir, flags, "u-seq", "the same "
-                                "run without speculation, the prefill "
-                                "frame", must=("v5", "v5mq"), frames=1)
+        with _depth(DEFAULT_RUN_LAYERS):
+            seq, _, _ = _cli_frames(dev, seq_dir, flags, "u-seq", "the same "
+                                    "run without speculation, the prefill "
+                                    "frame", must=("v5", "v5mq"), frames=1)
     finally:
         rollout_mod.make_sampler = make
     div = spec_divergences(_load_tokens(out_dir)[0], _load_tokens(seq_dir)[0],
@@ -2876,6 +2937,366 @@ def phase_serving(dev, out_dir, tag="e", oar_int4=False):
             "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# (z) data parallelism and the profiler
+# ---------------------------------------------------------------------------
+# phase c's flags, greedy, at UMGen_Large width; the TAR and OAR stacks cut
+# to DEFAULT_RUN_LAYERS (the map / box / ego stacks as they are)
+DP_FLAGS = ["--infer_task", "video", "--model_scale", "larger", "--fused_oar",
+            "--kv_dtype", "bfloat16", "--int8", "decode", "--sample_method",
+            "greedy", "--debug", "--save_video", "false"]
+DP_FRAMES = 2          # the prefill frame and one cached frame
+
+
+
+
+def _dp_argv(out_dir, dev, scenes, batch, dp):
+    return DP_FLAGS + ["--synthetic_data", str(scenes), "--max_scenes",
+                       str(scenes), "--batch_size", str(batch), "--dp",
+                       str(dp), "--set_num_new_frames", str(DP_FRAMES),
+                       "--output_path", out_dir, "--device", str(dev)]
+
+
+def _gloo_on_cuda(mesh):
+    """Which of gloo's collectives take CUDA tensors themselves (the mesh
+    reaches gloo through host copies either way): a record, not a check."""
+    import torch
+    import torch.distributed as dist
+    t = torch.ones(4, device=mesh.device)
+    ops = {"all_reduce": lambda: dist.all_reduce(t),
+           "broadcast": lambda: dist.broadcast(t, 0),
+           "all_gather": lambda: dist.all_gather(
+               [torch.empty_like(t) for _ in range(mesh.dp)], t)}
+    takes = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            takes[name] = True
+        except RuntimeError as e:      # recorded: not on the path
+            takes[name] = str(e).splitlines()[0][:120]
+    return takes
+
+
+def _dp_rank(mesh, argv, out_dir, layers, train_dir):
+    """Entry of phase z's rank processes.  (z1 / z2) `evaluate.rank_main`
+    — the rank the CLI's `--dp` starts — on `argv`, the stacks cut to
+    `layers`, every launch count reset just before; (z4, where `train_dir`
+    is given) one data-parallel AdamW step of the tiny float32 trainer on a
+    global batch of 2 and one Adam step of the map VQ codec (MAP_VQ, global
+    B = 2).  Writes rank<r>.json (and train_rank<r>.pt) under out_dir."""
+    import torch
+    from umgen_tpu_torch.ops import decode_kernel as dk
+    from umgen_tpu_torch.ops import flash_attention as fa
+    from umgen_tpu_torch.tools import evaluate
+    args = evaluate.build_parser().parse_args(argv)
+    res = {"rank": mesh.rank, "backend": mesh.backend,
+           "device": str(mesh.device)}
+    with _depth(layers):
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner, gen = evaluate.rank_main(mesh, args)
+        torch.cuda.synchronize()
+    res.update(seconds=time.perf_counter() - t0,
+               frame_seconds=list(gen.frame_seconds),
+               launches={**fa.LAUNCHES, **dk.LAUNCHES},
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    if mesh.rank == 0:
+        res["collision"] = list(runner.box_overlap.average())
+        res["mmd"] = runner.mmd.average()
+    if train_dir is not None:
+        res["gloo_takes_cuda"] = _gloo_on_cuda(mesh)
+        res["train"] = _dp_train(mesh, train_dir)
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _tiny_train_job(dev):
+    """The tiny float32 trainer, its seeded params and a global batch of 2
+    (phase y's arguments: the first step is the warmup's, lr 0)."""
+    import torch
+    from umgen_tpu_torch.config import ModelConfig
+    from umgen_tpu_torch.data.synthetic import make_token_batch
+    from umgen_tpu_torch.layout import SequenceLayout
+    from umgen_tpu_torch.models.umgen import UMGen
+    from umgen_tpu_torch.parallel.train import UMGenTrainer
+    from umgen_tpu_torch.params import init_params
+    cfg = ModelConfig(use_pallas_attention=False, dtype="float32").scaled(
+        "tiny")
+    trainer = UMGenTrainer(UMGen(cfg), learning_rate=3e-4, warmup_steps=1,
+                           total_steps=10)
+    raw = make_token_batch(SequenceLayout(cfg.task), T=3, B=2, seed=1,
+                           config=cfg)
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+             for k, v in raw.items()}
+    return trainer, init_params(cfg, torch.Generator(dev).manual_seed(1),
+                                dev), batch
+
+
+def _dp_train(mesh, train_dir):
+    import numpy as np
+    import torch
+    from umgen_tpu_torch.models import vq
+    from umgen_tpu_torch.parallel import optim
+    from umgen_tpu_torch.tools.train_vq import VQTrainer, synthetic_rasters
+    dev = mesh.device
+    trainer, params, batch = _tiny_train_job(dev)
+    t0 = time.perf_counter()
+    with vq.float32_products():
+        state, metrics = trainer.jit_train_step(mesh)(
+            trainer.init_state(params), batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    codec = VQTrainer(vq.MAP_VQ, vq.init_normvq(
+        torch.Generator(dev).manual_seed(4), vq.MAP_VQ, dev), 1e-4,
+        mesh=mesh)
+    x = torch.as_tensor(synthetic_rasters(np.random.default_rng(0), 2,
+                                          vq.MAP_VQ.resolution,
+                                          vq.MAP_VQ.in_channels), device=dev)
+    t0 = time.perf_counter()
+    m = codec.step(x)
+    torch.cuda.synchronize()
+    vq_s = time.perf_counter() - t0
+    torch.save({"metrics": {k: v.cpu() for k, v in metrics.items()},
+                "params": optim.tree_map(lambda t: t.detach().cpu(),
+                                         state.params),
+                "opt_state": optim.tree_map(lambda t: t.cpu(),
+                                            state.opt_state),
+                "codec": optim.tree_map(lambda t: t.cpu(),
+                                        codec.inference_params()),
+                "codec_opt": optim.tree_map(lambda t: t.cpu(),
+                                            codec.opt_state)},
+               os.path.join(train_dir, f"train_rank{mesh.rank}.pt"))
+    return {"step_s": step_s, "vq_step_s": vq_s,
+            "vq": {k: float(v) for k, v in m.items()}}
+
+
+def _same_tokens(got, want, what):
+    import numpy as np
+    for m in VOCAB:
+        if not np.array_equal(got[m], want[m]):
+            n = int((np.asarray(got[m]) != np.asarray(want[m])).sum())
+            raise AssertionError(f"(z) {what}: {m} tokens differ in {n} "
+                                 "places from the one-process B = 1 run")
+
+
+def phase_dp(dev, work_dir):
+    """(z) Data parallelism on the card (two ranks share the one card over
+    gloo, the backend a device list naming one card twice gets; one rank
+    over NCCL) and `--profile_dir`.  (z1) `--dp 2` through the ranks the CLI
+    starts (`parallel.mesh.launch` → `evaluate.rank_main`): phase c's flags,
+    greedy, UMGen_Large width, the TAR / OAR stacks at DEFAULT_RUN_LAYERS,
+    B = 2 synthetic scenes, one a rank, the prefill frame and a cached one;
+    flash, v5 and v5mq must launch in each rank and no other decode kernel;
+    tokens in range; each scene's tokens equal bit for bit to a one-process
+    B = 1 run of it on the same seeded weights; the collision rate and MMD
+    finite.  (z2) the same path at world size 1 over NCCL on scene 0: its
+    tokens equal the one-process run's.  (z3) `--profile_dir` on a
+    debug-scale CLI run (full width, one layer a stack, the prefill frame):
+    the trace file exists and names the flash and decode-step kernels.
+    (z4) in z1's ranks after the rollout: one AdamW step of the tiny float32
+    trainer on a global batch of 2 (params and moments equal across the
+    ranks bit for bit, within TRAIN_* of the one-process step on the whole
+    batch here) and one Adam step of the map VQ codec at MAP_VQ, global
+    B = 2 (codebooks and params equal across the ranks).  This function
+    runs the reference, z1 and z4, whose frame times are read on a quiet
+    host; phase_dp_tail runs z2 and z3."""
+    import torch
+    from umgen_tpu_torch.parallel import mesh as mesh_lib
+    from umgen_tpu_torch.tools import evaluate
+    res = {"layers": DEFAULT_RUN_LAYERS}
+    t_phase = time.perf_counter()
+    root = os.path.join(work_dir, "dp")
+    dirs = {k: os.path.join(root, k) for k in ("one", "z1", "z2", "z3",
+                                               "train")}
+    for d in dirs.values():
+        os.makedirs(d)
+    # the one-process reference: each scene alone, B = 1
+    args = evaluate.build_parser().parse_args(
+        _dp_argv(dirs["one"], dev, 2, 1, 1))
+    with _depth(DEFAULT_RUN_LAYERS):
+        _reset_launches()
+        t0 = time.perf_counter()
+        _, gen = evaluate.run(args)
+        res["one_process"] = {"seconds": time.perf_counter() - t0,
+                              "frame_seconds": list(gen.frame_seconds),
+                              "launches": _launches(("v5", "v5mq"))}
+    del gen
+    torch.cuda.empty_cache()
+    one = _load_tokens(dirs["one"])
+
+    # (z1, z4) two ranks on the card over gloo
+    t0 = time.perf_counter()
+    mesh_lib.launch(_dp_rank, 2, [dev, dev],
+                    _dp_argv(dirs["z1"], dev, 2, 2, 2), dirs["z1"],
+                    DEFAULT_RUN_LAYERS, dirs["train"])
+    res["z1_wall_s"] = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(dirs["z1"], f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for r in ranks:
+        if r["backend"] != "gloo":
+            raise AssertionError(f"(z1) two ranks on one card ran on "
+                                 f"{r['backend']}")
+        _rank_launches(r["launches"], ("v5", "v5mq"), f"(z1) rank "
+                       f"{r['rank']}")
+    _check_tokens(dirs["z1"], scenes=2, frames=20 + DP_FRAMES)
+    dp_toks = _load_tokens(dirs["z1"])
+    for i, (got, want) in enumerate(zip(dp_toks, one)):
+        _same_tokens(got, want, f"z1 scene {i} (rank {i})")
+    r0 = ranks[0]
+    if not (all(math.isfinite(v) for v in r0["collision"])
+            and all(math.isfinite(v) for v in r0["mmd"].values())):
+        raise AssertionError(f"(z1) metrics {r0['collision']} {r0['mmd']}")
+    res["z1"] = ranks
+    print(f"(z1) --dp 2, two ranks sharing the card over gloo, UMGen_Large "
+          f"width, {DEFAULT_RUN_LAYERS} TAR / OAR layers, B = 1 a rank: "
+          f"per-frame seconds rank 0 "
+          f"{', '.join(f'{s:.2f}' for s in ranks[0]['frame_seconds'])}, "
+          f"rank 1 {', '.join(f'{s:.2f}' for s in ranks[1]['frame_seconds'])}"
+          f" (the one-process B = 1 run: "
+          f"{', '.join(f'{s:.2f}' for s in res['one_process']['frame_seconds'])}"
+          f"); launches rank 0 {ranks[0]['launches']}, rank 1 "
+          f"{ranks[1]['launches']}; both scenes' tokens equal to the "
+          f"one-process run's; collision rate {r0['collision']}, MMD "
+          f"{r0['mmd']}; {res['z1_wall_s']:.1f} s with the ranks' start "
+          f"(gloo takes CUDA tensors: {ranks[0]['gloo_takes_cuda']})")
+
+    # (z4) the ranks' training steps against each other and one process
+    res["z4"] = _dp_train_check(dev, dirs["train"], ranks)
+
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"(z: the reference, z1, z4) {res['seconds']:.1f} s")
+    return res
+
+
+def phase_dp_tail(dev, work_dir):
+    """(z2, z3) of phase z (phase_dp's docstring), run after the serving
+    paths while the CPU sides of the card-against-CPU phases finish: their
+    checks read no host clock."""
+    import glob
+
+    from umgen_tpu_torch.parallel import mesh as mesh_lib
+    from umgen_tpu_torch.tools import evaluate
+    res = {}
+    t_phase = time.perf_counter()
+    root = os.path.join(work_dir, "dp")
+    dirs = {k: os.path.join(root, k) for k in ("one", "z2", "z3")}
+    one = _load_tokens(dirs["one"])
+    # (z2) world size 1 over NCCL
+    t0 = time.perf_counter()
+    mesh_lib.launch(_dp_rank, 1, [dev], _dp_argv(dirs["z2"], dev, 1, 1, 1),
+                    dirs["z2"], DEFAULT_RUN_LAYERS, None)
+    res["z2_wall_s"] = time.perf_counter() - t0
+    with open(os.path.join(dirs["z2"], "rank0.json")) as f:
+        z2 = json.load(f)
+    if z2["backend"] != "nccl":
+        raise AssertionError(f"(z2) world size 1 ran on {z2['backend']}")
+    _rank_launches(z2["launches"], ("v5", "v5mq"), "(z2)")
+    [got] = _load_tokens(dirs["z2"])
+    _same_tokens(got, one[0], "z2 scene 0")
+    res["z2"] = z2
+    print(f"(z2) world size 1 over NCCL: per-frame seconds "
+          f"{', '.join(f'{s:.2f}' for s in z2['frame_seconds'])}; tokens "
+          f"equal to the one-process run's; {res['z2_wall_s']:.1f} s")
+
+    # (z3) --profile_dir
+    prof_dir = os.path.join(root, "trace")
+    args = evaluate.build_parser().parse_args(
+        [a if a != "larger" else "debug" for a in DP_FLAGS]
+        + ["--synthetic_data", "1", "--max_scenes", "1",
+           "--set_num_new_frames", "1", "--output_path", dirs["z3"],
+           "--device", str(dev), "--profile_dir", prof_dir])
+    _reset_launches()
+    t0 = time.perf_counter()
+    evaluate.run(args)
+    res["z3_seconds"] = time.perf_counter() - t0
+    res["z3_launches"] = _launches(("v5", "v5mq"))
+    traces = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"(z3) --profile_dir wrote {traces}")
+    with open(traces[0]) as f:
+        text = f.read()
+    # kineto names a kernel event by its demangled signature
+    kernels = {k: text.count(k) for k in (
+        "flash_attn_wgmma_kernel", "i8_blockmax_kernel", "i8_mix_kernel",
+        "i8_finish_kernel", "gemv_i8_staged_kernel", "umgen.rollout",
+        '"cat": "kernel"')}
+    res["z3_trace"] = {"bytes": len(text.encode()), "events": kernels}
+    del text
+    os.remove(traces[0])
+    print(f"(z3) --profile_dir on a debug-scale CLI run (full width, one "
+          f"layer a stack, the prefill frame): {res['z3_seconds']:.1f} s; "
+          f"trace {os.path.basename(traces[0])}, "
+          f"{res['z3_trace']['bytes'] / 2**20:.1f} MiB, kernel events "
+          f"{kernels}")
+    if not all(kernels.values()):
+        raise AssertionError(f"(z3) the trace misses a kernel: {kernels}")
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"(z2, z3) {res['seconds']:.1f} s")
+    return res
+
+
+def _rank_launches(launches, decode, what):
+    """Flash and the decode kernels `decode` launched in this rank, no
+    other (`_launches` on a rank's counts)."""
+    must = ["flash_attention"] + [_kernel_name(k) for k in decode]
+    for k, n in launches.items():
+        if (k in must) != (n > 0):
+            raise AssertionError(f"{what}: {k} launched {n} times")
+
+
+def _dp_train_check(dev, train_dir, ranks):
+    import torch
+    from umgen_tpu_torch.models import vq
+    from umgen_tpu_torch.parallel import optim
+    a, b = (torch.load(os.path.join(train_dir, f"train_rank{r}.pt"),
+                       weights_only=False) for r in range(2))
+    for k in ("params", "opt_state", "codec", "codec_opt"):
+        for x, y in zip(optim.tree_leaves(a[k]), optim.tree_leaves(b[k])):
+            if not torch.equal(x, y):
+                raise AssertionError(f"(z4) the ranks' {k} differ")
+    trainer, params, batch = _tiny_train_job(dev)
+    with vq.float32_products():
+        state, metrics = trainer.train_step(trainer.init_state(params),
+                                            batch)
+    one = {"metrics": {k: v.cpu() for k, v in metrics.items()},
+           "params": optim.tree_map(lambda t: t.detach().cpu(),
+                                    state.params),
+           "opt_state": optim.tree_map(lambda t: t.cpu(), state.opt_state)}
+    errs = {"metrics_rel_err": max(
+        abs(float(a["metrics"][k]) - float(v)) / abs(float(v))
+        for k, v in one["metrics"].items())}
+    worst, errs["zero_leaves"], errs["roundoff_leaves"] = _grad_errors(
+        one["opt_state"], a["opt_state"])
+    errs["grad_rel_l2_max"] = worst
+    errs["params_max_abs_err"] = max(
+        float((y - x).abs().max()) for x, y in zip(
+            optim.tree_leaves(one["params"]),
+            optim.tree_leaves(a["params"])))
+    out = {**errs, "rank_steps": [r["train"] for r in ranks]}
+    print(f"(z4) two ranks on the card: the tiny float32 AdamW step's params "
+          f"and moments, the map VQ codec's (MAP_VQ, global B = 2) codebook, "
+          f"params and Adam state equal across the ranks bit for bit; "
+          f"against the one-process step on the whole batch: loss terms rel "
+          f"err {errs['metrics_rel_err']:.3g} (bound {TRAIN_LOSS_RTOL:g}), "
+          f"gradients (mu / 0.1) rel L2 {worst:.3g} (bound "
+          f"{TRAIN_GRAD_RTOL:g}; {errs['zero_leaves']} zero and "
+          f"{errs['roundoff_leaves']} roundoff leaves), params "
+          f"{errs['params_max_abs_err']:.3g} "
+          f"(bound {TRAIN_PARAM_ATOL:g}); rank steps "
+          f"{[round(r['train']['step_s'], 3) for r in ranks]} s, VQ "
+          f"{[round(r['train']['vq_step_s'], 3) for r in ranks]} s")
+    if (errs["metrics_rel_err"] > TRAIN_LOSS_RTOL
+            or worst > TRAIN_GRAD_RTOL
+            or errs["params_max_abs_err"] > TRAIN_PARAM_ATOL):
+        raise AssertionError(f"(z4) the data-parallel step disagrees with "
+                             f"the one-process step: {errs}")
+    return out
+
+
 def _load_tokens(out_dir):
     import pickle
     tok_dir = os.path.join(out_dir, "saved_token")
@@ -2915,7 +3336,7 @@ def main(argv=None) -> int:
                     "tar_options options_reference_spec_serving "
                     "options_reference_spec_i4 options_reference_w4_int2 "
                     "options_reference_relative_cached "
-                    "options_reference_relative_recompute vq train; "
+                    "options_reference_relative_recompute vq train dp; "
                     "refresh "
                     "needs recompute; vq and train run their card-vs-CPU "
                     "checks too), "
@@ -3014,6 +3435,11 @@ def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
         with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
             report["rollout_v1"] = phase_slice_v1(dev, out_dir)
         torch.cuda.empty_cache()
+    # data parallelism (z: the reference, z1, z4): ranks that share the card
+    # and the host, before the CPU sides below start
+    if want("dp"):
+        report["dp"] = phase_dp(dev, work_dir)
+        torch.cuda.empty_cache()
     # speculative decoding (u), W4 TAR weights on int2 rings (v)
     if want("speculative"):
         with tempfile.TemporaryDirectory(dir=ROOT) as out_dir, \
@@ -3088,6 +3514,9 @@ def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
         torch.cuda.empty_cache()
     serving("serving")
     serving("serving_i4", tag="g", oar_int4=True)
+    if want("dp"):            # (z2, z3) while the CPU sides finish
+        report["dp"].update(phase_dp_tail(dev, work_dir))
+        torch.cuda.empty_cache()
     t_wait = time.perf_counter()
     for key in list(pending):
         report[key] = pending.pop(key).finish()

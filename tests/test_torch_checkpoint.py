@@ -213,7 +213,8 @@ def test_n_step_head_is_refused():
     del sd[f"{TR}.head_tar_bbox3d.weight"]
     sd[f"{TR}.head_tar_n_step_bbox3d.weight"] = torch.zeros(
         2 * cfg.bbox3d_vocab_size, cfg.n_embd)
-    with pytest.raises(NotPortedError, match="Smaller configuration items"):
+    with pytest.raises(NotPortedError,
+                       match="Tensor parallel and the remaining"):
         tti.import_umgen(sd, cfg)
     with pytest.raises(NotPortedError, match="head_tar_n_step_bbox3d"):
         tti.import_umgen(reference_state_dict(cfg), cfg.replace(n_step=2))

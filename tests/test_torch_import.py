@@ -31,6 +31,10 @@ _CHILD = """
 import sys
 from umgen_tpu_torch.models import vq
 from umgen_tpu_torch.tools import evaluate
+if "--dp" in sys.argv:            # each rank checks its own sys.modules
+    sys.path.insert(0, %r)
+    import torch_dp_worker
+    evaluate.rank_main = torch_dp_worker.cli_rank
 if sys.argv[2] == "tiny_vq":      # tests/test_torch_vq.py's tiny codecs
     vq.MAP_VQ = vq.VQConfig(**%r)
     vq.IMAGE_VQ = vq.VQConfig(**%r)
@@ -42,7 +46,8 @@ foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in %r)
 assert rc == 0 and not foreign, (rc, foreign[:5])
 print("PORT_STANDS_ALONE_OK")
-""" % (TINY_MAP, TINY_IMAGE, FOREIGN)
+""" % (os.path.dirname(os.path.abspath(__file__)), TINY_MAP, TINY_IMAGE,
+       FOREIGN)
 
 
 # the bf16-ring slice: the decode kernels' plain versions, greedy
@@ -50,13 +55,14 @@ FUSED = ("--infer_task", "video", "--fused_oar", "--kv_dtype", "bfloat16",
          "--sample_method", "greedy")
 
 
-def _run_cli(tmp_path, *flags, videos=False):
+def _run_cli(tmp_path, *flags, videos=False, threads=2):
     """The CLI in a fresh interpreter; `--save_video false` unless
     `videos`, then with tests/test_torch_vq.py's tiny VQ configs."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    # two intra-op threads: the suite runs several workers on the same
-    # cores, and torch's default (one thread per core) oversubscribes them
-    env["OMP_NUM_THREADS"] = "2"
+    # two intra-op threads (a rank of `--dp N`: threads / N): the suite
+    # runs several workers on the same cores, and torch's default (one
+    # thread per core) oversubscribes them
+    env["OMP_NUM_THREADS"] = str(threads)
     if not videos:
         flags += ("--save_video", "false")
     res = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path),
@@ -258,6 +264,8 @@ def test_training_cli_flags_equal_the_jax_clis(tool):
 
 def _port_sources():
     yield os.path.join(ROOT, "chip_smoke.py")
+    # the data-parallel tests' rank processes run the port alone
+    yield os.path.join(ROOT, "tests", "torch_dp_worker.py")
     for base, _, files in os.walk(os.path.join(ROOT, "umgen_tpu_torch")):
         for f in files:
             if f.endswith(".py"):
@@ -270,6 +278,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     `orbax`."""
     paths = list(_port_sources())
     assert len(paths) > 20
+    for new in ("parallel/mesh.py", "runtime/profiler.py"):
+        assert os.path.join(ROOT, "umgen_tpu_torch", new) in paths
     bad = []
     for path in paths:
         with open(path) as f:

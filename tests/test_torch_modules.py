@@ -304,16 +304,20 @@ def test_samplers():
 
 @pytest.mark.parametrize("flags,item", [
     (["--oar_kv_dtype", "float16"], "as if it were fp8"),
-    (["--dp", "2"], "Multi-GPU"),
-    (["--launcher", "torch"], "--dp, --launcher"),
+    (["--dp", "2", "--batch_size", "3"], "must be a multiple of --dp"),
+    (["--launcher", "torch", "--tar_mode", "recompute"],
+     "requires tar_mode='temporal_cache'"),
     (["--oar_batch_block", "5"], "VMEM-driven blockings"),
     (["--oar_kv_dtype", "float32"], "served are int8, int4, bfloat16"),
-    (["--profile_dir", "prof"], "Multi-GPU and runtime"),
+    (["--dp", "2", "--infer_task", "control"], "control mode runs"),
 ])
 def test_cli_rejects_flags_outside_the_port(flags, item):
+    """What the port refuses, each with its reason: NotPortedError naming
+    its ROADMAP item or decision; under --dp what the JAX CLI refuses
+    (its SystemExit, or its Generator's ValueError)."""
     base = ["--fused_oar", "--kv_dtype", "bfloat16", "--debug"]
     args = evaluate.build_parser().parse_args(base + flags)
-    with pytest.raises(NotPortedError, match=item):
+    with pytest.raises((NotPortedError, SystemExit, ValueError), match=item):
         evaluate.check_args(args)
     evaluate.check_args(evaluate.build_parser().parse_args(base))
 
@@ -382,18 +386,24 @@ def test_cli_serves_flag_sets_as_jax_maps_them(flags):
 
 
 def test_cli_still_refuses_multi_gpu_profiling_and_the_videos():
-    """What the port's CLI does not serve after the TAR options,
-    speculation and the videos were ported: NotPortedError names `--dp`,
-    `--launcher` and `--profile_dir` with their ROADMAP item; the VQ
-    pictures and videos are served now (`--save_video` on by default, as in
-    the JAX CLI), so the run no longer says that they are not written."""
-    for flags, names in ((["--dp", "2"], ("--dp", "Multi-GPU")),
-                         (["--launcher", "mpi"], ("--launcher",)),
-                         (["--profile_dir", "p"], ("--profile_dir",))):
-        args = evaluate.build_parser().parse_args(["--debug"] + flags)
-        with pytest.raises(NotPortedError) as e:
+    """Since the multi-GPU and runtime slice the CLI serves `--dp`,
+    `--launcher` and `--profile_dir`; under `--dp` it still refuses what
+    the JAX CLI refuses there (control, recompute), each with JAX's
+    reason.  The VQ pictures and videos are served (`--save_video` on by
+    default, as in the JAX CLI), so the run no longer says that they are
+    not written."""
+    for flags in (["--dp", "2"], ["--launcher", "mpi"],
+                  ["--profile_dir", "p"], ["--dp", "4", "--batch_size",
+                                           "8", "--launcher", "torch"]):
+        evaluate.check_args(evaluate.build_parser().parse_args(
+            ["--debug", "--batch_size", "2"] + flags))
+    for flags, err, words in (
+            (["--infer_task", "control"], SystemExit, "per-scene"),
+            (["--tar_mode", "recompute"], ValueError, "temporal_cache")):
+        args = evaluate.build_parser().parse_args(
+            ["--debug", "--dp", "2", "--batch_size", "2"] + flags)
+        with pytest.raises(err, match=words):
             evaluate.check_args(args)
-        assert all(n in str(e.value) for n in names), str(e.value)
     assert not hasattr(evaluate, "NOT_PORTED_OUTPUTS")
     assert evaluate.build_parser().parse_args([]).save_video
     args = evaluate.build_parser().parse_args(

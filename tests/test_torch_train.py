@@ -370,8 +370,15 @@ def test_param_dtype_is_read_by_nothing():
 
 
 def test_a_mesh_is_not_ported(setup):
-    with pytest.raises(NotPortedError, match="Multi-GPU and runtime"):
-        setup["tt"].jit_train_step(mesh=object())
+    """A data-parallel mesh is served (tests/test_torch_dp_train.py); a
+    tensor-parallel one is not, and names the ROADMAP item that adds it."""
+    from umgen_tpu_torch.parallel.mesh import make_mesh
+    tp = dataclasses.replace(make_mesh(1, devices=["cpu"]), tp=2)
+    with pytest.raises(NotPortedError,
+                       match="Tensor parallel and the remaining"):
+        setup["tt"].jit_train_step(mesh=tp)
+    step = setup["tt"].jit_train_step(make_mesh(1, devices=["cpu"]))
+    assert step.keywords["mesh"].dp == 1
 
 
 # ---------------------------------------------------------------------------

@@ -180,9 +180,18 @@ def test_checkpoint_round_trip_restores_each_leaf(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--dp", "--tp"])
 def test_a_training_mesh_is_not_ported(tmp_path, flag):
-    with pytest.raises(NotPortedError, match="Multi-GPU and runtime"):
-        train_cli.main([*SMALL, "--device", "cpu", flag, "2",
-                        "--ckpt_dir", str(tmp_path)])
+    """`--tp 2` names the ROADMAP item that adds tensor parallelism; `--dp`
+    is served (tests/test_torch_dp_train.py), and refuses a batch it does
+    not divide, as the JAX CLI's does; neither writes anything."""
+    if flag == "--tp":
+        with pytest.raises(NotPortedError,
+                           match="Tensor parallel and the remaining"):
+            train_cli.main([*SMALL, "--device", "cpu", flag, "2",
+                            "--ckpt_dir", str(tmp_path)])
+    else:
+        with pytest.raises(SystemExit, match="must be a multiple of --dp"):
+            train_cli.main([*SMALL, "--device", "cpu", "--batch_size", "3",
+                            flag, "2", "--ckpt_dir", str(tmp_path)])
     assert not os.listdir(tmp_path)
 
 

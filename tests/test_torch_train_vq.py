@@ -39,7 +39,6 @@ from umgen_tpu.runtime import checkpoint as jckpt
 from umgen_tpu.tools import train_vq as jtrain_vq
 from umgen_tpu_torch.models import quantize as tq
 from umgen_tpu_torch.models import vq as tvq
-from umgen_tpu_torch.models.umgen import NotPortedError
 from umgen_tpu_torch.params import from_jax
 from umgen_tpu_torch.runtime import checkpoint as ckpt
 from umgen_tpu_torch.tools import train_vq
@@ -94,8 +93,14 @@ def test_norm_ema_quantize_matches_jax(train):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
                                    rtol=0, atol=1e-6)
     assert bool(tnew.initted)
-    with pytest.raises(NotPortedError, match="Multi-GPU and runtime"):
-        tq.norm_ema_quantize(tstate, zt, train=train, axis_name="dp")
+    # over a one-process mesh the group's sums are this process's: the
+    # same state (tests/test_torch_dp_train.py runs two ranks)
+    from umgen_tpu_torch.parallel.mesh import make_mesh
+    _, _, midx, mnew = tq.norm_ema_quantize(
+        tstate, zt, train=train, axis_name=make_mesh(1, devices=["cpu"]))
+    assert torch.equal(midx, tidx)
+    assert torch.equal(mnew.embedding, tnew.embedding)
+    assert torch.equal(mnew.cluster_size, tnew.cluster_size)
 
 
 def test_kmeans_cosine_from_the_same_means():
@@ -231,6 +236,11 @@ def test_a_saved_run_loads_into_map_decoder(one_step, monkeypatch):
 
 
 def test_data_parallel_codec_training_is_not_ported(tmp_path):
-    with pytest.raises(NotPortedError, match="Multi-GPU and runtime"):
-        train_vq.main(ARGS + ["--dp", "2", "--device", "cpu",
+    """Data-parallel codec training is served since the multi-GPU slice
+    (tests/test_torch_dp_train.py); a batch that `--dp` does not divide is
+    refused with the JAX CLI's message, before anything is written."""
+    with pytest.raises(SystemExit, match="batch_size must be a multiple "
+                       "of dp"):
+        train_vq.main(ARGS + ["--dp", "3", "--device", "cpu",
                               "--ckpt_dir", str(tmp_path)])
+    assert not (tmp_path / "map_final").exists()

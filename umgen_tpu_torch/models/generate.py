@@ -1,5 +1,4 @@
-"""Multi-frame scene rollout (port of umgen_tpu/models/generate.py, without a
-mesh).
+"""Multi-frame scene rollout (port of umgen_tpu/models/generate.py).
 
 Recompute mode (`tar_mode="recompute"`, the reference's semantics): before
 each frame the window is cut to its last `cond_frames` frames and the whole
@@ -22,6 +21,16 @@ tensor, so it stays as the window slides: the loop keeps the window (`cond`)
 apart from the output stream (`out`).  `forced_streams` (`--init_token_mod`)
 teacher-forces the listed modalities of each generated frame to the given
 tokens; a forced pose rides trajectory control.
+
+Data parallelism over scenes (`mesh`, a parallel.mesh.Mesh; the JAX
+package's `spmd="shard_map"` program, umgen_tpu/models/generate.py:104-190):
+every rank holds the whole params and rolls its contiguous shard of the
+scenes — its own rings and OAR cache, the control and forced streams split
+like the tokens — with a sampler generator seeded from `seed` and its rank
+(JAX's `fold_in(rng, axis_index("dp"))`).  The frame loop's only collective
+is the sum of the speculative telemetry; at the end every rank gathers the
+whole batch's tokens.  It serves temporal-cache mode only, at tp = 1, as
+JAX's program does.
 """
 
 from __future__ import annotations
@@ -38,16 +47,38 @@ from umgen_tpu_torch.models.umgen import UMGen
 Params = Dict[str, Any]
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """The sampler seed of data-parallel rank `rank` of a run seeded with
+    `seed`: distinct for each rank, so that scenes in the same row of two
+    ranks' shards do not draw the same noise."""
+    lo, hi = np.random.SeedSequence((seed, rank)).generate_state(
+        2, np.uint32)
+    return (int(hi) << 31) | int(lo) >> 1
+
+
 class Generator:
     def __init__(self, model: UMGen, params: Params, seed: int = 0,
-                 device=None):
+                 device=None, mesh=None):
+        """mesh: a parallel.mesh.Mesh for a data-parallel rollout (scenes
+        split over its ranks; params whole on every rank); the batch must
+        divide its dp."""
+        if mesh is not None:
+            if mesh.shape["tp"] != 1:
+                raise ValueError(
+                    "spmd='shard_map' serving is dp-only (the fused kernels "
+                    "run whole-head-set per chip); use tp=1")
+            if model.config.tar_mode != "temporal_cache":
+                raise ValueError(
+                    "spmd='shard_map' requires tar_mode='temporal_cache'")
         self.model = model
         self.params = params
+        self.mesh = mesh
         self.rollout = Rollout(model)
         self.device = torch.device(device) if device is not None else \
             params["axe"].device
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.generator.manual_seed(seed if mesh is None
+                                   else rank_seed(seed, mesh.rank))
         # host-clock seconds of each generated frame (the frame's tokens
         # are copied to the host, which waits for the device)
         self.frame_seconds: List[float] = []
@@ -89,7 +120,9 @@ class Generator:
         dropped, and without a pose stream the whole dict); once the pose
         stream runs out control is off for the rest of the rollout.
         forced_streams {mod: [B, T_f, len]}: frames idx < T_f take these
-        tokens for the listed modalities instead of sampling them."""
+        tokens for the listed modalities instead of sampling them.
+        Under a mesh every argument holds the whole batch, each rank rolls
+        its rows, and every rank returns the whole batch."""
         cfg = self.model.config
         mods = self.model.layout.mod_order
         recompute = cfg.tar_mode == "recompute"
@@ -110,6 +143,9 @@ class Generator:
                for m in mods}
         self._check_streams(out, init or {}, "init_tokens")
         self._check_streams(out, forced, "forced_streams")
+        if self.mesh is not None:         # this rank's scenes
+            out, forced = (self._shard(d) for d in (out, forced))
+            init = None if init is None else self._shard(init)
         # the window the model reads: `out` with the agent-control
         # overwrites of each newest frame, which persist as it slides
         cond = dict(out)
@@ -162,8 +198,11 @@ class Generator:
                     self.params, {m: v[:, -1:] for m, v in last.items()},
                     cache, self.generator, **step_kw)
             tokens = res.tokens.cpu().numpy()
-            self.spec_chunks += res.spec_chunks
-            self.spec_accepted += res.spec_accepted
+            spec = (res.spec_chunks, res.spec_accepted)
+            if self.mesh is not None and cfg.speculative_k > 0:
+                spec = self.mesh.all_sum(torch.tensor(spec)).tolist()
+            self.spec_chunks += spec[0]
+            self.spec_accepted += spec[1]
             if not (torch.isfinite(res.prior_seq).all()
                     and (res.ego_logits is None
                          or torch.isfinite(res.ego_logits).all())):
@@ -181,4 +220,9 @@ class Generator:
                     new = init[m][:, idx][:, None]
                 out[m] = np.concatenate([out[m], new], axis=1)
                 cond[m] = np.concatenate([cond[m], new], axis=1)
+        if self.mesh is not None:
+            out = {m: self.mesh.gather_rows(v) for m, v in out.items()}
         return out
+
+    def _shard(self, streams: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        return {m: self.mesh.shard(v) for m, v in streams.items()}

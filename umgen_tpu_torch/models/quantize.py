@@ -7,10 +7,9 @@ quantize.py:371-479), its cosine k-means codebook init (ref:quantize.py:
 
 The quantizer is a function over an explicit `EMAState`, as in the JAX
 package; the straight-through estimator and the stop-gradients are
-`.detach()`.  The cross-replica code-usage sync (the JAX package's
-`lax.psum` over `axis_name`, the reference's all-reduce) belongs to a
-data-parallel step, which is not ported: an `axis_name` raises
-NotPortedError.  Random draws take a torch.Generator (the draws differ from
+`.detach()`.  With `axis_name` (a parallel.mesh.Mesh) the code counts and
+embed sums are summed over the data-parallel ranks — the JAX package's `lax.psum`, the reference's
+all-reduce — so every rank steps the codebook identically.  Random draws take a torch.Generator (the draws differ from
 JAX's; ROADMAP Queue 3).
 
 Inference-path quantization (nearest-code lookup) is in models/vq.py.
@@ -23,7 +22,6 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from umgen_tpu_torch.models.umgen import NotPortedError
 
 
 def l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -93,17 +91,15 @@ def kmeans_cosine(generator: torch.Generator, data: torch.Tensor,
 
 def norm_ema_quantize(state: EMAState, z: torch.Tensor, *, train: bool,
                       decay: float = 0.99, beta: float = 1.0,
-                      eps: float = 1e-5, axis_name: Optional[str] = None
+                      eps: float = 1e-5, axis_name=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                  EMAState]:
     """One NormEMA-VQ step (ref:quantize.py:414-479).
 
     z: (..., D) channel-last features → (z_q straight-through, commitment
-    loss, indices (...,), new state).  The new state carries no gradient."""
-    if axis_name is not None:
-        raise NotPortedError(
-            "the cross-replica code-usage sync (axis_name) is ROADMAP Queue 1 "
-            "item 5, 'Multi-GPU and runtime'")
+    loss, indices (...,), new state).  The new state carries no gradient.
+    `axis_name`: the parallel.mesh.Mesh whose ranks' code counts and
+    embed sums are summed (JAX's `lax.psum` over the axis)."""
     D = z.shape[-1]
     zn = l2norm(z.float())
     zf = zn.reshape(-1, D)
@@ -116,6 +112,9 @@ def norm_ema_quantize(state: EMAState, z: torch.Tensor, *, train: bool,
         onehot = torch.nn.functional.one_hot(indices, emb.shape[0]).float()
         bins = onehot.sum(0)
         embed_sum = zf.T @ onehot                  # (D, K)
+        if axis_name is not None:
+            axis_name.all_sum(bins)
+            axis_name.all_sum(embed_sum)
         new_cluster = state.cluster_size * decay + bins * (1.0 - decay)
         if train:
             safe_bins = torch.where(bins == 0, torch.ones_like(bins), bins)

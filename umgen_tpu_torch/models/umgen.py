@@ -125,7 +125,9 @@ def check_served(cfg: ModelConfig) -> None:
                          f"{cfg.temporal_pe_mode!r}")
     if cfg.n_step != 1 or cfg.bias:
         raise NotPortedError("the port serves the published heads "
-                             "(n_step=1, bias=False)")
+                             "(n_step=1, bias=False); the others are not "
+                             "ported yet (ROADMAP.md: 'Tensor parallel and "
+                             "the remaining configuration')")
 
 
 class UMGen:

@@ -23,12 +23,21 @@ config.remat each block is recomputed in the backward pass.  A step
 updates the state's tensors in place (JAX donates them) and reads nothing
 back to the host: the metrics stay tensors on the device.
 
-The dp / tp mesh step of the JAX package is not ported: `jit_train_step`
-with a mesh raises NotPortedError (ROADMAP Queue 1 item 5).
+Data parallelism (`jit_train_step(mesh)`, a parallel.mesh.Mesh): the
+counterpart of the JAX package's GSPMD step at tp = 1, which computes the
+global batch's gradient.  Every rank takes its rows of the global batch,
+runs the loss there and all-reduces the gradients to their mean before the
+clip, so the clip's global norm is the mean gradient's.  Every loss term
+is a plain mean over its rows (`_ce`), so equal shards average to the
+global batch's loss.  The optimizer runs replicated, as the JAX step's
+replicated optimizer state does: params and moments stay equal on every
+rank, bit for bit.  The metrics are averaged over the ranks.  Tensor
+parallelism (tp > 1) is not ported.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
@@ -36,8 +45,9 @@ import torch
 from umgen_tpu_torch.layout import SequenceLayout
 from umgen_tpu_torch.models import modules as nn
 from umgen_tpu_torch.models.rollout import Rollout
-from umgen_tpu_torch.models.umgen import UMGen, NotPortedError
+from umgen_tpu_torch.models.umgen import UMGen
 from umgen_tpu_torch.parallel import optim
+from umgen_tpu_torch.parallel.mesh import refuse_tp
 
 Params = Dict[str, Any]
 
@@ -204,12 +214,19 @@ class UMGenTrainer:
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
-                   rng=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+                   rng=None, mesh=None
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One step: the state's params and optimizer state are updated in
         place and returned in a new TrainState; metrics are device
         tensors, `grad_norm` the norm of the raw gradients (before the
-        clip)."""
+        clip).  Under `mesh` the batch is the global one: this rank's rows
+        are its loss, and the gradients and metrics are the ranks' mean."""
+        if mesh is not None:
+            batch = {k: mesh.shard(v) for k, v in batch.items()}
         grads, metrics = self.grads(state, batch)
+        if mesh is not None:
+            mesh.tree_mean(grads)
+            mesh.tree_mean(metrics)
         with torch.no_grad():
             updates, opt_state = self.tx.update(grads, state.opt_state,
                                                 state.params)
@@ -224,10 +241,10 @@ class UMGenTrainer:
     # ------------------------------------------------------------------
     def jit_train_step(self, mesh=None):
         """The step the CLI calls.  The JAX package jits it with the state
-        donated; here it runs eagerly and updates the state in place.  The
-        dp / tp mesh path is not ported."""
-        if mesh is not None:
-            raise NotPortedError(
-                "a training mesh (dp / tp) is ROADMAP Queue 1 item 5, "
-                "'Multi-GPU and runtime'")
-        return self.train_step
+        donated; here it runs eagerly and updates the state in place.
+        With a data-parallel mesh it takes the global batch (above); a tp
+        mesh raises NotPortedError."""
+        if mesh is None:
+            return self.train_step
+        refuse_tp(mesh.shape["tp"])
+        return functools.partial(self.train_step, mesh=mesh)

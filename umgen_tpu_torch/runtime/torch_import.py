@@ -124,7 +124,8 @@ def import_umgen(state_dict: Dict[str, Any], config, device="cpu",
             state_dict:
         raise NotPortedError("the n-step bbox TAR head "
                              "(head_tar_n_step_bbox3d) is not ported yet "
-                             "(ROADMAP.md: 'Smaller configuration items')")
+                             "(ROADMAP.md: 'Tensor parallel and the remaining "
+                             "configuration')")
     r = _Reader(state_dict, device, dtype)
     params: Params = {
         "egoe": r.t(f"{tr}.egoe.weight"),

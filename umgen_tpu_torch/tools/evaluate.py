@@ -47,9 +47,25 @@ decoders only under `--save_video`: the JAX CLI decodes the pictures under
 `--save_video false` too and drops them, and its outputs (token pickles,
 metrics) are the same either way.  Where cv2 does not import, `--save_video`
 stops the run before the rollout (the JAX CLI fails after it, at the first
-rendered frame).  What the port does not serve — multi-GPU (`--dp`,
-`--launcher`), `--profile_dir`, `--oar_batch_block` — raises NotPortedError
-naming the ROADMAP.md item.
+rendered frame).
+
+Data parallelism over scenes (parallel/mesh.py; the JAX CLI's `--dp` and
+`--launcher`): `--dp N` alone starts N ranks on this host, one a card
+(cuda:0 ... N-1, NCCL; under `--device cpu` N ranks on the CPU over gloo),
+and refuses where there are fewer cards ("need N devices, have M");
+`--launcher torch` makes the process one rank of `torchrun`'s world and
+`--launcher mpi` one of Open MPI's, and `--dp` must then equal the world
+size.  Every rank builds the same seeded weights, rolls its contiguous
+shard of each `--batch_size` batch (a multiple of `--dp`; a last, short
+batch is padded by repeating its last scene, and the pads dropped), and
+rank 0 gathers the tokens, writes the pickles, metrics and videos, and
+prints the lines the one-process run prints, over all the scenes.  `--dp`
+serves the video task's temporal-cache rollout, as the JAX CLI's does:
+control and recompute under `--dp` are refused with JAX's reasons.
+`--profile_dir DIR` traces the scene loop with `torch.profiler` (CPU, and
+the card's kernels on a card) into a Chrome / TensorBoard trace under DIR,
+one file a rank (runtime/profiler.py).  `--oar_batch_block` (a VMEM
+blocking) is refused by decision.
 """
 
 from __future__ import annotations
@@ -135,23 +151,29 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_args(args) -> None:
-    """Raise NotPortedError for any flag value outside the served slice."""
-    def no(cond, what, item):
-        if cond:
-            raise NotPortedError(f"{what} is not ported yet "
-                                 f"(ROADMAP.md: {item!r})")
-
+    """Refuse a flag value outside what the port serves, each with its
+    reason: NotPortedError (naming the ROADMAP.md item or decision),
+    ValueError or the JAX CLI's SystemExit."""
     if args.infer_task not in ("video", "control"):
         raise ValueError(f"unknown --infer_task {args.infer_task!r}: video "
                          "or control")
+    if args.dp < 1:
+        raise ValueError(f"--dp {args.dp}: at least 1")
     if args.dp > 1 and args.infer_task == "control":
         raise SystemExit("--dp > 1 batches video scenes; control mode runs "
                          "per-scene (per-scene init dicts)")
+    if args.dp > 1 and args.batch_size % args.dp:
+        raise SystemExit(f"--batch_size {args.batch_size} must be a "
+                         f"multiple of --dp {args.dp}")
+    if (args.dp > 1 or args.launcher is not None) \
+            and (args.tar_mode or "temporal_cache") != "temporal_cache":
+        raise ValueError("--dp: spmd='shard_map' requires "
+                         "tar_mode='temporal_cache' (the JAX CLI's "
+                         "data-parallel program serves the cached rollout "
+                         "only)")
     if args.kv_dtype not in RING_DTYPES:
         raise ValueError(f"unknown --kv_dtype {args.kv_dtype!r}: "
                          f"{', '.join(RING_DTYPES)}")
-    no(args.dp > 1 or args.launcher is not None,
-       "multi-GPU serving (--dp, --launcher)", "Multi-GPU and runtime")
     if args.oar_kv_dtype not in (None,) + OAR_KV_DTYPES:
         raise NotPortedError(
             f"--oar_kv_dtype {args.oar_kv_dtype}: served are "
@@ -163,8 +185,6 @@ def check_args(args) -> None:
             "--oar_batch_block splits the batch to fit the TPU's VMEM; the "
             "port runs the whole batch in one kernel and does not port it "
             "(ROADMAP.md: 'VMEM-driven blockings')")
-    no(args.profile_dir is not None, "--profile_dir",
-       "Multi-GPU and runtime")
     if args.sample_method not in ("greedy", "topk", "topp"):
         raise ValueError(f"unknown sample method {args.sample_method!r}")
 
@@ -300,19 +320,27 @@ def build_decoders(args, device):
 def run_dataset(args, runner, infer_cfg, pipeline):
     """The scenes of `--data_root` (`data/controlled_scenes` under
     `--infer_task control`; `--synthetic_data N` generates video scenes
-    where it is missing) through `runner`, `--batch_size` at a time.
-    Returns the dataset (its journal of error scenes)."""
+    where it is missing) through `runner`, `--batch_size` at a time,
+    padded to a multiple of `--dp`; under `--profile_dir` the scene loop
+    is traced.  Returns the dataset (its journal of error scenes)."""
+    import numpy as np
+
     from umgen_tpu_torch.config import DataConfig
     from umgen_tpu_torch.data.dataset import NuPlanTokenDataset
+    from umgen_tpu_torch.runtime.profiler import trace
 
     control = args.infer_task == "control"
+    mesh = runner.gen.mesh
     data_root = CONTROL_ROOT if control else args.data_root
     if not os.path.isdir(data_root) and args.synthetic_data > 0:
         from umgen_tpu_torch.data.synthetic import write_synthetic_dataset
         data_root = os.path.join(args.output_path, "synthetic_scenes")
-        write_synthetic_dataset(data_root, n_scenes=args.synthetic_data,
-                                seed=args.seed)
-        print("generated synthetic dataset at", data_root)
+        if runner.writer:
+            write_synthetic_dataset(data_root, n_scenes=args.synthetic_data,
+                                    seed=args.seed)
+            print("generated synthetic dataset at", data_root)
+        if mesh is not None:        # the other ranks read what it wrote
+            mesh.broadcast(np.zeros(1, np.uint8))
     dcfg = DataConfig(data_root=(data_root,),
                       block_size=infer_cfg.num_new_frames
                       + infer_cfg.cond_frames, control_test=control)
@@ -323,25 +351,28 @@ def run_dataset(args, runner, infer_cfg, pipeline):
     n = len(dataset) if args.max_scenes < 0 else min(args.max_scenes,
                                                      len(dataset))
     group = []
-    for i in range(n):
-        batch = dataset[i]
-        if batch is None:
-            continue
-        if control and "dataset_token" not in batch:
-            # the JAX CLI fails here with a KeyError: --synthetic_data
-            # writes video scenes, which a control run cannot read
-            raise SystemExit(
-                f"{batch['file_name']} is not a control scene (no "
-                "'dataset_token'): control mode reads control pkls — see "
-                "data.synthetic.write_control_scenes and "
-                "tools.load_control_tokens")
-        group.append(batch)
-        if len(group) >= max(args.batch_size, 1):
-            runner.run_scenes(group, control_test=control)
-            group = []
-    if group:
-        runner.run_scenes(group, control_test=control)
-    if runner.timings:
+    with trace(args.profile_dir, runner.gen.device,
+               None if mesh is None else mesh.rank):
+        for i in range(n):
+            batch = dataset[i]
+            if batch is None:
+                continue
+            if control and "dataset_token" not in batch:
+                # the JAX CLI fails here with a KeyError: --synthetic_data
+                # writes video scenes, which a control run cannot read
+                raise SystemExit(
+                    f"{batch['file_name']} is not a control scene (no "
+                    "'dataset_token'): control mode reads control pkls — "
+                    "see data.synthetic.write_control_scenes and "
+                    "tools.load_control_tokens")
+            group.append(batch)
+            if len(group) >= max(args.batch_size, 1):
+                runner.run_scenes(group, control_test=control,
+                                  pad_to=args.dp)
+                group = []
+        if group:
+            runner.run_scenes(group, control_test=control, pad_to=args.dp)
+    if runner.timings and runner.writer:
         fps = sum(t["frames_per_sec"] for t in runner.timings) \
             / len(runner.timings)
         print(f"mean throughput: {fps:.4f} frames/sec on "
@@ -373,9 +404,10 @@ def report(args, runner, dataset) -> None:
               f"{journal}")
 
 
-def run(args):
+def run(args, mesh=None):
     """Run the evaluation; returns the SceneRunner (timings, metrics) and
-    the Generator."""
+    the Generator.  `mesh`: this rank's parallel.mesh.Mesh under `--dp` /
+    `--launcher` (its card is the run's device)."""
     import torch
 
     from umgen_tpu_torch.config import InferConfig
@@ -387,7 +419,7 @@ def run(args):
     check_args(args)
     require_cv2(args)
     cfg = config_from_args(args)
-    device = torch.device(args.device)
+    device = torch.device(args.device) if mesh is None else mesh.device
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the card; pass "
                            "--device cpu for the plain versions on the CPU")
@@ -399,7 +431,7 @@ def run(args):
     model = UMGen(cfg)
     params = build_params(args, cfg, device, pipeline)
     map_dec, image_dec = build_decoders(args, device)
-    gen = Generator(model, params, seed=args.seed, device=device)
+    gen = Generator(model, params, seed=args.seed, device=device, mesh=mesh)
     runner = SceneRunner(gen, infer_cfg, output_path=args.output_path,
                          pipeline=pipeline, map_decoder=map_dec,
                          image_decoder=image_dec,
@@ -408,13 +440,54 @@ def run(args):
                                          args.init_token_mod.split(",") if m],
                          gt_video=not args.no_gt_video)
     dataset = run_dataset(args, runner, infer_cfg, pipeline)
-    report(args, runner, dataset)
+    if runner.writer:
+        report(args, runner, dataset)
     return runner, gen
 
 
+def rank_main(mesh, args):
+    """One rank of a data-parallel run (what `--dp` and `--launcher`
+    reach); returns `run`'s (runner, generator)."""
+    out = run(args, mesh)
+    if mesh.rank == 0:
+        print("Sucess")
+    return out
+
+
 def main(argv: Optional[list] = None) -> int:
-    run(build_parser().parse_args(argv))
-    print("Sucess")   # the reference's success marker
+    args = build_parser().parse_args(argv)
+    check_args(args)
+    if args.launcher is None and args.dp == 1:
+        run(args)
+        print("Sucess")   # the reference's success marker
+        return 0
+    import torch
+
+    from umgen_tpu_torch.parallel import mesh as mesh_lib
+    kind = torch.device(args.device).type
+    if args.launcher is not None:
+        env = mesh_lib.launcher_env(args.launcher)
+        if env["world"] != args.dp:
+            raise SystemExit(f"--dp {args.dp}: under --launcher it must "
+                             f"equal the world size, {env['world']}")
+        devices = mesh_lib.host_devices(kind, env["world"])
+        mesh_lib.init(env["rank"], env["world"], env["addr"], env["port"],
+                      "nccl" if kind == "cuda" else "gloo")
+        try:
+            if kind == "cuda":
+                torch.cuda.set_device(devices[env["local_rank"]])
+            rank_main(mesh_lib.make_mesh(args.dp, devices=devices,
+                                         local_rank=env["local_rank"]), args)
+        finally:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+        return 0
+    devices = mesh_lib.host_devices(kind, args.dp)
+    mesh_lib.check_devices(args.dp, devices)
+    if kind == "cuda":
+        from umgen_tpu_torch.ops import _cuda
+        _cuda.build()       # once, before the ranks load it
+    mesh_lib.launch(rank_main, args.dp, devices, args)
     return 0
 
 

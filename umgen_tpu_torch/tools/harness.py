@@ -13,6 +13,13 @@ continuation — and under `save_video` writes one mp4 a scene under
 ``video/``: by default the prediction | GT panel with the GT maps decoded,
 or the single panel with the GT pose (`gt_video=False`, or a scene without
 boxes).
+
+Under a data-parallel Generator (its `mesh`) `run_scenes` pads the batch to
+a multiple of `pad_to` by repeating its last scene, and drops the pads'
+outputs; every rank rolls its shard, and only rank 0 writes (the pickles,
+the metrics, the VQ decode and videos) and prints — over all the scenes,
+whose tokens every rank gathers.  Which scenes are done is rank 0's
+reading of the token directory, so that the ranks agree on the batch.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from umgen_tpu_torch.data.pipeline import ScenePipeline
 from umgen_tpu_torch.models.generate import Generator
 from umgen_tpu_torch.ops.collision import BoxOverlap
 from umgen_tpu_torch.ops.metrics import MMDMetric
+from umgen_tpu_torch.runtime.profiler import annotate
 
 
 def _scene_name(batch: Dict) -> str:
@@ -67,8 +75,13 @@ class SceneRunner:
         self.gt_video = gt_video
         self.token_save_path = os.path.join(output_path, "saved_token")
         self.video_save_path = os.path.join(output_path, "video")
-        os.makedirs(self.token_save_path, exist_ok=True)
-        os.makedirs(self.video_save_path, exist_ok=True)
+        mesh = getattr(generator, "mesh", None)
+        # the rank that writes and prints (every other rank of a
+        # data-parallel run only rolls its scenes)
+        self.writer = mesh is None or mesh.rank == 0
+        if self.writer:
+            os.makedirs(self.token_save_path, exist_ok=True)
+            os.makedirs(self.video_save_path, exist_ok=True)
         self.box_overlap = BoxOverlap()
         self.mmd = MMDMetric()
         self.timings: List[Dict] = []
@@ -76,12 +89,22 @@ class SceneRunner:
     def _token_path(self, name: str) -> str:
         return os.path.join(self.token_save_path, f"{name}_tokens.pkl")
 
-    def _done(self, name: str) -> bool:
-        """Skip-if-exists resume (ref:model_pl.py:215-216)."""
-        if os.path.exists(self._token_path(name)):
-            print(f"{name} has been processed")
-            return True
-        return False
+    def _done(self, names: List[str]) -> List[bool]:
+        """Skip-if-exists resume (ref:model_pl.py:215-216), as rank 0 reads
+        the token directory."""
+        done = np.array([os.path.exists(self._token_path(n))
+                         for n in names])
+        mesh = getattr(self.gen, "mesh", None)
+        if mesh is not None:
+            done = mesh.broadcast(done.astype(np.uint8)).astype(bool)
+        for name, d in zip(names, done):
+            if d:
+                self._print(f"{name} has been processed")
+        return done.tolist()
+
+    def _print(self, *a) -> None:
+        if self.writer:
+            print(*a)
 
     def _forced(self, cond, input_cond: int, new_frames: int):
         """init_token_mod replay: the listed modalities' GT continuation."""
@@ -91,20 +114,23 @@ class SceneRunner:
         return forced or None
 
     def _generate(self, cond, new_frames, input_cond, scenes, **kw):
+        """The rollout of `cond`; `scenes`: how many of its rows are real
+        scenes (the rest pads), which the timing counts."""
         n0 = len(self.gen.frame_seconds)
         t0 = time.perf_counter()
-        out = self.gen.generate(cond, new_frames=new_frames,
-                                cond_frames=self.cfg.cond_frames,
-                                input_cond_frames=input_cond, **kw)
+        with annotate("umgen.rollout"):
+            out = self.gen.generate(cond, new_frames=new_frames,
+                                    cond_frames=self.cfg.cond_frames,
+                                    input_cond_frames=input_cond, **kw)
         dt = time.perf_counter() - t0
         per_frame = self.gen.frame_seconds[n0:]
         self.timings.append({"scenes": scenes, "frames": new_frames,
                              "seconds": dt, "frame_seconds": per_frame,
                              "frames_per_sec": scenes * new_frames / dt})
-        print("per-frame seconds: "
-              + ", ".join(f"{s:.3f}" for s in per_frame)
-              + f"  ({scenes * new_frames / dt:.4f} frames/s over "
-              f"{scenes} scene(s))")
+        self._print("per-frame seconds: "
+                    + ", ".join(f"{s:.3f}" for s in per_frame)
+                    + f"  ({scenes * new_frames / dt:.4f} frames/s over "
+                    f"{scenes} scene(s))")
         return out
 
     def run_scene(self, batch: Dict, control_test: bool = False
@@ -126,7 +152,7 @@ class SceneRunner:
             gt, init = batch, None
             name = _scene_name(batch)
             input_cond = self.cfg.input_cond_frames
-        if self._done(name):
+        if self._done([name])[0]:
             return None
         cond = {m: _frames(gt[m]) for m in self.gen.model.layout.mod_order}
         new_frames = self.cfg.num_new_frames
@@ -137,18 +163,24 @@ class SceneRunner:
         out = self._generate(cond, new_frames, input_cond, 1,
                              init_tokens=init, control_test=control_test,
                              forced_streams=forced)
+        if not self.writer:
+            return None
         self._postprocess(out, gt, name, input_cond)
         return out
 
-    def run_scenes(self, batches: List[Dict], control_test: bool = False
+    def run_scenes(self, batches: List[Dict], control_test: bool = False,
+                   pad_to: int = 1
                    ) -> List[Optional[Dict[str, np.ndarray]]]:
         """Stack the video scenes on the batch axis, run ONE rollout, then
         save and score each scene.  Control scenes carry their own
-        trajectories and run one by one."""
-        if control_test or len(batches) == 1:
+        trajectories and run one by one.  pad_to > 1 pads the batch by
+        repeating its last scene so that a data-parallel mesh divides it;
+        the pads' outputs are dropped."""
+        if control_test or (len(batches) == 1 and pad_to <= 1):
             return [self.run_scene(b, control_test) for b in batches]
-        todo = [(_scene_name(b), b) for b in batches]
-        todo = [(n, b) for n, b in todo if not self._done(n)]
+        named = [(_scene_name(b), b) for b in batches]
+        todo = [nb for nb, done in zip(named, self._done(
+            [n for n, _ in named])) if not done]
         if not todo:
             return []
         mods = self.gen.model.layout.mod_order
@@ -156,12 +188,18 @@ class SceneRunner:
         T0 = min(_frames(b["pose"]).shape[1] for _, b in todo)
         cond = {m: np.concatenate([_frames(b[m])[:, :T0] for _, b in todo])
                 for m in mods}
+        n_pad = (-len(todo)) % pad_to
+        if n_pad:
+            cond = {m: np.concatenate([v] + [v[-1:]] * n_pad)
+                    for m, v in cond.items()}
         new_frames = self.cfg.num_new_frames
         if new_frames == -1:
             new_frames = T0 - input_cond
         out = self._generate(
             cond, new_frames, input_cond, len(todo),
             forced_streams=self._forced(cond, input_cond, new_frames))
+        if not self.writer:
+            return []
         outs = []
         for i, (name, b) in enumerate(todo):
             per = {m: out[m][i:i + 1] for m in mods}
@@ -174,7 +212,8 @@ class SceneRunner:
         with open(self._token_path(name), "wb") as f:
             pickle.dump(out, f)
         try:
-            decoded = self.decode_tokens(out)
+            with annotate("umgen.decode"):
+                decoded = self.decode_tokens(out)
         except Exception as e:  # noqa: BLE001 — journal it, go on
             # scenes whose decode failed, for an offline re-decode (the
             # reference's undecoded_token.txt, ref:model_pl.py:343-348)

@@ -17,8 +17,17 @@ writes `train_meta.json` with the JAX CLI's keys, prints the JAX CLI's line
 every `--log_every` steps, saves the train state (runtime/checkpoint.py) as
 `step_NNNNNNN` every `--save_every` steps and as `final`, and `--resume
 PATH` restores a state and its step (the batches start again from the
-seed, as in the JAX CLI).  `--dp` / `--tp` above 1 raise NotPortedError
-(ROADMAP Queue 1 item 5, 'Multi-GPU and runtime').
+seed, as in the JAX CLI).
+
+`--dp N` trains data-parallel (the JAX CLI's dp mesh at tp = 1): N ranks
+on this host, one a card (NCCL; under `--device cpu` N ranks on the CPU
+over gloo), refused where there are fewer cards.  Every rank builds the
+same initial params from `--seed`, reads `--resume`, and draws the same
+global batch from `batch_iterator`; it takes its rows of it
+(`--batch_size` must be a multiple of `--dp`), and the gradients are the
+ranks' mean (parallel/train.py).  Rank 0 writes `train_meta.json`, the log
+lines and the checkpoints.  `--tp` above 1 raises NotPortedError (ROADMAP
+'Tensor parallel and the remaining configuration').
 """
 
 from __future__ import annotations
@@ -61,7 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="LR warmup steps (default min(1000, steps/10) so "
                         "short runs actually reach peak LR)")
     p.add_argument("--dp", type=int, default=1,
-                   help="not ported: values above 1 raise")
+                   help="data-parallel ranks, one a card")
     p.add_argument("--tp", type=int, default=1,
                    help="not ported: values above 1 raise")
     p.add_argument("--data_root", default="data/tokenized_origin_scenes")
@@ -96,33 +105,58 @@ def main(argv=None) -> int:
 
     import torch
 
+    from umgen_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh_lib.refuse_tp(args.tp)
+    if args.batch_size % args.dp:
+        raise SystemExit(f"--batch_size {args.batch_size} must be a "
+                         f"multiple of --dp {args.dp}")
+    if args.dp == 1:
+        return 0 if train(args) is not None else 1
+    devices = mesh_lib.host_devices(torch.device(args.device).type, args.dp)
+    mesh_lib.check_devices(args.dp, devices)
+    mesh_lib.launch(train_rank, args.dp, devices, args)
+    return 0
+
+
+def train_rank(mesh, args) -> None:
+    """One rank of `--dp` training."""
+    train(args, mesh)
+
+
+def train(args, mesh=None):
+    """The training run (one process, or this rank of a data-parallel
+    one: `mesh`, a parallel.mesh.Mesh, whose card is its device).  Returns
+    the final TrainState, None without scenes."""
+    import torch
+
     from umgen_tpu_torch.config import DataConfig, ModelConfig
     from umgen_tpu_torch.data.dataset import NuPlanTokenDataset
-    from umgen_tpu_torch.models.umgen import NotPortedError, UMGen
+    from umgen_tpu_torch.models.umgen import UMGen
     from umgen_tpu_torch.params import init_params
     from umgen_tpu_torch.parallel.train import UMGenTrainer
     from umgen_tpu_torch.runtime import checkpoint as ckpt
 
-    if args.dp * args.tp > 1:
-        raise NotPortedError(
-            f"--dp {args.dp} --tp {args.tp}: a training mesh is ROADMAP "
-            "Queue 1 item 5, 'Multi-GPU and runtime'")
-    device = torch.device(args.device)
+    device = torch.device(args.device) if mesh is None else mesh.device
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port trains on the card; "
                            "pass --device cpu to train on the CPU")
+    writer = mesh is None or mesh.rank == 0
 
     data_root = args.data_root
     if not os.path.isdir(data_root) and args.synthetic_data > 0:
         from umgen_tpu_torch.data.synthetic import write_synthetic_dataset
         data_root = os.path.join(args.ckpt_dir, "synthetic")
-        write_synthetic_dataset(data_root, n_scenes=args.synthetic_data,
-                                seed=args.seed)
+        if writer:
+            write_synthetic_dataset(data_root, n_scenes=args.synthetic_data,
+                                    seed=args.seed)
+        if mesh is not None:        # the other ranks read what it wrote
+            mesh.broadcast(np.zeros(1, np.uint8))
     dataset = NuPlanTokenDataset(DataConfig(
         data_root=(data_root,), block_size=args.window + 2))
     if len(dataset) == 0:
         print("no training scenes; use --synthetic_data N")
-        return 1
+        return None
 
     cfg_kw = dict(remat=args.remat, use_pallas_attention=False,
                   temporal_pe_mode=args.temporal_pe)
@@ -143,19 +177,22 @@ def main(argv=None) -> int:
     state = trainer.init_state(params)
     if args.resume:
         state = ckpt.load_train_state(args.resume, state)
-        print(f"resumed from {args.resume} at step {int(state.step)}")
-    step_fn = trainer.jit_train_step()
+        if writer:
+            print(f"resumed from {args.resume} at step {int(state.step)}")
+    step_fn = trainer.jit_train_step(mesh)
 
     # the training regime beside the checkpoints: serving needs the
     # trained window length to clamp temporal-PE indices (config.tpe_clamp)
-    os.makedirs(args.ckpt_dir, exist_ok=True)
-    with open(os.path.join(args.ckpt_dir, "train_meta.json"), "w") as f:
-        json.dump({"window": args.window, "model_scale": args.model_scale,
-                   "optimizer": args.optimizer, "steps": args.steps,
-                   "batch_size": args.batch_size,
-                   "temporal_pe": args.temporal_pe,
-                   "oar_label_smooth": args.oar_label_smooth,
-                   "oar_loss_weight": args.oar_loss_weight}, f)
+    if writer:
+        os.makedirs(args.ckpt_dir, exist_ok=True)
+        with open(os.path.join(args.ckpt_dir, "train_meta.json"), "w") as f:
+            json.dump({"window": args.window,
+                       "model_scale": args.model_scale,
+                       "optimizer": args.optimizer, "steps": args.steps,
+                       "batch_size": args.batch_size,
+                       "temporal_pe": args.temporal_pe,
+                       "oar_label_smooth": args.oar_label_smooth,
+                       "oar_loss_weight": args.oar_loss_weight}, f)
 
     it = batch_iterator(dataset, args.batch_size, args.window, args.seed)
     t0 = time.perf_counter()
@@ -163,22 +200,23 @@ def main(argv=None) -> int:
         batch = {k: torch.as_tensor(v, dtype=torch.long, device=device)
                  for k, v in next(it).items()}
         state, metrics = step_fn(state, batch)
-        if (i + 1) % args.log_every == 0 or i == 0:
+        if writer and ((i + 1) % args.log_every == 0 or i == 0):
             m = {k: float(v) for k, v in metrics.items()}
             dt = time.perf_counter() - t0
             print(f"step {i + 1}/{args.steps} loss={m['loss']:.4f} "
                   f"(ego {m['ego_loss']:.3f} tar {m['tar_loss']:.3f} "
                   f"oar {m['oar_loss']:.3f}) "
                   f"gnorm={m['grad_norm']:.2f} {dt:.1f}s")
-        if args.save_every and (i + 1) % args.save_every == 0:
+        if writer and args.save_every and (i + 1) % args.save_every == 0:
             path = os.path.join(args.ckpt_dir, f"step_{i + 1:07d}")
             ckpt.save_train_state(path, state)
             print("saved", path)
 
-    final = os.path.join(args.ckpt_dir, "final")
-    ckpt.save_train_state(final, state)
-    print("saved", final)
-    return 0
+    if writer:
+        final = os.path.join(args.ckpt_dir, "final")
+        ckpt.save_train_state(final, state)
+        print("saved", final)
+    return state
 
 
 if __name__ == "__main__":

@@ -14,8 +14,17 @@ codebook is updated outside the gradient.  Every product is float32
 (`vq.float32_products` keeps TF32 off, cuDNN's backward convolutions
 included).  The run is saved in the inference layout (`codebook` = the EMA
 embedding) to `<ckpt_dir>/<target>_final` (runtime/checkpoint.py), which
-models.vq's MapDecoder / ImageDecoder load.  `--dp` above 1 raises
-NotPortedError (ROADMAP Queue 1 item 5, 'Multi-GPU and runtime').
+models.vq's MapDecoder / ImageDecoder load.
+
+`--dp N` trains data-parallel, as the JAX CLI's `shard_map` step
+(umgen_tpu/tools/train_vq.py:105-145): N ranks on this host, one a card
+(gloo under `--device cpu`).  Every rank draws the global rasters from the
+same numpy generator, as JAX does on the host, and takes its rows
+(`--batch_size` a multiple of `--dp`); the gradients, `loss`, `rec` and
+the code-usage probabilities are averaged over the ranks, the EMA
+codebook's counts and sums summed (`norm_ema_quantize(axis_name=mesh)`);
+k-means initialises on the global first batch, the same on every rank.
+Rank 0 prints and saves.
 """
 
 from __future__ import annotations
@@ -51,7 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--dp", type=int, default=1,
-                    help="not ported: values above 1 raise")
+                    help="data-parallel ranks, one a card")
     ap.add_argument("--res", type=int, default=0,
                     help="override resolution (small for CPU smoke runs)")
     ap.add_argument("--ch", type=int, default=0,
@@ -91,15 +100,19 @@ def vq_config(args):
 class VQTrainer:
     """The CLI's step on a codec: `step(x)` takes rasters [N, H, W, C]
     (float32, on the device) and updates the params, the Adam state and
-    the EMA codebook; returns {"loss", "rec", "perp"} device tensors."""
+    the EMA codebook; returns {"loss", "rec", "perp"} device tensors.
+    Under `mesh` (a parallel.mesh.Mesh) `x` is the global batch, of which
+    this rank trains on its rows; every rank holds the same state."""
 
-    def __init__(self, cfg, params, lr: float, kmeans: bool = False):
+    def __init__(self, cfg, params, lr: float, kmeans: bool = False,
+                 mesh=None):
         import torch
 
         from umgen_tpu_torch.models.quantize import init_ema_state
         from umgen_tpu_torch.parallel import optim
         self.cfg = cfg
         self.kmeans = kmeans
+        self.mesh = mesh
         # the trainable tree: every leaf but the codebook, as autograd
         # leaves
         self.params = optim.tree_map(
@@ -128,7 +141,8 @@ class VQTrainer:
         from umgen_tpu_torch.models.quantize import norm_ema_quantize
         p = vq.oihw(params)
         z = self._encode(p, x)
-        zq, commit, idx, ema2 = norm_ema_quantize(ema, z, train=True)
+        zq, commit, idx, ema2 = norm_ema_quantize(ema, z, train=True,
+                                                  axis_name=self.mesh)
         zq = vq.conv2d(p["post_quant_conv"], vq._nchw(zq))
         recon = vq._nhwc(vq._decoder(p["decoder"], self.cfg, zq))
         rec = torch.mean((recon - x) ** 2)
@@ -140,16 +154,23 @@ class VQTrainer:
         from umgen_tpu_torch.models import vq
         from umgen_tpu_torch.models.quantize import maybe_kmeans_init
         from umgen_tpu_torch.parallel import optim
+        mesh = self.mesh
         with vq.float32_products():
             if self.kmeans and not bool(self.ema.initted):
+                # on the global batch (JAX's runs outside its shard_map)
                 with torch.no_grad():
                     z = self._encode(vq.oihw(self.params), x)
                 self.ema = maybe_kmeans_init(self.ema, z, generator)
+            if mesh is not None:
+                x = mesh.shard(x)
             with torch.enable_grad():
                 loss, (ema, rec, idx) = self.loss_fn(self.params, self.ema,
                                                      x)
                 grads = optim.grads(loss, self.params)
             with torch.no_grad():
+                loss, rec = loss.detach(), rec.detach()
+                if mesh is not None:       # JAX's pmean
+                    mesh.tree_mean([grads, loss, rec])
                 updates, self.opt_state = self.tx.update(
                     grads, self.opt_state, self.params)
                 new = optim.apply_updates(self.params, updates)
@@ -158,9 +179,11 @@ class VQTrainer:
                 # perplexity of this step's code usage (codebook health)
                 probs = torch.nn.functional.one_hot(
                     idx.reshape(-1), self.cfg.n_embed).float().mean(0)
+                if mesh is not None:
+                    mesh.tree_mean(probs)
                 perp = torch.exp(-torch.sum(probs
                                             * torch.log(probs + 1e-10)))
-        return {"loss": loss.detach(), "rec": rec.detach(), "perp": perp}
+        return {"loss": loss, "rec": rec, "perp": perp}
 
     def inference_params(self):
         """The trained tree in the inference layout: `codebook` = the EMA
@@ -176,22 +199,41 @@ def main(argv=None) -> int:
 
     import torch
 
+    from umgen_tpu_torch.parallel import mesh as mesh_lib
+
+    cfg = vq_config(args)
+    if args.dp == 1:
+        train(args, cfg)
+        return 0
+    if args.batch_size % args.dp:
+        raise SystemExit("batch_size must be a multiple of dp")
+    devices = mesh_lib.host_devices(torch.device(args.device).type, args.dp)
+    mesh_lib.check_devices(args.dp, devices)
+    mesh_lib.launch(train_rank, args.dp, devices, args, cfg)
+    return 0
+
+
+def train_rank(mesh, args, cfg) -> None:
+    """One rank of `--dp` codec training."""
+    train(args, cfg, mesh)
+
+
+def train(args, cfg, mesh=None) -> VQTrainer:
+    """The training run (one process, or this rank of a data-parallel
+    one: `mesh`, whose card is its device); returns the trainer."""
+    import torch
+
     from umgen_tpu_torch.models import vq
-    from umgen_tpu_torch.models.umgen import NotPortedError
     from umgen_tpu_torch.runtime import checkpoint as ckpt
 
-    if args.dp > 1:
-        raise NotPortedError(
-            f"--dp {args.dp}: data-parallel codec training is ROADMAP Queue "
-            "1 item 5, 'Multi-GPU and runtime'")
-    device = torch.device(args.device)
+    device = torch.device(args.device) if mesh is None else mesh.device
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port trains on the card; "
                            "pass --device cpu to train on the CPU")
-    cfg = vq_config(args)
+    writer = mesh is None or mesh.rank == 0
     params = vq.init_normvq(torch.Generator(device).manual_seed(args.seed),
                             cfg, device)
-    trainer = VQTrainer(cfg, params, args.lr, kmeans=args.kmeans)
+    trainer = VQTrainer(cfg, params, args.lr, kmeans=args.kmeans, mesh=mesh)
     gen = torch.Generator(device).manual_seed(args.seed)
 
     rng = np.random.default_rng(args.seed)
@@ -202,16 +244,17 @@ def main(argv=None) -> int:
                                               cfg.in_channels),
                             device=device)
         m = trainer.step(x, gen)
-        if i % args.log_every == 0 or i == args.steps:
+        if writer and (i % args.log_every == 0 or i == args.steps):
             print(f"step {i}/{args.steps} loss={float(m['loss']):.4f} "
                   f"(rec {float(m['rec']):.4f}) "
                   f"perplexity={float(m['perp']):.1f} "
                   f"{time.time() - t0:.1f}s", flush=True)
 
-    path = ckpt.save_params(f"{args.ckpt_dir}/{args.target}_final",
-                            trainer.inference_params())
-    print(f"saved {path}")
-    return 0
+    if writer:
+        path = ckpt.save_params(f"{args.ckpt_dir}/{args.target}_final",
+                                trainer.inference_params())
+        print(f"saved {path}")
+    return trainer
 
 
 if __name__ == "__main__":
