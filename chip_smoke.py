@@ -80,7 +80,7 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
       --set_num_new_frames 1 --save_video false` (every CLI phase passes
       `--save_video false`: the VQ decoders and the video are phase x's,
       so the CLI phases' times, tokens and launches stay as they were and
-      none needs cv2), its TAR and OAR stacks cut to 6 layers
+      none needs cv2), its TAR and OAR stacks cut to 3 layers
       (`DEFAULT_RUN_LAYERS`, to keep the script inside its time): full
       width, B = 1, 20-frame fp8 TAR rings,
       an fp8 OAR cache decoded by the reference's unfused body for all 2202
@@ -93,7 +93,7 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
       DEFAULT_RUN_LAYERS (cut from 36 for the script's time), B = 1, two frames
       (the second one's window has slid): the whole 20-frame window through
       every TAR stack each frame.  Flash must launch twice a TAR-family
-      block a frame (192 at 36 layers, 132 at 6), v5 and v5mq must launch;
+      block a frame (192 at 36 layers, 126 at 3), v5 and v5mq must launch;
       prints each frame's TAR / OAR split and the peak memory;
   (q) ring refresh on fp8 rings (`--fused_oar --tar_cache_refresh 1
       --sample_method greedy`, an int8 OAR cache), p's depth, two frames: the refresh
@@ -193,6 +193,20 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
       mesh reaches gloo through host copies).  The reference, z1 and z4 run
       after phase l, on a quiet host; z2 and z3 after the serving paths,
       while the CPU sides of the card-against-CPU phases finish;
+  (tp) tensor parallelism (`--phases tp`), after z2 and z3: two ranks at
+      tp = 2 sharing the card over gloo.  (tp1) the GSPMD-mode Generator
+      (`Generator(model, mesh.shard_params(params), mesh=mesh)`) on phase
+      c's flags, greedy, UMGen_Large width (8 of 16 heads a rank), every
+      stack at TP_LAYERS, a TP_WINDOW-frame window, B = 1, the prefill frame
+      and a cached one: flash on the rank's heads, v5 and v5mq on the whole
+      OAR (decode packs keep it whole) must launch in each rank and no other
+      decode kernel; the ranks' tokens equal, and against a one-process run
+      on the same weights equal or every differing run starting at a near
+      tie (<= TP_GAP_ULPS bf16 ulps), the cached frame against a run
+      teacher-forced to rank 0's prefill frame.  (tp2) one bf16 AdamW step of that
+      model at tp = 2 against one process (TP_BF16_*) and the tiny float32
+      step (TRAIN_*); the replicated leaves and moments equal across the
+      ranks bit for bit;
 
 Prints each phase's results, the card's name and power limit, a JSON line
 describing the kernels, and as its last line
@@ -2295,10 +2309,10 @@ def _tar_bytes(gen, B):
                     if k in gen.params}), nbytes(rings))
 
 
-# phase o's depth: its TAR and OAR stacks cut to 6 layers (the CLI's
-# smallest named scale has 24; 36 until PR 8, 24 in PR 9), the map / box /
-# ego stacks as they are; phases p, q, u and z too
-DEFAULT_RUN_LAYERS = 6
+# phase o's depth: its TAR and OAR stacks cut to 3 layers (the CLI's
+# smallest named scale has 24; at 6 a whole run with phase tp took 1094 s),
+# the map / box / ego stacks as they are; phases p, q, u and z too
+DEFAULT_RUN_LAYERS = 3
 
 
 @contextlib.contextmanager
@@ -2441,6 +2455,10 @@ class _GreedyLog:
         return torch.argmax(logits, dim=-1)
 
 
+# a frame's decisions: the ego action, 1024 map, 660 × 3 box and 512 image
+FRAME_DECISIONS = 1 + 1024 + 3 * 660 + 512
+
+
 def spec_divergences(mine, ref, top2, frames, first=20):
     """Speculative tokens `mine` against the sequential run's `ref` (token
     pickles) and its decisions' top-2 logits (3517 a frame: the ego
@@ -2454,7 +2472,7 @@ def spec_divergences(mine, ref, top2, frames, first=20):
     ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(gaps[:, 0]),
                                               2.0 ** -3))) - 7)
     gap_ulps = (gaps[:, 0] - gaps[:, 1]) / ulp
-    per_frame = 1 + 1024 + 3 * 660 + 512
+    per_frame = FRAME_DECISIONS
     out = {}
     for f in range(frames):
         base = f * per_frame
@@ -3012,9 +3030,10 @@ def _dp_rank(mesh, argv, out_dir, layers, train_dir):
         json.dump(res, f)
 
 
-def _tiny_train_job(dev):
-    """The tiny float32 trainer, its seeded params and a global batch of 2
-    (phase y's arguments: the first step is the warmup's, lr 0)."""
+def _tiny_train_job(dev, mesh=None):
+    """The tiny float32 trainer (on `mesh` under tp), its seeded params and
+    a global batch of 2 (phase y's arguments: the first step is the
+    warmup's, lr 0)."""
     import torch
     from umgen_tpu_torch.config import ModelConfig
     from umgen_tpu_torch.data.synthetic import make_token_batch
@@ -3025,7 +3044,7 @@ def _tiny_train_job(dev):
     cfg = ModelConfig(use_pallas_attention=False, dtype="float32").scaled(
         "tiny")
     trainer = UMGenTrainer(UMGen(cfg), learning_rate=3e-4, warmup_steps=1,
-                           total_steps=10)
+                           total_steps=10, mesh=mesh)
     raw = make_token_batch(SequenceLayout(cfg.task), T=3, B=2, seed=1,
                            config=cfg)
     batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
@@ -3072,13 +3091,14 @@ def _dp_train(mesh, train_dir):
             "vq": {k: float(v) for k, v in m.items()}}
 
 
-def _same_tokens(got, want, what):
+def _same_tokens(got, want, what, ref="the one-process B = 1 run's",
+                 phase="z"):
     import numpy as np
     for m in VOCAB:
         if not np.array_equal(got[m], want[m]):
             n = int((np.asarray(got[m]) != np.asarray(want[m])).sum())
-            raise AssertionError(f"(z) {what}: {m} tokens differ in {n} "
-                                 "places from the one-process B = 1 run")
+            raise AssertionError(f"({phase}) {what}: {m} tokens differ in "
+                                 f"{n} places from {ref}")
 
 
 def phase_dp(dev, work_dir):
@@ -3297,6 +3317,311 @@ def _dp_train_check(dev, train_dir, ranks):
     return out
 
 
+# ---------------------------------------------------------------------------
+# (tp) tensor parallelism
+# ---------------------------------------------------------------------------
+# phase c's flags, greedy, at UMGen_Large width (16 heads, 8 a rank); every
+# stack cut to TP_LAYERS, a TP_WINDOW-frame window and rings, one scene
+TP_LAYERS = 2
+TP_WINDOW = 4
+TP_FRAMES = 2          # the prefill frame and one cached frame
+# a run of tokens that differs from the one-process run must start at a
+# decision whose top-2 gap is within this many bf16 ulps: the all-reduce
+# adds the float32 partial sums in another order
+TP_GAP_ULPS = 16
+# the bf16 training step at tp = 2 against one process (stated before the
+# first run): bf16 activations whose sums run in another order
+TP_BF16_LOSS_RTOL = 2.0 ** -6
+TP_BF16_GRAD_RTOL = 5e-2
+TP_STACKS = ("n_tar_layer", "n_oar_layer", "n_ego_tar_layer",
+             "n_map_tar_layer", "n_box_tar_layer", "n_ego_ca_layer")
+
+
+def _tp_model(dev):
+    """(model, whole params, conditioning window): the CLI's config and
+    seeded weights (evaluate.build_params: int8 decode weights and their
+    packs) for phase c's flags, every stack at TP_LAYERS."""
+    from umgen_tpu_torch.data.pipeline import ScenePipeline
+    from umgen_tpu_torch.data.synthetic import make_token_batch
+    from umgen_tpu_torch.models.umgen import UMGen
+    from umgen_tpu_torch.tools import evaluate
+    args = evaluate.build_parser().parse_args(
+        DP_FLAGS + ["--device", str(dev), "--tar_cache_window",
+                    str(TP_WINDOW)])
+    cfg = evaluate.config_from_args(args).replace(
+        **{k: TP_LAYERS for k in TP_STACKS})
+    params = evaluate.build_params(args, cfg, dev, ScenePipeline())
+    model = UMGen(cfg)
+    cond = make_token_batch(model.layout, T=TP_WINDOW, B=1, seed=7,
+                            config=cfg)
+    return model, params, cond
+
+
+def _tp_generate(gen, cond, **kw):
+    return gen.generate(cond, new_frames=TP_FRAMES, cond_frames=TP_WINDOW,
+                        input_cond_frames=TP_WINDOW, **kw)
+
+
+def _tp_bf16_job(dev, mesh=None):
+    """The trainer of the rollout's model (bf16, UMGen_Large width, every
+    stack at TP_LAYERS, no remat; on `mesh` under tp), its seeded params
+    and a 3-frame batch (the first step is the warmup's, lr 0: the
+    gradients are compared)."""
+    from umgen_tpu_torch.config import ModelConfig
+    from umgen_tpu_torch.models.umgen import UMGen
+    from umgen_tpu_torch.parallel.train import UMGenTrainer
+    from umgen_tpu_torch.params import init_params
+    cfg = ModelConfig(use_pallas_attention=False).scaled("larger").replace(
+        **{k: TP_LAYERS for k in TP_STACKS})
+    import torch
+    trainer = UMGenTrainer(UMGen(cfg), learning_rate=3e-4, warmup_steps=1,
+                           total_steps=10, mesh=mesh)
+    return trainer, init_params(cfg, torch.Generator(dev).manual_seed(5),
+                                dev), _train_batch(trainer.layout, cfg, 3,
+                                                   dev, seed=2)
+
+
+def _host_state(state, metrics):
+    from umgen_tpu_torch.parallel import optim
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "params": optim.tree_map(lambda t: t.detach().cpu(),
+                                     state.params),
+            "opt_state": optim.tree_map(lambda t: t.cpu(), state.opt_state)}
+
+
+def _tp_step(mesh, job):
+    """One step of `job` (trainer, params, batch) over the mesh from the
+    rank's blocks: (whole state on the host, the rank's replicated leaves,
+    seconds)."""
+    import torch
+    from umgen_tpu_torch.parallel.mesh import split_rule, tree_paths
+    from umgen_tpu_torch.parallel.train import shard_state, whole_state
+    trainer, params, batch = job
+    state = shard_state(mesh, trainer.init_state(params))
+    del params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = trainer.jit_train_step(mesh)(state, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    local = {p: t.detach().cpu() for p, t in tree_paths(
+        {"params": state.params, "opt": state.opt_state})
+        if split_rule(p) is None}
+    return _host_state(whole_state(mesh, state), metrics), local, seconds
+
+
+def _tp_rank(mesh, out_dir):
+    """Entry of phase tp's rank processes: (tp1) the rollout on the rank's
+    blocks of the seeded weights, every launch count reset just before;
+    (tp2) the bf16 step of the same model and the tiny float32 step.
+    Writes rank<r>.pt under out_dir."""
+    import torch
+    from umgen_tpu_torch.models.generate import Generator
+    from umgen_tpu_torch.ops import decode_kernel as dk
+    from umgen_tpu_torch.ops import flash_attention as fa
+    dev = mesh.device
+    model, params, cond = _tp_model(dev)
+    gen = Generator(model, mesh.shard_params(params), seed=0, device=dev,
+                    mesh=mesh)
+    del params
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = _tp_generate(gen, cond)
+    torch.cuda.synchronize()
+    res = {"rank": mesh.rank, "backend": mesh.backend,
+           "seconds": time.perf_counter() - t0,
+           "frame_seconds": list(gen.frame_seconds),
+           "launches": {**fa.LAUNCHES, **dk.LAUNCHES},
+           "n_head": model.config.n_head, "heads": gen.model.heads,
+           "oar_heads": gen.rollout.oar_heads(gen.params),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "tokens": out}
+    del gen
+    torch.cuda.empty_cache()
+    res["bf16"] = _tp_step(mesh, _tp_bf16_job(dev, mesh))
+    res["tiny"] = _tp_step(mesh, _tiny_train_job(dev, mesh))
+    torch.save(res, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def _tp_divergences(mine, ref, top2, first, frames):
+    """`spec_divergences` of the tp run's tokens against a one-process
+    run's, from frame `first` on for `frames` frames (`top2` the one-process
+    run's decisions there), with the ego action's decision too: per frame
+    the share of equal tokens and the runs of differing positions, each
+    with its first decision's top-2 gap in bf16 ulps."""
+    import numpy as np
+    out = spec_divergences(mine, ref, top2, frames, first=first)
+    per_frame = FRAME_DECISIONS
+    for f in range(frames):
+        a = np.asarray(mine["pose"])[0, first + f]
+        b = np.asarray(ref["pose"])[0, first + f]
+        if (a != b).any():
+            t = top2[f * per_frame].reshape(-1, 2)[0].cpu().numpy()
+            ulp = 2.0 ** (np.floor(np.log2(max(abs(t[0]), 2.0 ** -3))) - 7)
+            run = ("pose", 0, float((t[0] - t[1]) / ulp))
+            o = out[f + 1]
+            o["runs"] += 1
+            if o["worst_run_start"] is None or \
+                    run[2] > o["worst_run_start"][2]:
+                o["worst_run_start"] = run
+    return out
+
+
+def _step_errors(one, got):
+    """A whole state after a step against another: (loss terms' largest
+    relative error, gradients' (mu / 0.1) worst relative L2, zero and
+    roundoff leaves)."""
+    rel = max(abs(got["metrics"][k] - v) / abs(v)
+              for k, v in one["metrics"].items())
+    worst, zeros, roundoff = _grad_errors(one["opt_state"],
+                                          got["opt_state"])
+    return rel, worst, zeros, roundoff
+
+
+def phase_tp(dev, work_dir):
+    """(tp) Tensor parallelism on the card: two ranks at tp = 2 share it
+    over gloo (NCCL refuses two ranks on one card).  (tp1) the GSPMD-mode
+    Generator: phase c's flags, greedy, UMGen_Large width (8 of 16 heads a
+    rank), every stack cut to TP_LAYERS, a TP_WINDOW-frame window, B = 1,
+    the prefill frame and one cached frame; the TAR family split, flash on
+    the rank's heads; the OAR whole on both ranks (v5 and v5mq on the int8
+    decode packs, as GSPMD replicates JAX's custom call); flash, v5 and
+    v5mq must launch in each rank and no other decode kernel; the ranks'
+    tokens equal, and against a one-process run on the same weights equal
+    or every run of differing positions starting at a near tie (<=
+    TP_GAP_ULPS bf16 ulps): the prefill frame against the free-running
+    one-process run, the cached frame against a one-process run whose
+    prefill frame is teacher-forced to rank 0's tokens (its window then
+    holds the same frames).  (tp2) one bf16 AdamW step of the same model
+    (B = 1, 3 frames) at tp = 2 against the one-process step (loss terms
+    within TP_BF16_LOSS_RTOL, gradients within TP_BF16_GRAD_RTOL rel L2),
+    and the tiny float32 step within TRAIN_*; in both the replicated
+    leaves and moments equal across the ranks bit for bit."""
+    import numpy as np
+    import torch
+    from umgen_tpu_torch.models.generate import Generator
+    from umgen_tpu_torch.parallel import mesh as mesh_lib
+    res = {"layers": TP_LAYERS, "window": TP_WINDOW}
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(work_dir, "tp")
+    os.makedirs(out_dir)
+    # the one-process references: the rollout (each decision's top-2
+    # logits kept) and the two steps
+    model, params, cond = _tp_model(dev)
+    gen = Generator(model, params, seed=0, device=dev)
+    log = _GreedyLog()
+    for m in gen.rollout._samplers:
+        gen.rollout._samplers[m] = log
+    _reset_launches()
+    t0 = time.perf_counter()
+    one = _tp_generate(gen, cond)
+    torch.cuda.synchronize()
+    res["one_process"] = {"seconds": time.perf_counter() - t0,
+                          "frame_seconds": list(gen.frame_seconds),
+                          "launches": _launches(("v5", "v5mq"))}
+    del gen
+    steps = {}
+    for name, job in (("bf16", _tp_bf16_job), ("tiny", _tiny_train_job)):
+        trainer, job_params, batch = job(dev)
+        state, metrics = trainer.train_step(trainer.init_state(job_params),
+                                            batch)
+        steps[name] = _host_state(state, metrics)
+        del trainer, job_params, state
+    torch.cuda.empty_cache()
+
+    # (tp1, tp2) two ranks sharing the card
+    t0 = time.perf_counter()
+    mesh_lib.launch(_tp_rank, 1, [dev, dev], out_dir, tp=2)
+    res["wall_s"] = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    for r in ranks:
+        if r["backend"] != "gloo":
+            raise AssertionError(f"(tp1) two ranks on one card ran on "
+                                 f"{r['backend']}")
+        if (r["heads"], r["oar_heads"]) != (r["n_head"] // 2, r["n_head"]):
+            raise AssertionError(f"(tp1) rank {r['rank']} ran {r['heads']} "
+                                 f"TAR heads, {r['oar_heads']} OAR heads")
+        _rank_launches(r["launches"], ("v5", "v5mq"),
+                       f"(tp1) rank {r['rank']}")
+    _same_tokens(ranks[1]["tokens"], ranks[0]["tokens"], "tp1 rank 1",
+                 "rank 0's", "tp1")
+    mine = ranks[0]["tokens"]
+    div = _tp_divergences(mine, one, log.top2, TP_WINDOW, TP_FRAMES)
+    # the cached frame reads a window holding each run's first frame: held
+    # against a one-process run teacher-forced to rank 0's first frame
+    gen = Generator(model, params, seed=0, device=dev)
+    flog = _GreedyLog()
+    for m in gen.rollout._samplers:
+        gen.rollout._samplers[m] = flog
+    forced = _tp_generate(gen, cond, forced_streams={
+        m: np.asarray(v)[:, TP_WINDOW:TP_WINDOW + 1] for m, v in mine.items()})
+    del gen, model, params
+    for m, v in mine.items():
+        if not np.array_equal(np.asarray(forced[m])[:, :TP_WINDOW + 1],
+                              np.asarray(v)[:, :TP_WINDOW + 1]):
+            raise AssertionError(f"(tp1) the teacher-forced run's first "
+                                 f"frame is not rank 0's ({m})")
+    if len(flog.top2) < FRAME_DECISIONS:
+        raise AssertionError(f"(tp1) the teacher-forced run's cached frame "
+                             f"made {len(flog.top2)} decisions")
+    div_free = div[2]
+    div[2] = _tp_divergences(mine, forced, flog.top2[-FRAME_DECISIONS:],
+                             TP_WINDOW + 1, 1)[1]
+    res["divergences"] = {**div, "2_free_running": div_free}
+    for f in (1, 2):
+        w = div[f]["worst_run_start"]
+        if w is not None and w[2] > TP_GAP_ULPS:
+            raise AssertionError(f"(tp1) frame {f}: a run of tokens that "
+                                 f"differs from the one-process run starts "
+                                 f"at a gap of {w[2]:.1f} bf16 ulps: {div}")
+    res["ranks"] = [{k: v for k, v in r.items()
+                     if k not in ("tokens", "bf16", "tiny")} for r in ranks]
+    print(f"(tp1) tp = 2, two ranks sharing the card over gloo, UMGen_Large "
+          f"width (8 heads a rank), {TP_LAYERS} layers a stack, a "
+          f"{TP_WINDOW}-frame window, B = 1: per-frame seconds rank 0 "
+          f"{', '.join(f'{s:.2f}' for s in ranks[0]['frame_seconds'])}, "
+          f"rank 1 {', '.join(f'{s:.2f}' for s in ranks[1]['frame_seconds'])}"
+          f" (one process: "
+          f"{', '.join(f'{s:.2f}' for s in res['one_process']['frame_seconds'])}"
+          f"); launches in each rank "
+          f"{[{k: v for k, v in r['launches'].items() if v} for r in ranks]}"
+          f"; the ranks' tokens equal; against one process (frame 2 against "
+          f"its run teacher-forced to rank 0's frame 1): {div}; frame 2 "
+          f"against the free-running one: {div_free}; "
+          f"{res['wall_s']:.1f} s with the ranks' start")
+
+    # (tp2) the steps
+    for name in ("bf16", "tiny"):
+        a, b = (r[name] for r in ranks)
+        for k in a[1]:
+            if not torch.equal(a[1][k], b[1][k]):
+                raise AssertionError(f"(tp2) {name}: the ranks' replicated "
+                                     f"leaf {k} differs")
+        rel, worst, zeros, roundoff = _step_errors(steps[name], a[0])
+        loss_tol, grad_tol = ((TP_BF16_LOSS_RTOL, TP_BF16_GRAD_RTOL)
+                              if name == "bf16" else
+                              (TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL))
+        res[f"train_{name}"] = {
+            "metrics_rel_err": rel, "grad_rel_l2_max": worst,
+            "zero_leaves": zeros, "roundoff_leaves": roundoff,
+            "rank_step_s": [r[name][2] for r in ranks],
+            "replicated_leaves": len(a[1])}
+        print(f"(tp2) {name} AdamW step at tp = 2 against one process: loss "
+              f"terms rel err {rel:.3g} (bound {loss_tol:g}), gradients rel "
+              f"L2 {worst:.3g} (bound {grad_tol:g}; {zeros} zero and "
+              f"{roundoff} roundoff leaves); {len(a[1])} replicated leaves "
+              f"equal across the ranks; rank steps "
+              f"{[round(r[name][2], 3) for r in ranks]} s")
+        if rel > loss_tol or worst > grad_tol:
+            raise AssertionError(f"(tp2) {name}: the tp step disagrees with "
+                                 f"the one-process step: {res[f'train_{name}']}")
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"(tp) {res['seconds']:.1f} s")
+    return res
+
+
 def _load_tokens(out_dir):
     import pickle
     tok_dir = os.path.join(out_dir, "saved_token")
@@ -3336,7 +3661,7 @@ def main(argv=None) -> int:
                     "tar_options options_reference_spec_serving "
                     "options_reference_spec_i4 options_reference_w4_int2 "
                     "options_reference_relative_cached "
-                    "options_reference_relative_recompute vq train dp; "
+                    "options_reference_relative_recompute vq train dp tp; "
                     "refresh "
                     "needs recompute; vq and train run their card-vs-CPU "
                     "checks too), "
@@ -3516,6 +3841,9 @@ def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
     serving("serving_i4", tag="g", oar_int4=True)
     if want("dp"):            # (z2, z3) while the CPU sides finish
         report["dp"].update(phase_dp_tail(dev, work_dir))
+        torch.cuda.empty_cache()
+    if want("tp"):            # (tp) too
+        report["tp"] = phase_tp(dev, work_dir)
         torch.cuda.empty_cache()
     t_wait = time.perf_counter()
     for key in list(pending):

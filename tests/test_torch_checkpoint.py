@@ -34,7 +34,7 @@ from umgen_tpu_torch.data.pipeline import ScenePipeline
 from umgen_tpu_torch.layout import SequenceLayout
 from umgen_tpu_torch.models import rollout as trollout
 from umgen_tpu_torch.models.generate import Generator
-from umgen_tpu_torch.models.umgen import NotPortedError, UMGen
+from umgen_tpu_torch.models.umgen import UMGen
 from umgen_tpu_torch.params import from_jax
 from umgen_tpu_torch.runtime import torch_import as tti
 from umgen_tpu_torch.runtime.quantize import quantize_params_int8
@@ -206,18 +206,26 @@ def test_extract_state_dict_unwraps_both_containers():
 
 
 def test_n_step_head_is_refused():
-    """A state dict with the widened n-step bbox TAR head is refused by
-    name, never imported without it."""
+    """The widened n-step bbox TAR head: a state dict with it imports under
+    n_step = 2 into head_tar_n_step_bbox3d [d, 2·V], leaf for leaf as the
+    JAX package's importer; one without it is refused by the head's name,
+    as is a config that does not ask for it (the reference's own load
+    fails the same way, on the missing or unexpected weight)."""
     cfg = _cfg()
     sd = reference_state_dict(cfg)
     del sd[f"{TR}.head_tar_bbox3d.weight"]
-    sd[f"{TR}.head_tar_n_step_bbox3d.weight"] = torch.zeros(
-        2 * cfg.bbox3d_vocab_size, cfg.n_embd)
-    with pytest.raises(NotPortedError,
-                       match="Tensor parallel and the remaining"):
-        tti.import_umgen(sd, cfg)
-    with pytest.raises(NotPortedError, match="head_tar_n_step_bbox3d"):
+    sd[f"{TR}.head_tar_n_step_bbox3d.weight"] = 0.02 * torch.randn(
+        2 * cfg.bbox3d_vocab_size, cfg.n_embd,
+        generator=torch.Generator().manual_seed(1))
+    port = tti.import_umgen(sd, cfg.replace(n_step=2))
+    assert "head_tar_bbox3d" not in port
+    assert tuple(port["head_tar_n_step_bbox3d"]["w"].shape) == \
+        (cfg.n_embd, 2 * cfg.bbox3d_vocab_size)
+    assert_same_tree(port, from_jax(jti.import_umgen(sd, _jcfg(n_step=2))))
+    with pytest.raises(KeyError, match="head_tar_n_step_bbox3d"):
         tti.import_umgen(reference_state_dict(cfg), cfg.replace(n_step=2))
+    with pytest.raises(KeyError, match="head_tar_bbox3d"):
+        tti.import_umgen(sd, cfg)
 
 
 def test_imported_leaves_match_the_initializers_tree():

@@ -43,7 +43,7 @@ from umgen_tpu.models.generate import Generator as JGenerator
 from umgen_tpu.models.umgen import UMGen as JUMGen
 from umgen_tpu_torch.config import ModelConfig
 from umgen_tpu_torch.models.generate import Generator, rank_seed
-from umgen_tpu_torch.models.umgen import NotPortedError, UMGen
+from umgen_tpu_torch.models.umgen import UMGen
 from umgen_tpu_torch.parallel import mesh as mesh_lib
 from umgen_tpu_torch.tools import evaluate
 
@@ -59,7 +59,6 @@ KW = dict(dtype="float32", param_dtype="float32", sample_method="greedy",
 CASES = {"b2": dict(B=2, forced=()),
          "b3_map": dict(B=3, forced=("map",)),
          "spec": dict(B=2, forced=("map", "image"), speculative_k=4)}
-TP_ITEM = "Tensor parallel and the remaining configuration"
 
 
 @pytest.fixture(scope="module")
@@ -250,7 +249,8 @@ def test_cli_refuses_what_jax_refuses_under_dp(flags, err, match):
 def test_more_ranks_than_devices_are_refused(monkeypatch):
     """`--dp 2` wants two cards (none here; one where the card is
     monkeypatched in), JAX's make_mesh message; an explicit device list
-    too; tp > 1 names the last slice's ROADMAP item."""
+    too, dp·tp ranks under tp; a mesh above one rank wants the process
+    group up."""
     with pytest.raises(ValueError, match="need 2 devices, have 0"):
         evaluate.main(["--debug", "--dp", "2", "--batch_size", "2"])
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
@@ -258,18 +258,70 @@ def test_more_ranks_than_devices_are_refused(monkeypatch):
         evaluate.main(["--debug", "--dp", "2", "--batch_size", "2"])
     with pytest.raises(ValueError, match="need 3 devices, have 2"):
         mesh_lib.launch(print, 3, ["cpu", "cpu"])
-    with pytest.raises(NotPortedError, match=TP_ITEM):
+    with pytest.raises(ValueError, match="need 4 devices, have 2"):
+        mesh_lib.launch(print, 2, ["cpu", "cpu"], tp=2)
+    with pytest.raises(RuntimeError, match="tp=2 needs the process group"):
         mesh_lib.make_mesh(1, tp=2, devices=["cpu"])
 
 
 def test_generator_refuses_recompute_and_tp_under_a_mesh():
+    """spmd="shard_map" refuses tp and recompute as JAX's does
+    (umgen_tpu/models/generate.py:57-66), and a mesh-less shard_map;
+    spmd="gspmd", JAX's default, takes both (tests/test_torch_tp.py runs
+    it)."""
     cfg = ModelConfig(**dict(KW, tar_mode="recompute")).scaled("tiny")
     one = mesh_lib.make_mesh(1, devices=["cpu"])
+    tp2 = dataclasses.replace(one, tp=2)
     with pytest.raises(ValueError, match="requires tar_mode='temporal_cache'"):
-        Generator(UMGen(cfg), {}, device="cpu", mesh=one)
+        Generator(UMGen(cfg), {}, device="cpu", mesh=one, spmd="shard_map")
+    cached = UMGen(dataclasses.replace(cfg, tar_mode="temporal_cache"))
     with pytest.raises(ValueError, match="use tp=1"):
-        Generator(UMGen(dataclasses.replace(cfg, tar_mode="temporal_cache")),
-                  {}, device="cpu", mesh=dataclasses.replace(one, tp=2))
+        Generator(cached, {}, device="cpu", mesh=tp2, spmd="shard_map")
+    with pytest.raises(ValueError, match="requires a mesh"):
+        Generator(cached, {}, device="cpu", spmd="shard_map")
+    with pytest.raises(ValueError, match="gspmd|shard_map"):
+        Generator(cached, {}, device="cpu", mesh=one, spmd="pmap")
+    for model in (UMGen(cfg), cached):
+        gen = Generator(model, {}, device="cpu", mesh=tp2)
+        assert gen.spmd == "gspmd" and gen.model.tp is tp2
+        assert gen.model.heads == cfg.n_head // 2
+
+
+# teacher-forced in the sampled rollouts over dp: the pose and the image
+# segment are sampled (513 decisions a frame, each gathered over the mesh)
+FORCED = ("map", "bbox3d")
+
+
+def test_gspmd_rollout_samples_the_unsharded_noise(pool):
+    """spmd="gspmd" over dp = 2, top-k sampling (FORCED teacher-forced),
+    B = 4, the prefill frame: every rank samples the whole batch's gathered
+    logits with the run's seed and keeps its rows, so its tokens are the
+    one-process run's with the same seed, bit for bit
+    (tests/test_torch_tp.py holds dp = 2 × tp = 2).  Speculative sampling,
+    which draws its own noise, is refused there by name."""
+    from umgen_tpu_torch.params import from_jax
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    kw = dict(KW, sample_method="topk")
+    jmodel = JUMGen(JModelConfig(**kw).scaled("tiny"))
+    params = jax.tree.map(np.asarray,
+                          jmodel.init_params(jax.random.PRNGKey(0)))
+    scenes = make_token_batch(jmodel.layout, T=W + 1, B=4, seed=6,
+                              config=jmodel.config)
+    cond = {m: v[:, :W].astype(np.int64) for m, v in scenes.items()}
+    forced = {m: scenes[m][:, W:].astype(np.int64) for m in FORCED}
+    pool.submit("gspmd_sampled", cfg_kw=kw, params=params, cond=cond,
+                window=W, new_frames=1, forced=forced)
+    ref = Generator(UMGen(ModelConfig(**kw).scaled("tiny")),
+                    from_jax(params), seed=0, device="cpu").generate(
+        cond, new_frames=1, cond_frames=W, input_cond_frames=W,
+        forced_streams=forced)
+    res = pool.collect()
+    torch.set_num_threads(n)
+    for r in res:
+        assert "sample_method='greedy'" in r["refused"], r["refused"]
+        for m in ref:
+            np.testing.assert_array_equal(r["tokens"][m], ref[m], err_msg=m)
 
 
 # ---------------------------------------------------------------------------

@@ -187,11 +187,16 @@ _TRAIN_CHILD = """
 import sys
 from umgen_tpu_torch.tools import train, train_vq
 out = sys.argv[1]
-if sys.argv[2] == "train":
+if sys.argv[2] == "train_tp":     # each rank checks its own sys.modules
+    sys.path.insert(0, %r)
+    import torch_dp_worker
+    train.train_rank = torch_dp_worker.train_rank_alone
+if sys.argv[2] in ("train", "train_tp"):
     rc = train.main(["--device", "cpu", "--model_scale", "tiny", "--steps",
                      "1", "--synthetic_data", "1", "--batch_size", "1",
                      "--window", "3", "--ckpt_dir", out, "--data_root",
-                     out + "/absent"])
+                     out + "/absent"]
+                    + (["--tp", "2"] if sys.argv[2] == "train_tp" else []))
 else:
     rc = train_vq.main(["--device", "cpu", "--res", "32", "--ch", "32",
                         "--steps", "1", "--batch_size", "2", "--ckpt_dir",
@@ -200,15 +205,15 @@ foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in %r)
 assert rc == 0 and not foreign, (rc, foreign[:5])
 print("PORT_STANDS_ALONE_OK")
-""" % (FOREIGN,)
+""" % (os.path.dirname(os.path.abspath(__file__)), FOREIGN)
 
 
-@pytest.mark.parametrize("tool", ["train", "train_vq"])
+@pytest.mark.parametrize("tool", ["train", "train_vq", "train_tp"])
 def test_training_clis_stand_alone(tmp_path, tool):
-    """`tools.train` (one step at the tiny scale) and `tools.train_vq` (one
-    step at --res 32 --ch 32) on the CPU, in a fresh interpreter: neither
-    imports jax, optax, orbax or the JAX package; each saves its final
-    state."""
+    """`tools.train` (one step at the tiny scale; and at `--tp 2`, whose two
+    ranks each check their own sys.modules) and `tools.train_vq` (one step
+    at --res 32 --ch 32) on the CPU, in a fresh interpreter: none imports
+    jax, optax, orbax or the JAX package; each saves its final state."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "2"
     res = subprocess.run([sys.executable, "-c", _TRAIN_CHILD, str(tmp_path),
@@ -216,8 +221,11 @@ def test_training_clis_stand_alone(tmp_path, tool):
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "PORT_STANDS_ALONE_OK" in res.stdout
-    assert os.path.exists(tmp_path / ("final" if tool == "train"
-                                      else "map_final"))
+    if tool == "train_tp":
+        for r in range(2):
+            assert f"RANK_{r}_STANDS_ALONE_OK" in res.stdout
+    assert os.path.exists(tmp_path / ("map_final" if tool == "train_vq"
+                                      else "final"))
 
 
 def _jax_parser(main):
@@ -278,7 +286,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     `orbax`."""
     paths = list(_port_sources())
     assert len(paths) > 20
-    for new in ("parallel/mesh.py", "runtime/profiler.py"):
+    for new in ("parallel/mesh.py", "runtime/profiler.py", "registry.py",
+                "data/loading.py", "data/token_transform.py"):
         assert os.path.join(ROOT, "umgen_tpu_torch", new) in paths
     bad = []
     for path in paths:
@@ -301,7 +310,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                                   "InferConfig", "DataConfig", "constants",
                                   "layout", "synthetic", "pipeline",
                                   "control_keys", "metrics", "visualize",
-                                  "vq_configs"])
+                                  "vq_configs", "registry", "loading",
+                                  "token_transform"])
 def test_copied_modules_equal_the_jax_packages(what):
     """Drift guard for the port's copies of config.py, layout.py, data/,
     tools/load_control_tokens.py, ops/metrics.py and tools/visualize.py,
@@ -309,7 +319,8 @@ def test_copied_modules_equal_the_jax_packages(what):
     synthetic scenes, pipeline constants, control keys and their aliases,
     MMD attribute views, bandwidth and kernel defaults, the visualizer's
     constants and a rendered frame, VQConfig, MAP_VQ and IMAGE_VQ as the JAX
-    package's."""
+    package's; registry.py, data/loading.py and data/token_transform.py
+    the JAX package's source but for the imports of the port's modules."""
     from umgen_tpu import config as jc
     from umgen_tpu import layout as jl
     from umgen_tpu.data import pipeline as jp
@@ -399,6 +410,12 @@ def test_copied_modules_equal_the_jax_packages(what):
         np.testing.assert_array_equal(
             tvz.render_frame(boxes, cats, valid, maps, collision_ids=[1]),
             jvz.render_frame(boxes, cats, valid, maps, collision_ids=[1]))
+    elif what in ("registry", "loading", "token_transform"):
+        rel = {"registry": "registry.py"}.get(what, f"data/{what}.py")
+        with open(os.path.join(ROOT, "umgen_tpu", rel)) as f:
+            want = f.read().replace("from umgen_tpu.", "from umgen_tpu_torch.")
+        with open(os.path.join(ROOT, "umgen_tpu_torch", rel)) as f:
+            assert f.read() == want, rel
     elif what == "vq_configs":
         from umgen_tpu.models import vq as jvq
         from umgen_tpu_torch.models import vq as tvq

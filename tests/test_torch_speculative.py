@@ -261,8 +261,8 @@ def test_drafts_of_the_sequential_tokens(every, jparams, monkeypatch):
     caches = []
     real_init = Rollout.init_kv
 
-    def kept(ro, B, device=None):
-        kv = real_init(ro, B, device)
+    def kept(ro, B, device=None, n_head=None):
+        kv = real_init(ro, B, device, n_head)
         caches.append(kv)
         return kv
 

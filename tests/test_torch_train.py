@@ -51,7 +51,7 @@ from umgen_tpu.models.umgen import UMGen as JUMGen
 from umgen_tpu.parallel import train as jtrain
 from umgen_tpu_torch.config import ModelConfig
 from umgen_tpu_torch.layout import SequenceLayout
-from umgen_tpu_torch.models.umgen import NotPortedError, UMGen
+from umgen_tpu_torch.models.umgen import UMGen
 from umgen_tpu_torch.ops import decode_kernel as tdk
 from umgen_tpu_torch.ops import flash_attention as tfa
 from umgen_tpu_torch.parallel import optim
@@ -370,15 +370,29 @@ def test_param_dtype_is_read_by_nothing():
 
 
 def test_a_mesh_is_not_ported(setup):
-    """A data-parallel mesh is served (tests/test_torch_dp_train.py); a
-    tensor-parallel one is not, and names the ROADMAP item that adds it."""
+    """A data-parallel mesh keeps the trainer's model and norm
+    (tests/test_torch_dp_train.py); a tensor-parallel one, given to the
+    trainer, puts the model on the mesh (its stacks on half the heads) and
+    measures the clip's norm over the whole tree
+    (tests/test_torch_tp_train.py runs both), and the step defaults to it;
+    a step on a tp mesh the trainer was not built on, and a tp that does
+    not divide the heads, are refused by name."""
+    from umgen_tpu_torch.parallel import optim
     from umgen_tpu_torch.parallel.mesh import make_mesh
-    tp = dataclasses.replace(make_mesh(1, devices=["cpu"]), tp=2)
-    with pytest.raises(NotPortedError,
-                       match="Tensor parallel and the remaining"):
-        setup["tt"].jit_train_step(mesh=tp)
-    step = setup["tt"].jit_train_step(make_mesh(1, devices=["cpu"]))
+    one = make_mesh(1, devices=["cpu"])
+    step = setup["tt"].jit_train_step(one)
     assert step.keywords["mesh"].dp == 1
+    assert setup["tt"].norm is optim.global_norm
+    _, tcfg = _cfgs(dtype="float32")
+    tp = dataclasses.replace(one, tp=2)
+    trainer = ttrain.UMGenTrainer(UMGen(tcfg), mesh=tp)
+    assert trainer.jit_train_step().keywords["mesh"] is tp
+    assert trainer.model.tp is tp and trainer.model.heads == tcfg.n_head // 2
+    assert trainer.norm == tp.global_norm
+    with pytest.raises(ValueError, match="UMGenTrainer.model, mesh=mesh."):
+        ttrain.UMGenTrainer(UMGen(tcfg)).jit_train_step(tp)
+    with pytest.raises(ValueError, match="tp=3 does not divide n_head"):
+        ttrain.UMGenTrainer(UMGen(tcfg), mesh=dataclasses.replace(one, tp=3))
 
 
 # ---------------------------------------------------------------------------

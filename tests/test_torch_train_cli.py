@@ -26,7 +26,6 @@ from umgen_tpu.tools import train as jtrain_cli
 from umgen_tpu_torch.config import DataConfig
 from umgen_tpu_torch.data.dataset import NuPlanTokenDataset
 from umgen_tpu_torch.data.synthetic import write_synthetic_dataset
-from umgen_tpu_torch.models.umgen import NotPortedError
 from umgen_tpu_torch.parallel import optim
 from umgen_tpu_torch.runtime import checkpoint as ckpt
 from umgen_tpu_torch.tools import train as train_cli
@@ -180,13 +179,15 @@ def test_checkpoint_round_trip_restores_each_leaf(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--dp", "--tp"])
 def test_a_training_mesh_is_not_ported(tmp_path, flag):
-    """`--tp 2` names the ROADMAP item that adds tensor parallelism; `--dp`
-    is served (tests/test_torch_dp_train.py), and refuses a batch it does
-    not divide, as the JAX CLI's does; neither writes anything."""
+    """Both meshes are served (tests/test_torch_dp_train.py,
+    tests/test_torch_tp_train.py); `--dp` refuses a batch it does not
+    divide, as the JAX CLI's does, and `--tp` a tp that does not divide the
+    heads (JAX's sharding would not divide them either), before any rank
+    starts; neither writes anything."""
     if flag == "--tp":
-        with pytest.raises(NotPortedError,
-                           match="Tensor parallel and the remaining"):
-            train_cli.main([*SMALL, "--device", "cpu", flag, "2",
+        with pytest.raises(SystemExit, match="--tp 3 must divide the 4 "
+                                             "heads"):
+            train_cli.main([*SMALL, "--device", "cpu", flag, "3",
                             "--ckpt_dir", str(tmp_path)])
     else:
         with pytest.raises(SystemExit, match="must be a multiple of --dp"):

@@ -1,13 +1,16 @@
-"""Rank processes for the port's data-parallel tests (tests/test_torch_dp.py,
-tests/test_torch_dp_train.py, tests/test_torch_dp_cli.py).
+"""Rank processes for the port's data- and tensor-parallel tests
+(tests/test_torch_dp.py, tests/test_torch_dp_train.py,
+tests/test_torch_dp_cli.py, tests/test_torch_tp.py,
+tests/test_torch_tp_train.py).
 
-`Pool(world)` starts `world` processes with `torch.multiprocessing`
+`Pool(world, tp)` starts `world` processes with `torch.multiprocessing`
 (spawn), each one rank of a gloo process group on a free localhost port
-with its parallel.mesh.Mesh on the CPU, and runs tasks — the functions of
-this module, by name — in every rank at once; each returns what its rank
-returns, or raises with a rank's traceback.  A file keeps one pool for
-all its cases.  This module imports neither JAX nor the JAX package: the
-ranks run the port alone, as a user's `--dp` ranks do.
+with its parallel.mesh.Mesh on the CPU (dp = world / tp), and runs tasks —
+the functions of this module, by name — in every rank at once; each
+returns what its rank returns, or raises with a rank's traceback.  A file
+keeps one pool for all its cases.  This module imports neither JAX nor the
+JAX package: the ranks run the port alone, as a user's `--dp` / `--tp`
+ranks do.
 
 The rollout tasks replay the JAX package's greedy decisions (as tests/
 test_torch_slice.py's `_Replay` does) on the rank's rows and hold the
@@ -32,7 +35,7 @@ TIMEOUT_S = 600
 
 
 class Pool:
-    def __init__(self, world: int = 2):
+    def __init__(self, world: int = 2, tp: int = 1):
         from umgen_tpu_torch.parallel.mesh import free_port
         ctx = torch.multiprocessing.get_context("spawn")
         self.world = world
@@ -40,7 +43,7 @@ class Pool:
         self.results = ctx.Queue()
         port = free_port()
         self.procs = [ctx.Process(target=_serve, daemon=True, args=(
-            r, world, port, self.tasks[r], self.results))
+            r, world, tp, port, self.tasks[r], self.results))
             for r in range(world)]
         for p in self.procs:
             p.start()
@@ -73,13 +76,13 @@ class Pool:
                 p.terminate()
 
 
-def _serve(rank, world, port, tasks, results):
+def _serve(rank, world, tp, port, tasks, results):
     torch.set_num_threads(THREADS)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=TIMEOUT_S))
     from umgen_tpu_torch.parallel.mesh import make_mesh
-    mesh = make_mesh(world, devices=["cpu"] * world)
+    mesh = make_mesh(world // tp, tp, devices=["cpu"] * world)
     try:
         while True:
             item = tasks.get()
@@ -202,7 +205,8 @@ def rollout(mesh, cfg_kw, params, scenes, window, new_frames,
                       for a in c) for c in calls]
     infer = InferConfig(num_new_frames=new_frames, cond_frames=window,
                         input_cond_frames=window)
-    gen = Generator(model, tparams, seed=0, device="cpu", mesh=mesh)
+    gen = Generator(model, tparams, seed=0, device="cpu", mesh=mesh,
+                    spmd="shard_map")
     rep = _Replay(gen.rollout, mine) if mine is not None else None
     res = {"spec": (gen.spec_chunks, gen.spec_accepted)}
     with tempfile.TemporaryDirectory() as d:
@@ -250,16 +254,191 @@ def generate(mesh, cfg_kw, params, cond, window, new_frames):
     from umgen_tpu_torch.models.generate import Generator
     from umgen_tpu_torch.params import from_jax
     gen = Generator(_model(cfg_kw), from_jax(params), seed=0, device="cpu",
-                    mesh=mesh)
+                    mesh=mesh, spmd="shard_map")
     out = gen.generate(cond, new_frames=new_frames, cond_frames=window,
                        input_cond_frames=window)
     return out if mesh.rank == 0 else None
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism (spmd="gspmd")
+# ---------------------------------------------------------------------------
+def _decisions(calls, seen):
+    """Each replayed decision's port logit for JAX's token, the port's
+    maximum and argmax (rows of the rank), concatenated over decisions."""
+    ptok, pmax, parg = [], [], []
+    for (tok, _), port in zip(calls, seen):
+        port = port.numpy()
+        ptok.append(np.take_along_axis(port, tok[..., None], -1)[..., 0]
+                    .reshape(-1))
+        pmax.append(port.max(-1).reshape(-1))
+        parg.append(port.argmax(-1).reshape(-1))
+    return {k: np.concatenate(v) for k, v in
+            (("ptok", ptok), ("pmax", pmax), ("parg", parg))}
+
+
+def _mine(mesh, calls):
+    """The rows of every recorded decision this rank's dp index holds."""
+    return [tuple(mesh.shard(a) for a in c) for c in calls]
+
+
+def tp_frame(mesh, cfg_kw, params, inputs, calls):
+    """One recompute frame (`Rollout.frame_step`) on the mesh from the
+    rank's blocks of `params`, JAX's decisions `calls` replayed on the
+    rank's rows; returns the decisions' readings and the tokens."""
+    from umgen_tpu_torch.models.rollout import Rollout
+    from umgen_tpu_torch.params import from_jax
+    ro = Rollout(_model(cfg_kw).on_mesh(mesh))
+    mine = _mine(mesh, calls)
+    rep = _Replay(ro, mine)
+    out = ro.frame_step(mesh.shard_params(from_jax(params)),
+                        {m: torch.as_tensor(mesh.shard(v))
+                         for m, v in inputs.items()}, None)
+    assert rep.i == len(mine), (rep.i, len(mine))
+    return {"tokens": out.tokens.numpy(), **_decisions(mine, rep.seen)}
+
+
+def tp_rollout(mesh, cfg_kw, params, cond, window, new_frames, calls=None,
+               oar_packed=False):
+    """`Generator.generate` in spmd="gspmd" on the mesh from the rank's
+    blocks of `params` (with `oar_packed`, int8 decode packs whose OAR
+    stack stays whole), JAX's decisions replayed where given; every rank
+    returns the whole batch's tokens and the OAR heads it ran."""
+    from umgen_tpu_torch.models.generate import Generator
+    from umgen_tpu_torch.params import from_jax
+    tparams = from_jax(params)
+    if oar_packed:
+        from umgen_tpu_torch.runtime.quantize import (pack_fused,
+                                                      quantize_params_int8)
+        tparams = pack_fused(quantize_params_int8(tparams))
+    gen = Generator(_model(cfg_kw), mesh.shard_params(tparams), seed=0,
+                    device="cpu", mesh=mesh)
+    res = {}
+    if calls is not None:
+        mine = _mine(mesh, calls)
+        rep = _Replay(gen.rollout, mine)
+    out = gen.generate(cond, new_frames=new_frames, cond_frames=window,
+                       input_cond_frames=window)
+    if calls is not None:
+        assert rep.i == len(mine), (rep.i, len(mine))
+        res.update(_decisions(mine, rep.seen))
+    res["tokens"] = out
+    res["oar_heads"] = gen.rollout.oar_heads(gen.params)
+    return res
+
+
+def gspmd_sampled(mesh, cfg_kw, params, cond, window, new_frames, forced):
+    """`Generator.generate` in spmd="gspmd" with the config's sampler over
+    the (dp, tp) mesh from the rank's blocks of `params`, the `forced`
+    streams teacher-forced; returns the whole batch's tokens and the
+    refusal of speculative sampling over dp."""
+    import dataclasses
+    from umgen_tpu_torch.models.generate import Generator
+    from umgen_tpu_torch.params import from_jax
+    model = _model(cfg_kw)
+    gen = Generator(model, mesh.shard_params(from_jax(params)), seed=0,
+                    device="cpu", mesh=mesh)
+    out = gen.generate(cond, new_frames=new_frames, cond_frames=window,
+                       input_cond_frames=window, forced_streams=forced)
+    try:
+        Generator(type(model)(dataclasses.replace(
+            model.config, speculative_k=4)), gen.params, device="cpu",
+            mesh=mesh)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    return {"tokens": out, "refused": refused}
+
+
+def tp_v1(mesh, cfg_kw, params, pushes):
+    """The v1 case under tp (`fused_oar_kernel`, int8 OAR weights without
+    packs, a bfloat16 OAR cache): a Rollout on the rank's split OAR refuses
+    a Q = 1 push by name; the gspmd Generator gathers the OAR whole and
+    sends each Q = 1 push of `pushes` [n, B, 1, D] to v1 (the plain
+    version here, its calls counted); returns its heads, the calls and the
+    pushes' outputs beside the one-process Rollout's on the whole
+    params."""
+    from umgen_tpu_torch.models.generate import Generator
+    from umgen_tpu_torch.models.rollout import Rollout
+    from umgen_tpu_torch.ops import decode_kernel as dk
+    from umgen_tpu_torch.params import from_jax
+    from umgen_tpu_torch.runtime.quantize import quantize_params_int8
+    whole = quantize_params_int8(from_jax(params))
+    split = mesh.shard_params(whole)
+    model = _model(cfg_kw)
+    ro = Rollout(model.on_mesh(mesh))
+    B = pushes.shape[1]
+    refused = None
+    try:
+        ro.oar_step(split, torch.as_tensor(pushes[0]),
+                    *ro.init_kv(B, n_head=ro.oar_heads(split)), 0)
+    except ValueError as e:
+        refused = str(e)
+    gen = Generator(model, split, seed=0, device="cpu", mesh=mesh)
+    calls = []
+    v1 = dk.fused_decode_step
+
+    def counted(*a, **kw):
+        calls.append(kw.get("n_head"))
+        return v1(*a, **kw)
+
+    dk.fused_decode_step = counted
+    try:
+        outs = {}
+        for name, r, p in (("tp", gen.rollout, gen.params),
+                           ("one", Rollout(model), whole)):
+            kv = r.init_kv(B, n_head=r.oar_heads(p))
+            outs[name] = [r.oar_step(p, torch.as_tensor(x), *kv, i)[0]
+                          .float().numpy() for i, x in enumerate(pushes)]
+    finally:
+        dk.fused_decode_step = v1
+    return {"refused": refused, "split_heads": ro.oar_heads(split),
+            "oar_heads": gen.rollout.oar_heads(gen.params), "calls": calls,
+            **outs}
+
+
+def _shapes(tree):
+    from umgen_tpu_torch.parallel.mesh import tree_paths
+    return {p: tuple(t.shape) for p, t in tree_paths(tree)}
+
+
+def tp_train_step(mesh, cfg_kw, trainer_kw, params, batch):
+    """One step of UMGenTrainer over the (dp, tp) mesh on the global
+    `batch` from the rank's blocks of the state: the whole params and
+    moments after it (gathered over tp), the metrics, and the rank's own
+    replicated leaves."""
+    from umgen_tpu_torch.params import from_jax
+    from umgen_tpu_torch.parallel.mesh import split_rule, tree_paths
+    from umgen_tpu_torch.parallel.train import (UMGenTrainer, shard_state,
+                                                whole_state)
+    tt = UMGenTrainer(_model(cfg_kw), mesh=mesh, **trainer_kw)
+    tb = {k: torch.as_tensor(v, dtype=torch.long) for k, v in batch.items()}
+    state = shard_state(mesh, tt.init_state(from_jax(params)))
+    shapes = _shapes(state.params)
+    state, m = tt.jit_train_step(mesh)(state, tb)
+    local = {p: t.detach().numpy().copy()
+             for p, t in tree_paths({"params": state.params,
+                                     "opt": state.opt_state})
+             if split_rule(p) is None}
+    res = _train_result(whole_state(mesh, state), m)
+    res.update(local=local, shapes=shapes)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the CLI's ranks
 # ---------------------------------------------------------------------------
 FOREIGN = ("jax", "jaxlib", "umgen_tpu", "optax", "orbax")
+
+
+def train_rank_alone(mesh, args):
+    """tools/train.py's rank — the rank `--dp` / `--tp` starts — then this
+    rank's sys.modules must hold neither JAX nor the JAX package."""
+    from umgen_tpu_torch.tools import train
+    train.train(args, mesh)
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
+    assert not foreign, (mesh.rank, foreign[:5])
+    print(f"RANK_{mesh.rank}_STANDS_ALONE_OK", flush=True)
 
 
 def cli_rank(mesh, args):
@@ -304,13 +483,20 @@ def train_step(mesh, cfg_kw, trainer_kw, params, batch):
 
 def train_cli(mesh, argv):
     """tools/train.py's rank (`train(args, mesh)`) on `argv`: the final
-    params and Adam moments."""
+    params and Adam moments (the rank's blocks; under tp also the whole
+    params and first moments)."""
     from umgen_tpu_torch.tools import train as train_cli_mod
     state = train_cli_mod.train(train_cli_mod.build_parser().parse_args(
         argv), mesh)
-    return {"params": _numpy_tree(state.params),
-            "opt": _numpy_tree(state.opt_state[1][0]),
-            "step": int(state.step)}
+    res = {"params": _numpy_tree(state.params),
+           "opt": _numpy_tree(state.opt_state[1][0]),
+           "step": int(state.step)}
+    if mesh.tp > 1:             # the whole state, gathered over tp
+        from umgen_tpu_torch.parallel.train import whole_state
+        whole = whole_state(mesh, state)
+        res.update(whole=_numpy_tree(whole.params),
+                   whole_mu=_numpy_tree(whole.opt_state[1][0]["mu"]))
+    return res
 
 
 def vq_step(mesh, argv, init, x, kmeans_idx):

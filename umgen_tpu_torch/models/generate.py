@@ -22,15 +22,30 @@ apart from the output stream (`out`).  `forced_streams` (`--init_token_mod`)
 teacher-forces the listed modalities of each generated frame to the given
 tokens; a forced pose rides trajectory control.
 
-Data parallelism over scenes (`mesh`, a parallel.mesh.Mesh; the JAX
-package's `spmd="shard_map"` program, umgen_tpu/models/generate.py:104-190):
-every rank holds the whole params and rolls its contiguous shard of the
-scenes — its own rings and OAR cache, the control and forced streams split
-like the tokens — with a sampler generator seeded from `seed` and its rank
-(JAX's `fold_in(rng, axis_index("dp"))`).  The frame loop's only collective
-is the sum of the speculative telemetry; at the end every rank gathers the
-whole batch's tokens.  It serves temporal-cache mode only, at tp = 1, as
-JAX's program does.
+Multi-process rollouts (`mesh`, a parallel.mesh.Mesh, and `spmd`, the
+JAX Generator's argument, umgen_tpu/models/generate.py:35-190): every
+rank rolls its contiguous shard of the scenes (its dp index's rows) — its
+own rings and OAR cache, the control and forced streams split like the
+tokens — and at the end every rank gathers the whole batch's tokens.
+
+  * spmd="gspmd" (the default, JAX's GSPMD program; the only one that
+    takes tp): the model runs on the mesh (UMGen.on_mesh), split over tp
+    as the rank's params are (parallel.mesh.Mesh.shard_params): the TAR
+    family on the rank's heads, the rings holding them, the OAR split or
+    whole as its params are (models/rollout.py); a split int8 OAR whose
+    pushes go to the v1 kernel (`fused_oar_kernel`, a bfloat16 / float8
+    cache, no packs) is gathered whole here, as the v1 kernel runs every
+    head.  The sampling noise is
+    the unsharded run's: every rank's sampler is seeded with `seed`, and
+    over dp > 1 samples the whole batch's gathered logits and keeps its
+    rows.  Recompute and temporal-cache mode both serve.
+  * spmd="shard_map" (the dp-only serving program): whole params on every
+    rank, a sampler seeded from `seed` and the rank's dp index (JAX's
+    `fold_in(rng, axis_index("dp"))`); temporal-cache mode only, at tp = 1,
+    as JAX's program.
+
+The frame loop's only collectives besides the blocks' are the sum of the
+speculative telemetry over dp and, under gspmd, the gathered logits.
 """
 
 from __future__ import annotations
@@ -58,11 +73,16 @@ def rank_seed(seed: int, rank: int) -> int:
 
 class Generator:
     def __init__(self, model: UMGen, params: Params, seed: int = 0,
-                 device=None, mesh=None):
-        """mesh: a parallel.mesh.Mesh for a data-parallel rollout (scenes
-        split over its ranks; params whole on every rank); the batch must
-        divide its dp."""
-        if mesh is not None:
+                 device=None, mesh=None, spmd: str = "gspmd"):
+        """mesh: a parallel.mesh.Mesh for a multi-process rollout (scenes
+        split over its dp ranks; the batch must divide dp).  spmd: "gspmd"
+        (params the rank's blocks, `mesh.shard_params`) or "shard_map"
+        (params whole; tp = 1, temporal-cache mode)."""
+        if spmd not in ("gspmd", "shard_map"):
+            raise ValueError(f"spmd must be gspmd|shard_map, got {spmd}")
+        if spmd == "shard_map":
+            if mesh is None:
+                raise ValueError("spmd='shard_map' requires a mesh")
             if mesh.shape["tp"] != 1:
                 raise ValueError(
                     "spmd='shard_map' serving is dp-only (the fused kernels "
@@ -70,15 +90,24 @@ class Generator:
             if model.config.tar_mode != "temporal_cache":
                 raise ValueError(
                     "spmd='shard_map' requires tar_mode='temporal_cache'")
+        elif mesh is not None:
+            model = model.on_mesh(mesh)
         self.model = model
-        self.params = params
         self.mesh = mesh
+        self.spmd = spmd
         self.rollout = Rollout(model)
+        if model.config.oar_cache_dtype in ("bfloat16", "float8_e4m3fn") \
+                and self.rollout.runs_v1(params) \
+                and self.rollout.oar_tp(params) is not None:
+            # v1 runs the whole head set on every rank, as GSPMD
+            # replicates JAX's custom call: the OAR stack gathered whole
+            params = {**params, "oar": mesh.unshard_params(params["oar"])}
+        self.params = params
         self.device = torch.device(device) if device is not None else \
             params["axe"].device
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed if mesh is None
-                                   else rank_seed(seed, mesh.rank))
+        self.generator.manual_seed(
+            rank_seed(seed, mesh.dp_rank) if spmd == "shard_map" else seed)
         # host-clock seconds of each generated frame (the frame's tokens
         # are copied to the host, which waits for the device)
         self.frame_seconds: List[float] = []

@@ -11,7 +11,18 @@ w [in, out]; int8 weight-only leaves are {"wq" int8 [in, out], "ws" f32
 [out]}, group-int4 ones {"wq4" int8 [in/2, out] nibble pairs along the
 input dim, "ws4" f32 [in/G, out]}; attention uses a fused qkv [d, 3d] + bias
 and an output proj + bias; MLPs have no bias; layer norms carry a weight
-only (eps 1e-5).
+only (eps 1e-5).  With config.bias the reference flips both: attention
+without biases, MLPs with them (`linear` adds a bias where the leaf has
+one).
+
+Tensor parallelism (`tp`, a parallel.mesh.Mesh with tp > 1, or None): the
+blocks run on this rank's heads and hidden columns, Megatron's split.
+`n_head` is then the rank's heads, and every width is read from the
+weights (a fused qkv holds the rank's q, k and v columns side by side).
+Each row-parallel product (`row_linear`: attention's and the MLP's `proj`)
+sums its partial products over the group in float32 before its bias and
+its rounding, and each column-parallel product's input passes `tp.copy`
+(its gradient summed over the group under autograd).
 
 Numerics follow the reference's: matmuls accumulate in float32 and round to
 the activation dtype once (bias added before the rounding), layer norm and
@@ -67,7 +78,9 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float())
 
 
-def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+def _weight(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """A linear's [in, out] weight, dequantized in the activation dtype
+    where it is quantized."""
     if "wq4" in p:
         # group-int4 weights (runtime/quantize.py quantize_params_w4):
         # one layer's [in, out] weight dequantized in the activation dtype,
@@ -85,10 +98,38 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
         w = p["wq"].to(x.dtype) * p["ws"].to(x.dtype)
     else:
         w = p["w"]
-    y = matmul_f32(x, w)
+    return w
+
+
+def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = matmul_f32(x, _weight(p, x))
     if "b" in p:
         y = y + p["b"].float()
     return y.to(x.dtype)
+
+
+def row_linear(p: Params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """A row-parallel product: x holds this rank's input columns, the
+    float32 partial products are summed over the tp group, then the bias
+    (whole on every rank) is added once and the sum rounded."""
+    if tp is None:
+        return linear(p, x)
+    y = tp.reduce(matmul_f32(x, _weight(p, x)))
+    if "b" in p:
+        y = y + p["b"].float()
+    return y.to(x.dtype)
+
+
+def col_input(x: torch.Tensor, tp=None) -> torch.Tensor:
+    """A column-parallel product's input (tp.copy under tp)."""
+    return x if tp is None else tp.copy(x)
+
+
+def slice_linear_out(p: Params, n: int) -> Params:
+    """The first n output columns of a linear's params (raw, int8 or W4):
+    the n-step bbox head's step-0 vocab, whose product then computes only
+    the slice it keeps."""
+    return {k: v[..., :n] for k, v in p.items()}
 
 
 def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5
@@ -98,6 +139,16 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5
     var = (xf - mean).square().mean(-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * p["w"].float()).to(x.dtype)
+
+
+def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    """Llama-style RMSNorm (the reference defines it; no published config
+    selects it): float32 statistics, the normalized value rounded to x's
+    dtype before the weight."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return y.to(x.dtype) * p["w"].to(x.dtype)
 
 
 # erfc(z) in float32 as XLA evaluates it (rational approximations on
@@ -174,8 +225,9 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return _gelu(x)
 
 
-def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return linear(p["proj"], gelu(linear(p["fc"], x)))
+def mlp(p: Params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    return row_linear(p["proj"], gelu(linear(p["fc"], col_input(x, tp))),
+                      tp)
 
 
 def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -204,25 +256,32 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", w.float(), v.float()).to(q.dtype)
 
 
+def qkv(p: Params, x: torch.Tensor, tp=None):
+    """The fused projection's q, k and v (each this rank's columns)."""
+    y = linear(p, col_input(x, tp))
+    return y.split(y.shape[-1] // 3, dim=-1)
+
+
 def attention(p: Params, x: torch.Tensor, n_head: int, causal: bool,
-              attn_impl: Callable = sdpa) -> torch.Tensor:
+              attn_impl: Callable = sdpa, tp=None) -> torch.Tensor:
     """Fused-QKV self-attention over [B, S, D]."""
-    B, S, D = x.shape
-    q, k, v = linear(p["qkv"], x).split(D, dim=-1)
+    B, S, _ = x.shape
+    q, k, v = qkv(p["qkv"], x, tp)
     y = attn_impl(_split_heads(q, n_head), _split_heads(k, n_head),
                   _split_heads(v, n_head), causal)
-    return linear(p["proj"], y.reshape(B, S, D))
+    return row_linear(p["proj"], y.reshape(B, S, -1), tp)
 
 
 def cross_attention(p: Params, q_in: torch.Tensor, kv_in: torch.Tensor,
-                    n_head: int) -> torch.Tensor:
+                    n_head: int, tp=None) -> torch.Tensor:
     """Non-causal cross attention with separate q/k/v projections."""
-    B, Sq, D = q_in.shape
+    B, Sq, _ = q_in.shape
+    q_in, kv_in = col_input(q_in, tp), col_input(kv_in, tp)
     q = _split_heads(linear(p["q"], q_in), n_head)
     k = _split_heads(linear(p["k"], kv_in), n_head)
     v = _split_heads(linear(p["v"], kv_in), n_head)
     y = sdpa(q, k, v, causal=False)
-    return linear(p["proj"], y.reshape(B, Sq, D))
+    return row_linear(p["proj"], y.reshape(B, Sq, -1), tp)
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +289,7 @@ def cross_attention(p: Params, q_in: torch.Tensor, kv_in: torch.Tensor,
 # ---------------------------------------------------------------------------
 def block_tar(p: Params, x: torch.Tensor, n_head: int,
               attn_impl: Callable = sdpa, collect_kv: bool = False,
-              t_bias: Optional[torch.Tensor] = None):
+              t_bias: Optional[torch.Tensor] = None, tp=None):
     """Full-window factorized block over [B, T, S, D]: spatial (non-causal
     over S) → temporal (causal over T) → spatial, each with its own pre-LN
     and MLP.  Returns y [B, T, S, D], or with `collect_kv` (y, (k, v)): the
@@ -241,36 +300,35 @@ def block_tar(p: Params, x: torch.Tensor, n_head: int,
 
     xs = x.reshape(B * T, S, D)
     xs = xs + attention(p["sa1"], layer_norm(p["ln1"], xs), n_head,
-                        causal=False, attn_impl=attn_impl)
-    xs = xs + mlp(p["mlp1"], layer_norm(p["ln2"], xs))
+                        causal=False, attn_impl=attn_impl, tp=tp)
+    xs = xs + mlp(p["mlp1"], layer_norm(p["ln2"], xs), tp)
 
     xt = xs.reshape(B, T, S, D).transpose(1, 2).reshape(B * S, T, D)
-    q, k, v = linear(p["ta"]["qkv"], layer_norm(p["ln3"], xt)).split(
-        D, dim=-1)
+    q, k, v = qkv(p["ta"]["qkv"], layer_norm(p["ln3"], xt), tp)
     kh = _split_heads(k, n_head)
     vh = _split_heads(v, n_head)
     if t_bias is not None:
         y = sdpa(_split_heads(q, n_head), kh, vh, True, bias=t_bias)
     else:
         y = attn_impl(_split_heads(q, n_head), kh, vh, True)
-    xt = xt + linear(p["ta"]["proj"], y.reshape(B * S, T, D))
-    xt = xt + mlp(p["mlp2"], layer_norm(p["ln4"], xt))
+    xt = xt + row_linear(p["ta"]["proj"], y.reshape(B * S, T, -1), tp)
+    xt = xt + mlp(p["mlp2"], layer_norm(p["ln4"], xt), tp)
 
     xs = xt.reshape(B, S, T, D).transpose(1, 2).reshape(B * T, S, D)
     xs = xs + attention(p["sa2"], layer_norm(p["ln5"], xs), n_head,
-                        causal=False, attn_impl=attn_impl)
-    xs = xs + mlp(p["mlp3"], layer_norm(p["ln6"], xs))
+                        causal=False, attn_impl=attn_impl, tp=tp)
+    xs = xs + mlp(p["mlp3"], layer_norm(p["ln6"], xs), tp)
     out = xs.reshape(B, T, S, D)
     return (out, (kh, vh)) if collect_kv else out
 
 
 def block_oar(p: Params, x: torch.Tensor, n_head: int,
-              attn_impl: Callable = sdpa) -> torch.Tensor:
+              attn_impl: Callable = sdpa, tp=None) -> torch.Tensor:
     """The OAR's causal block over a whole frame [B, S, D] (the teacher-
     forced training pass; decoding runs the step kernels)."""
     x = x + attention(p["attn"], layer_norm(p["ln1"], x), n_head,
-                      causal=True, attn_impl=attn_impl)
-    return x + mlp(p["mlp"], layer_norm(p["ln2"], x))
+                      causal=True, attn_impl=attn_impl, tp=tp)
+    return x + mlp(p["mlp"], layer_norm(p["ln2"], x), tp)
 
 
 def apply_stack(stack: Params, x: torch.Tensor, block_fn: Callable,
@@ -340,7 +398,7 @@ def block_tar_decode_deferred(p: Params, x: torch.Tensor, n_head: int,
                               t_bias_self: Optional[torch.Tensor] = None,
                               ring_chan_k: Optional[torch.Tensor] = None,
                               ring_chan_v: Optional[torch.Tensor] = None,
-                              ring_bits: int = 4):
+                              ring_bits: int = 4, tp=None):
     """One new frame [B, S, D] through a factorized block whose temporal
     attention reads the rings [B·S, T_max, H, Dh] without writing them.
 
@@ -368,14 +426,13 @@ def block_tar_decode_deferred(p: Params, x: torch.Tensor, n_head: int,
     self term (distance 0)."""
     B, S, D = x.shape
     xs = x + attention(p["sa1"], layer_norm(p["ln1"], x), n_head,
-                       causal=False, attn_impl=attn_impl)
-    xs = xs + mlp(p["mlp1"], layer_norm(p["ln2"], xs))
+                       causal=False, attn_impl=attn_impl, tp=tp)
+    xs = xs + mlp(p["mlp1"], layer_norm(p["ln2"], xs), tp)
 
     xt = xs.reshape(B * S, 1, D)
-    q, k_new, v_new = linear(p["ta"]["qkv"], layer_norm(p["ln3"], xt)).split(
-        D, dim=-1)
+    q, k_new, v_new = qkv(p["ta"]["qkv"], layer_norm(p["ln3"], xt), tp)
     N, H = B * S, n_head
-    Dh = D // H
+    Dh = q.shape[-1] // H
     q = q.reshape(N, 1, H, Dh)
     k_new = k_new.reshape(N, H, Dh)
     v_new = v_new.reshape(N, H, Dh)
@@ -454,24 +511,24 @@ def block_tar_decode_deferred(p: Params, x: torch.Tensor, n_head: int,
         y = torch.einsum("nhqk,nkhd->nqhd", wp.to(q.dtype).float(),
                          ring_v.float()).to(q.dtype)
     y = y + wself.transpose(1, 2) * v_new[:, None]
-    xt = xt + linear(p["ta"]["proj"], y.reshape(N, 1, D))
-    xt = xt + mlp(p["mlp2"], layer_norm(p["ln4"], xt))
+    xt = xt + row_linear(p["ta"]["proj"], y.reshape(N, 1, H * Dh), tp)
+    xt = xt + mlp(p["mlp2"], layer_norm(p["ln4"], xt), tp)
 
     xs = xt.reshape(B, S, D)
     xs = xs + attention(p["sa2"], layer_norm(p["ln5"], xs), n_head,
-                        causal=False, attn_impl=attn_impl)
-    xs = xs + mlp(p["mlp3"], layer_norm(p["ln6"], xs))
+                        causal=False, attn_impl=attn_impl, tp=tp)
+    xs = xs + mlp(p["mlp3"], layer_norm(p["ln6"], xs), tp)
     return xs, k_new, v_new
 
 
 def decoder_block(p: Params, x: torch.Tensor, ctx: torch.Tensor,
-                  n_head: int) -> torch.Tensor:
+                  n_head: int, tp=None) -> torch.Tensor:
     """Self-attn → cross-attn(queries, scene emb) → MLP over [B, S, D]."""
     x = x + attention(p["self_attn"], layer_norm(p["ln1"], x), n_head,
-                      causal=False)
+                      causal=False, tp=tp)
     x = x + cross_attention(p["cross_attn"], layer_norm(p["ln2"], x),
-                            layer_norm(p["ln3"], ctx), n_head)
-    return x + mlp(p["mlp"], layer_norm(p["ln4"], x))
+                            layer_norm(p["ln3"], ctx), n_head, tp)
+    return x + mlp(p["mlp"], layer_norm(p["ln4"], x), tp)
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,15 @@ functionally).  With `speculative_k` = K > 0 the map and image segments (and
 the bbox segment unless `speculative_bbox` is off) are decoded in verify
 chunks of K positions (models/speculative.py), and the cache has K slack
 rows.
+
+On a rank of a GSPMD-mode run (`model.mesh`, UMGen.on_mesh) the TAR
+cascade runs split over tp, each head's logits are gathered before the
+sampler (`UMGen.head`), and the OAR runs as its params are: a split OAR
+stack (the unfused body) on the rank's heads and a cache of them, a whole
+one (a tree with decode packs: the decode kernels are whole-head-set, as
+GSPMD replicates JAX's custom calls) on every head and a whole cache.
+The sampling noise is the unsharded run's: over dp > 1 every rank samples
+the whole batch's gathered logits with the run's seed and keeps its rows.
 """
 
 from __future__ import annotations
@@ -117,15 +126,56 @@ class Rollout:
                 "speculative_k * n_head must be <= 128 with the int4 OAR "
                 "cache (v5mqi4 takes at most 128 query rows a scene; larger "
                 "chunks would fall back to the eager int4 body)")
+        mesh = model.mesh
+        if mesh is not None and mesh.dp > 1 \
+                and cfg.sample_method != "greedy":
+            if cfg.speculative_k > 0:
+                raise ValueError(
+                    "spmd='gspmd' over dp > 1 draws the unsharded run's "
+                    "noise by gathering each sampler's logits; speculative "
+                    "sampling draws its own: use sample_method='greedy' or "
+                    "spmd='shard_map'")
+            self._samplers = {m: self._whole_batch(f)
+                              for m, f in self._samplers.items()}
         ego = EGO_WHL["nuplan"]
         self._ego_box = torch.tensor(
             [0, 0, 0, ego["l"], ego["w"], ego["h"], 0, 0, 0, 0],
             dtype=torch.float32)
 
+    def _whole_batch(self, sampler):
+        """`sampler` on the logits of every dp rank's rows, with the run's
+        generator; this rank's rows of its draw."""
+        mesh = self.model.mesh
+
+        def sample(generator, logits):
+            return mesh.shard(sampler(generator, mesh.gather_rows_t(logits)))
+        return sample
+
     # ------------------------------------------------------------------
     # OAR plumbing
     # ------------------------------------------------------------------
-    def init_kv(self, B: int, device=None):
+    def oar_heads(self, params: Params) -> int:
+        """The heads of the OAR stack in `params`: every head, or the
+        rank's under a split one."""
+        if "oar" not in params:        # decode packs alone
+            return self.config.n_head
+        qkv = params["oar"]["attn"]["qkv"]
+        w = next(qkv[k] for k in ("w", "wq", "wq4") if k in qkv)
+        return self.config.n_head * w.shape[-1] // (3 * self.config.n_embd)
+
+    def runs_v1(self, params: Params) -> bool:
+        """Whether Q = 1 pushes on a bfloat16 / float8 cache go to the v1
+        kernel: fused kernels on, int8-quantized OAR weights, no packs."""
+        return (self.config.fused_oar_kernel and "oar_packed" not in params
+                and "wq" in params["oar"]["attn"]["qkv"])
+
+    def oar_tp(self, params: Params):
+        """The mesh where the OAR stack is split over tp, else None."""
+        tp = self.model.tp
+        return tp if tp is not None and \
+            self.oar_heads(params) != self.config.n_head else None
+
+    def init_kv(self, B: int, device=None, n_head: Optional[int] = None):
         """Flat [L, B, 2208, H·Dh] caches in the OAR cache dtype (int8 for
         the integer-logit kernels, bfloat16 or float8_e4m3fn for v2 / v1),
         or two PackedKV for "int4": nibble pairs [L, B, 2208, H·Dh/2] int8
@@ -134,11 +184,13 @@ class Rollout:
         a view of it (`kv.view(L, B, S, H, Dh)`), which every step that
         takes a 5-D cache accepts.  Speculative decoding adds
         `speculative_k` slack rows: a verify chunk may write up to K - 1
-        rows past a segment's end (never read, then overwritten)."""
+        rows past a segment's end (never read, then overwritten).
+        `n_head`: the heads the OAR runs (a split stack's, `oar_heads`;
+        default every head)."""
         cfg = self.config
         S = self.layout.input_len + max(cfg.speculative_k, 0)
+        L, H = cfg.n_oar_layer, n_head or cfg.n_head
         if cfg.oar_cache_dtype == "int4":
-            L, H = cfg.n_oar_layer, cfg.n_head
 
             def half():
                 return PackedKV(
@@ -147,7 +199,7 @@ class Rollout:
                     torch.zeros(L, B, S, H, dtype=torch.float32,
                                 device=device))
             return half(), half()
-        shape = (cfg.n_oar_layer, B, S, cfg.n_head * cfg.head_dim)
+        shape = (L, B, S, H * cfg.head_dim)
         dt = torch_dtype(cfg.oar_cache_dtype)
         return (torch.zeros(shape, dtype=dt, device=device),
                 torch.zeros(shape, dtype=dt, device=device))
@@ -192,9 +244,14 @@ class Rollout:
                 and kv_k.ndim == 4 and int8:
             fused = (dk.fused_decode_step_w4mq if "wqp4" in packed
                      else dk.fused_decode_step_v5mq)
-        elif cfg.fused_oar_kernel and Q == 1 and "oar_packed" not in params \
-                and kv_k.dtype in dk.DENSE_KV_DTYPES[:2] \
-                and "wq" in params["oar"]["attn"]["qkv"]:
+        elif self.runs_v1(params) and Q == 1 \
+                and kv_k.dtype in dk.DENSE_KV_DTYPES[:2]:
+            if self.oar_tp(params) is not None:
+                raise ValueError(
+                    "fused_oar_kernel on a split int8 OAR stack: the v1 "
+                    "kernel runs the whole head set on every rank, as GSPMD "
+                    "replicates JAX's custom call; gather the OAR whole "
+                    "(Generator(spmd='gspmd') does)")
             fused, packed = dk.fused_decode_step, params["oar"]
         if fused is not None:
             h, kv_k, kv_v = fused(packed, x, kv_k, kv_v, cache_len, n_head=H)
@@ -207,9 +264,11 @@ class Rollout:
         from the 1/16 grid, a bf16 / fp8 one cast, or the int4 one
         (PackedKV) from its nibbles and per-(row, head) scales; flat or 5-D
         dense caches.  It is the plain counterpart of the fused step in the
-        JAX package's own terms."""
+        JAX package's own terms.  A split OAR stack (`oar_tp`) runs on the
+        rank's heads."""
         cfg = self.config
-        H, Dh = cfg.n_head, cfg.head_dim
+        H, Dh = self.oar_heads(params), cfg.head_dim
+        tp = self.oar_tp(params)
         B, Q, D = x.shape
         S = _kv_rows(kv_k)
         scale = 1.0 / math.sqrt(Dh)
@@ -237,9 +296,8 @@ class Rollout:
         stack = params["oar"]
         for l in range(nn.n_layers(stack)):
             p = nn.layer(stack, l)
-            q, k_new, v_new = nn.linear(p["attn"]["qkv"],
-                                        nn.layer_norm(p["ln1"], h)).split(
-                D, dim=-1)
+            q, k_new, v_new = nn.qkv(p["attn"]["qkv"],
+                                     nn.layer_norm(p["ln1"], h), tp)
             q = q.reshape(B, Q, H, Dh)
             k_new = k_new.reshape(B, Q, H, Dh)
             v_new = v_new.reshape(B, Q, H, Dh)
@@ -260,8 +318,9 @@ class Rollout:
                               load(kv_v, l).float()).to(x.dtype)
                  + torch.einsum("bhqk,bkhd->bqhd", ws.float(),
                                 v_new.float()).to(x.dtype))
-            h = h + nn.linear(p["attn"]["proj"], y.reshape(B, Q, D))
-            h = h + nn.mlp(p["mlp"], nn.layer_norm(p["ln2"], h))
+            h = h + nn.row_linear(p["attn"]["proj"], y.reshape(B, Q, H * Dh),
+                                  tp)
+            h = h + nn.mlp(p["mlp"], nn.layer_norm(p["ln2"], h), tp)
             store(kv_k, l, k_new)
             store(kv_v, l, v_new)
         return nn.layer_norm(params["ln_oar"], h), kv_k, kv_v
@@ -297,12 +356,14 @@ class Rollout:
             return params["buffers"]["fouier_pe"][token]
         if mod == "map":
             return nn.mlp(params["map_mlp_pre"],
-                          params["buffers"]["map_codebook"][token])
+                          params["buffers"]["map_codebook"][token],
+                          self.model.tp)
         if mod == "bbox3d":
             return nn.lookup(params["be"], token)
         if mod == "image":
             return nn.mlp(params["img_mlp_pre"],
-                          params["buffers"]["img_codebook"][token])
+                          params["buffers"]["img_codebook"][token],
+                          self.model.tp)
         raise ValueError(mod)
 
     def _aux_emb(self, params: Params, aux_id: int, B: int) -> torch.Tensor:
@@ -361,7 +422,8 @@ class Rollout:
             p = seg.content_start + i
             h, _, _ = self.oar_step(params, prev, state.kv_k, state.kv_v,
                                     cache_len=p - 1)
-            token = sampler(generator, nn.linear(params[head_name], h[:, -1]))
+            token = sampler(generator,
+                            self.model.head(params, head_name, h[:, -1]))
             prev = (self._embed_token(params, mod, token)[:, None, :]
                     + prior_seq[:, p:p + 1]).to(prev.dtype)
             tokens.append(token)
@@ -419,8 +481,8 @@ class Rollout:
             p = seg.content_start + i
             h, _, _ = self.oar_step(params, prev, state.kv_k, state.kv_v,
                                     cache_len=p - 1)
-            tok_ar = sampler(generator,
-                             nn.linear(params["head_ar_bbox3d"], h[:, -1]))
+            tok_ar = sampler(generator, self.model.head(
+                params, "head_ar_bbox3d", h[:, -1]))
             prev_tok = prev_frame_bbox[:, i]
             is_ctrl = control_mask[:, (i + 1) // 11]
             tar_logits = tar_box_logits[:, i]
@@ -476,11 +538,11 @@ class Rollout:
         tar_box_logits = None
         if any(s.mod == "bbox3d" for s in lo.segments):
             bseg = lo.segment("bbox3d")
-            tar_box_logits = nn.linear(
-                params["head_tar_bbox3d"],
-                prior_seq[:, bseg.start:bseg.content_end])   # [B, 660, V]
+            tar_box_logits = self.model.tar_bbox_logits(   # [B, 660, V]
+                params, prior_seq[:, bseg.start:bseg.content_end])
 
-        kv_k, kv_v = self.init_kv(B, device=dev)
+        kv_k, kv_v = self.init_kv(B, device=dev,
+                                  n_head=self.oar_heads(params))
         # prefill: [task, pose_bos, p1, p2, p3, pose_eos]
         pseg = lo.segment("pose")
         task_emb = params["tske"][TASK_NAME_ID[cfg.task]][None, None].expand(

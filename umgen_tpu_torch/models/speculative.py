@@ -79,6 +79,18 @@ class SpecTelemetry(NamedTuple):
     accepted: int        # accepted draft tokens (the lockstep minimum)
 
 
+def _head(rollout, params: Params, name: str, x: torch.Tensor
+          ) -> torch.Tensor:
+    """The head `name`'s logits on x: a tensor-parallel model's gathered
+    over its group (UMGen.head), else the product itself through this
+    module's `nn` — the seam tests/test_torch_speculative.py stands one-hot
+    draft tables in for, beside a stub rollout that has no model."""
+    model = getattr(rollout, "model", None)
+    if model is not None and model.tp is not None:
+        return model.head(params, name, x)
+    return nn.linear(params[name], x)
+
+
 def _categorical(generator, probs: torch.Tensor) -> torch.Tensor:
     """One draw a row of probs [..., n] (rows need not be normalized)."""
     flat = probs.reshape(-1, probs.shape[-1])
@@ -141,7 +153,7 @@ def _verify(rollout, params: Params, mod: str, head_ar: str, drafts, prev,
     x = torch.cat([prev, (demb + pri[:, pos + 1:pos + K]).to(prev.dtype)],
                   dim=1)
     h, _, _ = rollout.oar_step(params, x, kv_k, kv_v, cache_len=c0 + pos - 1)
-    return nn.linear(params[head_ar], h)
+    return _head(rollout, params, head_ar, h)
 
 
 def _emit(tokens, drafts, boundary, n_min: int, pos: int, n_emit: int):
@@ -171,7 +183,8 @@ def decode_segment_speculative(rollout, params: Params, seg, state,
     B = state.prev_emb.shape[0]
     n, c0, mod = seg.content_len, seg.content_start, seg.mod
     dt = state.prev_emb.dtype
-    draft_logits = nn.linear(params[head_tar], prior_seq[:, c0 - 1:c0 - 1 + n])
+    draft_logits = _head(rollout, params, head_tar,
+                         prior_seq[:, c0 - 1:c0 - 1 + n])
     if greedy:
         argmax = rollout._samplers[mod]
         d_tok = _pad_tables(argmax(generator, draft_logits), K, 0)

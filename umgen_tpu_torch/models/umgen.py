@@ -33,10 +33,24 @@ the embeddings) or, with `temporal_pe_mode="relative"`, a per-head bias
 `tpe_rel` [H, max_frame_len] on the temporal attention's logits by query-key
 frame distance (`_t_bias_window`, `_t_bias_ring`); the embeddings and the
 rings then carry no temporal position.
+
+Tensor parallelism (`on_mesh`, the JAX package's GSPMD program at tp > 1):
+the model of one rank of a (dp, tp) mesh runs every stack on the rank's
+n_head / tp heads and hidden columns (models/modules.py), its rings hold
+those heads ([L, B·S, T_max, H / tp, Dh], JAX's `_ring_spec`), and each
+head's vocab-parallel logits are gathered over the group (`head`) before
+the sampler and the loss.  The params are the rank's blocks
+(parallel.mesh.Mesh.shard_params).
+
+The remaining configuration: `n_step` > 1 widens the bbox TAR head to
+n_step vocab slices side by side ("head_tar_n_step_bbox3d"), of which the
+rollout and the trainer read step 0 (`tar_bbox_logits`); `bias=True`
+drops the attention projections' biases and gives the MLPs theirs.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -56,8 +70,8 @@ RING_DTYPES = ("float8_e4m3fn", "bfloat16", "float32", "int4", "int2")
 
 
 class NotPortedError(NotImplementedError):
-    """A configuration the port does not serve yet; names the ROADMAP
-    item that adds it."""
+    """A configuration the port does not serve; names the ROADMAP item or
+    decision behind it."""
 
 
 def build_buffers(config: ModelConfig,
@@ -114,7 +128,7 @@ def build_buffers(config: ModelConfig,
 
 
 def check_served(cfg: ModelConfig) -> None:
-    """Raise NotPortedError for configuration values outside the port."""
+    """Raise ValueError for configuration values outside the model."""
     if cfg.tar_mode not in ("temporal_cache", "recompute"):
         raise ValueError(f"unknown tar_mode {cfg.tar_mode!r}")
     if cfg.tar_cache_dtype not in RING_DTYPES:
@@ -123,11 +137,8 @@ def check_served(cfg: ModelConfig) -> None:
     if cfg.temporal_pe_mode not in ("absolute", "relative"):
         raise ValueError(f"unknown temporal_pe_mode "
                          f"{cfg.temporal_pe_mode!r}")
-    if cfg.n_step != 1 or cfg.bias:
-        raise NotPortedError("the port serves the published heads "
-                             "(n_step=1, bias=False); the others are not "
-                             "ported yet (ROADMAP.md: 'Tensor parallel and "
-                             "the remaining configuration')")
+    if cfg.n_step < 1:
+        raise ValueError(f"n_step {cfg.n_step}: at least 1")
 
 
 class UMGen:
@@ -142,6 +153,52 @@ class UMGen:
             from umgen_tpu_torch.ops.attention import attn_impl as dispatch
             attn_impl = dispatch
         self.attn = attn_impl or nn.sdpa
+        self.mesh = None
+
+    # ------------------------------------------------------------------
+    # tensor parallelism
+    # ------------------------------------------------------------------
+    def on_mesh(self, mesh) -> "UMGen":
+        """This model for one rank of a GSPMD-mode run over `mesh` (a
+        parallel.mesh.Mesh): under tp > 1 its stacks run on the rank's
+        heads; the params must be the rank's blocks.  tp must divide
+        n_head (every head's vocab is checked by the sharding)."""
+        if mesh is not None and self.config.n_head % mesh.tp:
+            raise ValueError(f"tp={mesh.tp} does not divide n_head "
+                             f"{self.config.n_head}")
+        m = copy.copy(self)
+        m.mesh = mesh
+        return m
+
+    @property
+    def tp(self):
+        """The mesh under tensor parallelism (tp > 1), else None."""
+        return self.mesh if self.mesh is not None and self.mesh.tp > 1 \
+            else None
+
+    @property
+    def heads(self) -> int:
+        """The attention heads this rank runs in a TAR-family stack."""
+        return self.config.n_head // (self.tp.tp if self.tp else 1)
+
+    def head(self, params, name: str, x, cols: Optional[int] = None):
+        """Logits of the head `name` on x, the whole vocab: under tp the
+        rank's vocab block gathered over the group.  `cols`: only the first
+        cols (the n-step head's step 0)."""
+        p = params[name]
+        if self.tp is None:
+            return nn.linear(p if cols is None else
+                             nn.slice_linear_out(p, cols), x)
+        y = self.tp.gather(nn.linear(p, self.tp.copy(x)))
+        return y if cols is None else y[..., :cols]
+
+    def tar_bbox_logits(self, params, x):
+        """The bbox TAR head's logits [..., V] (the n-step head's step-0
+        vocab slice)."""
+        if self.config.n_step > 1:
+            return self.head(params, "head_tar_n_step_bbox3d", x,
+                             cols=self.config.bbox3d_vocab_size)
+        return self.head(params, "head_tar_bbox3d", x)
 
     # ------------------------------------------------------------------
     # embeddings
@@ -151,14 +208,14 @@ class UMGen:
 
     def embed_map(self, params, tokens, grid_pe: bool):
         feats = nn.mlp(params["map_mlp_pre"],
-                       params["buffers"]["map_codebook"][tokens])
+                       params["buffers"]["map_codebook"][tokens], self.tp)
         if grid_pe:
             feats = feats + params["buffers"]["grid_center_pe"]
         return feats
 
     def embed_image(self, params, tokens):
         return nn.mlp(params["img_mlp_pre"],
-                      params["buffers"]["img_codebook"][tokens])
+                      params["buffers"]["img_codebook"][tokens], self.tp)
 
     def embed_bbox(self, params, tokens, spatial_pe: bool):
         """tokens [..., 660]; the spatial PE adds per-object x/y table
@@ -267,7 +324,7 @@ class UMGen:
             B * T, 3, D)
         q = nn.apply_stack(
             params["ego_ca"], q,
-            lambda p, h: nn.decoder_block(p, h, ctx, cfg.n_head),
+            lambda p, h: nn.decoder_block(p, h, ctx, self.heads, self.tp),
             remat=cfg.remat)
         return nn.layer_norm(params["ln_ego"], q).reshape(B, T, 3, D)
 
@@ -311,19 +368,19 @@ class UMGen:
                 f"tar_cache_dtype={cfg.tar_cache_dtype!r} packs {per_byte} "
                 f"head dims a byte: head_dim {cfg.head_dim} must be "
                 + ("even" if per_byte == 2 else "a multiple of 4"))
-        shape = (L, N, self.t_max, cfg.n_head, cfg.head_dim)
+        shape = (L, N, self.t_max, self.heads, cfg.head_dim)
         if per_byte == 1:
             dt = torch_dtype(cfg.tar_cache_dtype)
             return (torch.zeros(shape, dtype=dt, device=device),
                     torch.zeros(shape, dtype=dt, device=device))
         packed = shape[:-1] + (cfg.head_dim // per_byte,)
-        sshape = (L, B, self.t_max, cfg.n_head)
+        sshape = (L, B, self.t_max, self.heads)
         rings = (torch.zeros(packed, dtype=torch.int8, device=device),
                  torch.zeros(packed, dtype=torch.int8, device=device),
                  torch.zeros(sshape, dtype=torch.float32, device=device),
                  torch.zeros(sshape, dtype=torch.float32, device=device))
         if self.ring_q2:
-            cshape = (L, B, cfg.n_head, cfg.head_dim)
+            cshape = (L, B, self.heads, cfg.head_dim)
             rings += (torch.ones(cshape, dtype=torch.float32, device=device),
                       torch.ones(cshape, dtype=torch.float32, device=device))
         return rings
@@ -414,9 +471,9 @@ class UMGen:
         if not rings:
             h = nn.apply_stack(
                 stack, emb,
-                lambda p, x: nn.block_tar(p, x, cfg.n_head,
+                lambda p, x: nn.block_tar(p, x, self.heads,
                                           attn_impl=self.attn,
-                                          t_bias=t_bias),
+                                          t_bias=t_bias, tp=self.tp),
                 remat=cfg.remat)
             return nn.layer_norm(params[ln_name], h), None
         L = nn.n_layers(stack)
@@ -426,9 +483,9 @@ class UMGen:
         kv_rings = self._ring_zeros(L, B * S, B, emb.device)
         h = emb
         for l in range(L):
-            h, kv = nn.block_tar(nn.layer(stack, l), h, cfg.n_head,
+            h, kv = nn.block_tar(nn.layer(stack, l), h, self.heads,
                                  attn_impl=self.attn, collect_kv=True,
-                                 t_bias=t_bias)
+                                 t_bias=t_bias, tp=self.tp)
             for i, a in enumerate(kv):                 # [B·S, T, H, Dh]
                 if self.ring_q2:
                     packed, sc, chan = self._ring_q2_quantize_window(a, B,
@@ -450,7 +507,6 @@ class UMGen:
                               slot: int, n_valid: int):
         """x [B, S, D] new frame → (ln(out) [B, S, D], kv) with the frame's
         K/V written into ring slot `slot` in place."""
-        cfg = self.config
         B = x.shape[0]
         stack = params[stack_name]
         tb_ring, tb_self = self._t_bias_ring(params, slot, self.t_max)
@@ -462,9 +518,9 @@ class UMGen:
                 extra.update(ring_chan_k=kv[4][l], ring_chan_v=kv[5][l],
                              ring_bits=2)
             h, k_new, v_new = nn.block_tar_decode_deferred(
-                nn.layer(stack, l), h, cfg.n_head, kv[0][l], kv[1][l],
+                nn.layer(stack, l), h, self.heads, kv[0][l], kv[1][l],
                 slot, n_valid, attn_impl=self.attn, t_bias_ring=tb_ring,
-                t_bias_self=tb_self, **extra)
+                t_bias_self=tb_self, tp=self.tp, **extra)
             for i, new in enumerate((k_new, v_new)):
                 if self.ring_q2:
                     kv[i][l][:, slot], kv[2 + i][l][:, slot] = \
@@ -544,7 +600,7 @@ class UMGen:
         out, kv = self._ego_context(params, inputs, rings)
         B, T = out.shape[:2]
         q = self._ego_queries(params, out[:, -1], B, 1, t_offset=T - 1)
-        return nn.linear(params["head_ego"], q[:, 0]), kv
+        return self.head(params, "head_ego", q[:, 0]), kv
 
     def ego_logits(self, params, inputs):
         """Recompute mode: the window's last-frame ego logits [B, 3, 1024]
@@ -574,7 +630,7 @@ class UMGen:
             slot, n_valid)
         q = self._ego_queries(params, ctx, ctx.shape[0], 1,
                               t_offset=abs_frame)
-        return nn.linear(params["head_ego"], q[:, 0]), cache
+        return self.head(params, "head_ego", q[:, 0]), cache
 
     def _window_priors(self, params, shifted_inputs, cache=None):
         """The shifted window through the trunk / map / box stacks →
@@ -624,7 +680,8 @@ class UMGen:
         cfg = self.config
         h = nn.apply_stack(
             params["oar"], oar_input,
-            lambda p, x: nn.block_oar(p, x, cfg.n_head, attn_impl=self.attn),
+            lambda p, x: nn.block_oar(p, x, self.heads, attn_impl=self.attn,
+                                      tp=self.tp),
             remat=cfg.remat)
         return nn.layer_norm(params["ln_oar"], h)
 

@@ -160,12 +160,15 @@ def _empty(params) -> Dict:
     return {}
 
 
-def clip_by_global_norm(max_norm: float) -> Transform:
+def clip_by_global_norm(max_norm: float,
+                        norm: Callable = global_norm) -> Transform:
+    """optax's clip; `norm` measures the tree (a tensor-parallel rank's
+    blocks: parallel.mesh.Mesh.global_norm)."""
     def update(updates, state, params=None):
-        norm = global_norm(updates)
-        keep = norm < max_norm
+        norm_ = norm(updates)
+        keep = norm_ < max_norm
         return tree_map(lambda t: torch.where(
-            keep, t, (t / norm.to(t.dtype)) * _as(max_norm, t.dtype)),
+            keep, t, (t / norm_.to(t.dtype)) * _as(max_norm, t.dtype)),
             updates), state
 
     return Transform(_empty, update)

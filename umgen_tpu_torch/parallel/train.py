@@ -23,16 +23,22 @@ config.remat each block is recomputed in the backward pass.  A step
 updates the state's tensors in place (JAX donates them) and reads nothing
 back to the host: the metrics stay tensors on the device.
 
-Data parallelism (`jit_train_step(mesh)`, a parallel.mesh.Mesh): the
-counterpart of the JAX package's GSPMD step at tp = 1, which computes the
-global batch's gradient.  Every rank takes its rows of the global batch,
-runs the loss there and all-reduces the gradients to their mean before the
-clip, so the clip's global norm is the mean gradient's.  Every loss term
-is a plain mean over its rows (`_ce`), so equal shards average to the
-global batch's loss.  The optimizer runs replicated, as the JAX step's
-replicated optimizer state does: params and moments stay equal on every
-rank, bit for bit.  The metrics are averaged over the ranks.  Tensor
-parallelism (tp > 1) is not ported.
+Data and tensor parallelism (`jit_train_step(mesh)`, a parallel.mesh.
+Mesh): the counterpart of the JAX package's GSPMD step at any (dp, tp),
+which computes the global batch's gradient.  Every rank takes its dp
+index's rows of the global batch and runs the loss there; the gradients
+are all-reduced over the dp group to their mean before the clip.  Every
+loss term is a plain mean over its rows (`_ce`), so equal shards average
+to the global batch's loss.  Under tp > 1 the trainer is built on the
+mesh (`UMGenTrainer(mesh=)`) and the state is the rank's blocks
+(`shard_state`): the model runs split (UMGen.on_mesh), each head's logits
+gathered over the group before the loss, and Megatron's conjugate
+collectives make every replicated leaf's gradient whole on every rank; the
+clip's global norm is the whole tree's (`mesh.global_norm`: each split
+leaf's squares summed over the group, each replicated leaf counted once),
+as optax.global_norm over JAX's global arrays.  AdamW works elementwise
+on the blocks.  The replicated leaves and their moments stay equal on
+every rank; the metrics are the dp ranks' mean.
 """
 
 from __future__ import annotations
@@ -43,11 +49,9 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from umgen_tpu_torch.layout import SequenceLayout
-from umgen_tpu_torch.models import modules as nn
 from umgen_tpu_torch.models.rollout import Rollout
 from umgen_tpu_torch.models.umgen import UMGen
 from umgen_tpu_torch.parallel import optim
-from umgen_tpu_torch.parallel.mesh import refuse_tp
 
 Params = Dict[str, Any]
 
@@ -62,6 +66,27 @@ class TrainState(NamedTuple):
     buffers: Params
     opt_state: Any
     step: torch.Tensor      # int32 0-d, on the params' device
+
+
+def shard_state(mesh, state: TrainState) -> TrainState:
+    """A rank's blocks of a whole TrainState (params and optimizer state;
+    parallel.mesh.Mesh.shard_params), the params autograd leaves again."""
+    with torch.no_grad():
+        params = mesh.shard_params(optim.tree_map(lambda t: t.detach(),
+                                                  state.params))
+        opt = mesh.shard_params(state.opt_state)
+    return TrainState(optim.tree_map(lambda t: t.requires_grad_(True),
+                                     params), state.buffers, opt, state.step)
+
+
+def whole_state(mesh, state: TrainState) -> TrainState:
+    """The whole TrainState from every tp rank's blocks (a collective:
+    every rank of the group calls it)."""
+    with torch.no_grad():
+        return TrainState(
+            mesh.unshard_params(optim.tree_map(lambda t: t.detach(),
+                                               state.params)),
+            state.buffers, mesh.unshard_params(state.opt_state), state.step)
 
 
 def split_params(params: Params) -> Tuple[Params, Params]:
@@ -106,7 +131,15 @@ class UMGenTrainer:
                  grad_clip: float = 1.0,
                  optimizer: str = "adamw",
                  oar_label_smooth: float = 0.0,
-                 oar_loss_weight: float = 1.0):
+                 oar_loss_weight: float = 1.0,
+                 mesh=None):
+        """mesh: the parallel.mesh.Mesh of a tensor-parallel run (tp > 1):
+        the model runs on it and the clip measures the whole tree's norm
+        (`mesh.global_norm`); a data-parallel mesh is given to
+        `jit_train_step` alone."""
+        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        if self.mesh is not None:
+            model = model.on_mesh(mesh)
         self.model = model
         self.rollout = Rollout(model)
         self.layout = model.layout
@@ -117,6 +150,8 @@ class UMGenTrainer:
             0.0, learning_rate, warmup_steps,
             max(total_steps, warmup_steps + 1),
             end_value=learning_rate * 0.1)
+        self.norm = self.mesh.global_norm if self.mesh is not None else \
+            optim.global_norm
         if optimizer == "sign_sgd":
             # stateless: no clipping, no decay
             self.tx = optim.sign_sgd(self.schedule)
@@ -127,7 +162,8 @@ class UMGenTrainer:
             inner = optim.adamw(self.schedule, weight_decay=weight_decay)
         else:
             raise ValueError(f"unknown optimizer {optimizer!r}")
-        self.tx = optim.chain(optim.clip_by_global_norm(grad_clip), inner)
+        self.tx = optim.chain(
+            optim.clip_by_global_norm(grad_clip, norm=self.norm), inner)
 
     # ------------------------------------------------------------------
     def init_state(self, params: Params) -> TrainState:
@@ -159,7 +195,7 @@ class UMGenTrainer:
 
         # ego loss: window slot t predicts action a_t = pose[t+1]
         ego_emb = model.forward_ego_net(params, raw_in)       # [B, W, 3, D]
-        ego_loss = _ce(nn.linear(params["head_ego"], ego_emb),
+        ego_loss = _ce(model.head(params, "head_ego", ego_emb),
                        batch["pose"][:, 1:])
 
         # TAR: slot t holds frame t's content (+ action a_t) and predicts
@@ -171,10 +207,14 @@ class UMGenTrainer:
             if seg.mod == "pose":       # the ego net supervises the action
                 continue
             emb = tar_emb[seg.mod]
-            logits = nn.linear(params[HEAD_TAR[seg.mod]], emb[:, :, 1:-1])
+            if seg.mod == "bbox3d":     # the n-step head's step-0 slice
+                logits = model.tar_bbox_logits(params, emb[:, :, 1:-1])
+            else:
+                logits = model.head(params, HEAD_TAR[seg.mod],
+                                    emb[:, :, 1:-1])
             tar_loss = tar_loss + _ce(logits, batch[seg.mod][:, 1:])
             # the separators' loss (ref:UMGen.py:558-582)
-            d_logits = nn.linear(params["head_tar_aux"], torch.stack(
+            d_logits = model.head(params, "head_tar_aux", torch.stack(
                 [emb[:, :, 0], emb[:, :, -1]], dim=2))
             d_tgt = torch.full(d_logits.shape[:-1], seg.eos,
                                dtype=torch.long, device=emb.device)
@@ -195,7 +235,7 @@ class UMGenTrainer:
             # the output at input p-1 predicts position p
             h_seg = h[:, seg.content_start - 1:seg.content_end]
             oar_loss = oar_loss + _ce(
-                nn.linear(params[HEAD_AR[seg.mod]], h_seg),
+                model.head(params, HEAD_AR[seg.mod], h_seg),
                 target[seg.mod], self.oar_label_smooth)
         oar_loss = oar_loss / len(lo.segments)
 
@@ -220,7 +260,9 @@ class UMGenTrainer:
         place and returned in a new TrainState; metrics are device
         tensors, `grad_norm` the norm of the raw gradients (before the
         clip).  Under `mesh` the batch is the global one: this rank's rows
-        are its loss, and the gradients and metrics are the ranks' mean."""
+        are its loss, and the gradients and metrics are the dp ranks' mean
+        (under tp the state is the rank's blocks and the model the trainer's
+        on the mesh: `UMGenTrainer(mesh=)`)."""
         if mesh is not None:
             batch = {k: mesh.shard(v) for k, v in batch.items()}
         grads, metrics = self.grads(state, batch)
@@ -234,7 +276,7 @@ class UMGenTrainer:
             optim.tree_map(lambda p, n: p.copy_(n), state.params, new)
             optim.tree_map(lambda s, n: s.copy_(n), state.opt_state,
                            opt_state)
-            metrics["grad_norm"] = optim.global_norm(grads)
+            metrics["grad_norm"] = self.norm(grads)
             state.step.add_(1)
         return state, metrics
 
@@ -242,9 +284,14 @@ class UMGenTrainer:
     def jit_train_step(self, mesh=None):
         """The step the CLI calls.  The JAX package jits it with the state
         donated; here it runs eagerly and updates the state in place.
-        With a data-parallel mesh it takes the global batch (above); a tp
-        mesh raises NotPortedError."""
+        With a mesh it takes the global batch (above); a mesh with tp > 1
+        must be the trainer's own (`UMGenTrainer(mesh=)`, also the default),
+        and the state the rank's blocks (`shard_state`)."""
+        mesh = mesh if mesh is not None else self.mesh
         if mesh is None:
             return self.train_step
-        refuse_tp(mesh.shape["tp"])
+        if mesh.tp > 1 and mesh is not self.mesh:
+            raise ValueError(
+                f"tp={mesh.tp}: a tensor-parallel step needs the trainer "
+                f"built on its mesh, UMGenTrainer(model, mesh=mesh)")
         return functools.partial(self.train_step, mesh=mesh)

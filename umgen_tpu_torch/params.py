@@ -60,8 +60,13 @@ def from_jax(tree: Params, device=None) -> Params:
 # on-device initialization (UMGen.init_params's names and shapes)
 # ---------------------------------------------------------------------------
 class _Init:
-    def __init__(self, generator: torch.Generator, device, dtype):
+    """`bias`: the config's flag — attention projections carry biases
+    without it (`bias=not config.bias`), the stacks' MLPs with it."""
+
+    def __init__(self, generator: torch.Generator, device, dtype,
+                 bias: bool = False):
         self.g, self.device, self.dtype = generator, device, dtype
+        self.bias = bias
 
     def normal(self, *shape) -> torch.Tensor:
         w = torch.randn(*shape, generator=self.g, device=self.device,
@@ -82,14 +87,15 @@ class _Init:
                                 dtype=self.dtype)}
 
     def attn(self, d, L) -> Params:
-        # attention projections carry biases (`bias=not config.bias`)
-        return {"qkv": self.linear(d, 3 * d, True, L),
-                "proj": self.linear(d, d, True, L)}
+        return {"qkv": self.linear(d, 3 * d, not self.bias, L),
+                "proj": self.linear(d, d, not self.bias, L)}
 
-    def mlp(self, d, L=None, d_hidden=None, d_out=None) -> Params:
+    def mlp(self, d, L=None, d_hidden=None, d_out=None,
+            bias: Optional[bool] = None) -> Params:
         d_hidden = d_hidden or 4 * d
-        return {"fc": self.linear(d, d_hidden, False, L),
-                "proj": self.linear(d_hidden, d_out or d, False, L)}
+        bias = self.bias if bias is None else bias
+        return {"fc": self.linear(d, d_hidden, bias, L),
+                "proj": self.linear(d_hidden, d_out or d, bias, L)}
 
     def block_tar(self, d, L) -> Params:
         return {"ln1": self.ln(d, L), "sa1": self.attn(d, L),
@@ -104,7 +110,7 @@ class _Init:
                 "ln2": self.ln(d, L), "mlp": self.mlp(d, L)}
 
     def decoder_block(self, d, L) -> Params:
-        cross = {n: self.linear(d, d, True, L)
+        cross = {n: self.linear(d, d, not self.bias, L)
                  for n in ("q", "k", "v", "proj")}
         return {"ln1": self.ln(d, L), "self_attn": self.attn(d, L),
                 "ln2": self.ln(d, L), "ln3": self.ln(d, L),
@@ -115,13 +121,11 @@ class _Init:
 def init_params(cfg: ModelConfig, generator: torch.Generator, device,
                 buffers: Optional[Params] = None) -> Params:
     """Random-init params with UMGen.init_params's names and shapes, built
-    on `device` (weights N(0, 0.02), layer norms 1, biases 0)."""
-    if cfg.bias or cfg.n_step != 1:
-        raise ValueError("init_params builds the published configuration "
-                         "(bias=False, n_step=1)")
+    on `device` (weights N(0, 0.02), layer norms 1, biases 0).  n_step > 1
+    replaces head_tar_bbox3d with the n-step head [d, n_step·V]."""
     from umgen_tpu_torch.models.umgen import build_buffers
     d = cfg.n_embd
-    ini = _Init(generator, device, torch_dtype(cfg.dtype))
+    ini = _Init(generator, device, torch_dtype(cfg.dtype), cfg.bias)
     layout = SequenceLayout(cfg.task)
     params: Params = {
         "egoe": ini.normal(3, d),
@@ -132,7 +136,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device,
                                device=device, dtype=torch.float32),
         "spe": ini.normal(layout.seq_len, d),
         "tske": ini.normal(7, d),
-        "map_mlp_pre": ini.mlp(cfg.n_map_embd, d_hidden=4 * d, d_out=d),
+        "map_mlp_pre": ini.mlp(cfg.n_map_embd, d_hidden=4 * d, d_out=d,
+                               bias=False),
         "tar": ini.block_tar(d, cfg.n_tar_layer),
         "ln_tar": ini.ln(d),
         "oar": ini.block_oar(d, cfg.n_oar_layer),
@@ -151,6 +156,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device,
         "head_ar_bbox3d": ini.linear(d, cfg.bbox3d_vocab_size, False),
         "head_ego": ini.linear(d, cfg.pose_vocab_size, False),
     }
+    if cfg.n_step > 1:
+        del params["head_tar_bbox3d"]
+        params["head_tar_n_step_bbox3d"] = ini.linear(
+            d, cfg.bbox3d_vocab_size * cfg.n_step, False)
     if cfg.split_map_tar:
         params["map_tar"] = ini.block_tar(d, cfg.n_map_tar_layer)
         params["ln_map_tar"] = ini.ln(d)
@@ -158,7 +167,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device,
         params["head_tar_img"] = ini.linear(d, cfg.img_vocab_size, False)
         params["head_ar_img"] = ini.linear(d, cfg.img_vocab_size, False)
         params["img_mlp_pre"] = ini.mlp(cfg.n_img_embd, d_hidden=4 * d,
-                                        d_out=d)
+                                        d_out=d, bias=False)
     if cfg.split_box_tar and "bbox3d" in layout.mod_order:
         params["box_tar"] = ini.block_tar(d, cfg.n_box_tar_layer)
         params["ln_box_tar"] = ini.ln(d)

@@ -133,6 +133,20 @@ def vec_offsets(d: int) -> Dict[str, tuple]:
     return table
 
 
+def check_decode_biases(oar: Params) -> None:
+    """The decode kernels' vec block holds the attention projections'
+    biases and no MLP bias: the published configuration's (bias=False).
+    Under bias=True (attention without biases, MLPs with them) the JAX
+    package's packers raise KeyError: 'b' (umgen_tpu/ops/decode_kernel.py
+    reads p["attn"]["qkv"]["b"] unconditionally); the port refuses by
+    name, and bias=True serves on the unfused decode."""
+    if "b" not in oar["attn"]["qkv"] or "b" in oar["mlp"]["fc"]:
+        raise ValueError(
+            "bias=True: the fused decode kernels carry the attention biases "
+            "and no MLP bias (the JAX package's packers raise KeyError: "
+            "'b' here); run bias=True without --fused_oar")
+
+
 def pack_decode_weights(oar: Params) -> Params:
     """Int8 OAR stack (quantize_params_int8's params["oar"]) → the decode
     kernel's layout: {"vec": [L, 15d] f32, "wqkv": [L, 3d, d], "wproj":
@@ -140,6 +154,7 @@ def pack_decode_weights(oar: Params) -> Params:
     if "wq" not in oar["attn"]["qkv"]:
         raise ValueError("pack_decode_weights needs the int8-quantized OAR "
                          "stack (run quantize_params_int8 first)")
+    check_decode_biases(oar)
     L, d, _ = oar["attn"]["qkv"]["wq"].shape
     parts = {"ln1": oar["ln1"]["w"], "ln2": oar["ln2"]["w"],
              "qkv_ws": oar["attn"]["qkv"]["ws"],
@@ -222,6 +237,7 @@ def pack_fused_oar_w4(oar_raw: Params) -> Params:
     if "w" not in p["attn"]["qkv"]:
         raise ValueError("pack_fused_oar_w4 quantizes the RAW OAR weights, "
                          "not int8 ones")
+    check_decode_biases(p)
     L, d, _ = p["attn"]["qkv"]["w"].shape
     if d % (2 * W4_GROUP):
         raise ValueError(f"W4A8 packing needs d % {2 * W4_GROUP} == 0, "

@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from umgen_tpu_torch.models.umgen import NotPortedError, build_buffers
+from umgen_tpu_torch.models.umgen import build_buffers
 from umgen_tpu_torch.params import torch_dtype
 
 Params = Dict[str, Any]
@@ -120,12 +120,6 @@ def import_umgen(state_dict: Dict[str, Any], config, device="cpu",
     gives the same values (a float32 step between the checkpoint's floating
     type and the target is exact) without the float32 copy."""
     tr = "transformer"
-    if config.n_step != 1 or f"{tr}.head_tar_n_step_bbox3d.weight" in \
-            state_dict:
-        raise NotPortedError("the n-step bbox TAR head "
-                             "(head_tar_n_step_bbox3d) is not ported yet "
-                             "(ROADMAP.md: 'Tensor parallel and the remaining "
-                             "configuration')")
     r = _Reader(state_dict, device, dtype)
     params: Params = {
         "egoe": r.t(f"{tr}.egoe.weight"),
@@ -157,8 +151,13 @@ def import_umgen(state_dict: Dict[str, Any], config, device="cpu",
         "head_ar_map": r.linear(f"{tr}.head_ar_map"),
         "head_ar_bbox3d": r.linear(f"{tr}.head_ar_bbox3d"),
         "head_ego": r.linear(f"{tr}.head_ego"),
-        "head_tar_bbox3d": r.linear(f"{tr}.head_tar_bbox3d"),
     }
+    if config.n_step > 1:
+        # the widened multi-step bbox TAR head replaces head_tar_bbox3d
+        params["head_tar_n_step_bbox3d"] = r.linear(
+            f"{tr}.head_tar_n_step_bbox3d")
+    else:
+        params["head_tar_bbox3d"] = r.linear(f"{tr}.head_tar_bbox3d")
     if config.split_map_tar:
         params["map_tar"] = r.stack("block_tar", f"{tr}.map_tar",
                                     config.n_map_tar_layer)

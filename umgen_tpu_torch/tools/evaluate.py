@@ -60,7 +60,8 @@ shard of each `--batch_size` batch (a multiple of `--dp`; a last, short
 batch is padded by repeating its last scene, and the pads dropped), and
 rank 0 gathers the tokens, writes the pickles, metrics and videos, and
 prints the lines the one-process run prints, over all the scenes.  `--dp`
-serves the video task's temporal-cache rollout, as the JAX CLI's does:
+serves the video task's temporal-cache rollout through the dp-only
+`spmd="shard_map"` program, as the JAX CLI's does (it has no `--tp`):
 control and recompute under `--dp` are refused with JAX's reasons.
 `--profile_dir DIR` traces the scene loop with `torch.profiler` (CPU, and
 the card's kernels on a card) into a Chrome / TensorBoard trace under DIR,
@@ -431,7 +432,8 @@ def run(args, mesh=None):
     model = UMGen(cfg)
     params = build_params(args, cfg, device, pipeline)
     map_dec, image_dec = build_decoders(args, device)
-    gen = Generator(model, params, seed=args.seed, device=device, mesh=mesh)
+    gen = Generator(model, params, seed=args.seed, device=device, mesh=mesh,
+                    spmd="gspmd" if mesh is None else "shard_map")
     runner = SceneRunner(gen, infer_cfg, output_path=args.output_path,
                          pipeline=pipeline, map_decoder=map_dec,
                          image_decoder=image_dec,

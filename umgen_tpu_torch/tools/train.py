@@ -19,15 +19,16 @@ every `--log_every` steps, saves the train state (runtime/checkpoint.py) as
 PATH` restores a state and its step (the batches start again from the
 seed, as in the JAX CLI).
 
-`--dp N` trains data-parallel (the JAX CLI's dp mesh at tp = 1): N ranks
-on this host, one a card (NCCL; under `--device cpu` N ranks on the CPU
-over gloo), refused where there are fewer cards.  Every rank builds the
-same initial params from `--seed`, reads `--resume`, and draws the same
-global batch from `batch_iterator`; it takes its rows of it
-(`--batch_size` must be a multiple of `--dp`), and the gradients are the
-ranks' mean (parallel/train.py).  Rank 0 writes `train_meta.json`, the log
-lines and the checkpoints.  `--tp` above 1 raises NotPortedError (ROADMAP
-'Tensor parallel and the remaining configuration').
+`--dp N --tp M` trains over the JAX CLI's (dp, tp) mesh: N·M ranks on
+this host, one a card (NCCL; under `--device cpu` on the CPU over gloo),
+refused where there are fewer cards.  Every rank builds the same initial
+params from `--seed`, reads `--resume` (a whole tree), takes its blocks of
+the state under tp (parallel/mesh.py), and draws the same global batch
+from `batch_iterator`; it takes its dp index's rows of it (`--batch_size`
+must be a multiple of `--dp`), and the gradients are the dp ranks' mean
+(parallel/train.py).  Rank 0 writes `train_meta.json`, the log lines and
+the checkpoints; a checkpoint holds the whole state, gathered over tp (as
+orbax saves JAX's global arrays), so a run at any tp resumes it.
 """
 
 from __future__ import annotations
@@ -72,7 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel ranks, one a card")
     p.add_argument("--tp", type=int, default=1,
-                   help="not ported: values above 1 raise")
+                   help="tensor-parallel ranks (heads, hidden columns and "
+                        "vocab split over them)")
     p.add_argument("--data_root", default="data/tokenized_origin_scenes")
     p.add_argument("--synthetic_data", type=int, default=0)
     p.add_argument("--ckpt_dir", default="output/train_ckpt")
@@ -105,22 +107,29 @@ def main(argv=None) -> int:
 
     import torch
 
+    from umgen_tpu_torch.config import ModelConfig
     from umgen_tpu_torch.parallel import mesh as mesh_lib
 
-    mesh_lib.refuse_tp(args.tp)
+    if args.dp < 1 or args.tp < 1:
+        raise SystemExit(f"--dp {args.dp} --tp {args.tp}: at least 1 each")
     if args.batch_size % args.dp:
         raise SystemExit(f"--batch_size {args.batch_size} must be a "
                          f"multiple of --dp {args.dp}")
-    if args.dp == 1:
+    n_head = ModelConfig().scaled(args.model_scale).n_head
+    if n_head % args.tp:
+        raise SystemExit(f"--tp {args.tp} must divide the {n_head} heads "
+                         f"of --model_scale {args.model_scale}")
+    world = args.dp * args.tp
+    if world == 1:
         return 0 if train(args) is not None else 1
-    devices = mesh_lib.host_devices(torch.device(args.device).type, args.dp)
-    mesh_lib.check_devices(args.dp, devices)
-    mesh_lib.launch(train_rank, args.dp, devices, args)
+    devices = mesh_lib.host_devices(torch.device(args.device).type, world)
+    mesh_lib.check_devices(world, devices)
+    mesh_lib.launch(train_rank, args.dp, devices, args, tp=args.tp)
     return 0
 
 
 def train_rank(mesh, args) -> None:
-    """One rank of `--dp` training."""
+    """One rank of `--dp` / `--tp` training."""
     train(args, mesh)
 
 
@@ -134,7 +143,8 @@ def train(args, mesh=None):
     from umgen_tpu_torch.data.dataset import NuPlanTokenDataset
     from umgen_tpu_torch.models.umgen import UMGen
     from umgen_tpu_torch.params import init_params
-    from umgen_tpu_torch.parallel.train import UMGenTrainer
+    from umgen_tpu_torch.parallel.train import (UMGenTrainer, shard_state,
+                                                whole_state)
     from umgen_tpu_torch.runtime import checkpoint as ckpt
 
     device = torch.device(args.device) if mesh is None else mesh.device
@@ -171,7 +181,8 @@ def train(args, mesh=None):
                            total_steps=args.steps,
                            optimizer=args.optimizer,
                            oar_label_smooth=args.oar_label_smooth,
-                           oar_loss_weight=args.oar_loss_weight)
+                           oar_loss_weight=args.oar_loss_weight,
+                           mesh=mesh)
     params = init_params(cfg, torch.Generator(device).manual_seed(args.seed),
                          device)
     state = trainer.init_state(params)
@@ -179,6 +190,8 @@ def train(args, mesh=None):
         state = ckpt.load_train_state(args.resume, state)
         if writer:
             print(f"resumed from {args.resume} at step {int(state.step)}")
+    if mesh is not None:        # this rank's blocks of the whole state
+        state = shard_state(mesh, state)
     step_fn = trainer.jit_train_step(mesh)
 
     # the training regime beside the checkpoints: serving needs the
@@ -194,6 +207,14 @@ def train(args, mesh=None):
                        "oar_label_smooth": args.oar_label_smooth,
                        "oar_loss_weight": args.oar_loss_weight}, f)
 
+    def save(path):
+        """The whole state at `path` (rank 0 writes; under tp every rank
+        joins the gather)."""
+        whole = state if mesh is None else whole_state(mesh, state)
+        if writer:
+            ckpt.save_train_state(path, whole)
+            print("saved", path)
+
     it = batch_iterator(dataset, args.batch_size, args.window, args.seed)
     t0 = time.perf_counter()
     for i in range(args.steps):
@@ -207,15 +228,10 @@ def train(args, mesh=None):
                   f"(ego {m['ego_loss']:.3f} tar {m['tar_loss']:.3f} "
                   f"oar {m['oar_loss']:.3f}) "
                   f"gnorm={m['grad_norm']:.2f} {dt:.1f}s")
-        if writer and args.save_every and (i + 1) % args.save_every == 0:
-            path = os.path.join(args.ckpt_dir, f"step_{i + 1:07d}")
-            ckpt.save_train_state(path, state)
-            print("saved", path)
+        if args.save_every and (i + 1) % args.save_every == 0:
+            save(os.path.join(args.ckpt_dir, f"step_{i + 1:07d}"))
 
-    if writer:
-        final = os.path.join(args.ckpt_dir, "final")
-        ckpt.save_train_state(final, state)
-        print("saved", final)
+    save(os.path.join(args.ckpt_dir, "final"))
     return state
 
 
