@@ -1,21 +1,20 @@
-"""The port's profiler (runtime/profiler.py) against the JAX package's, on
-the CPU: `FrameTimer` gives JAX's summary and report on the same samples;
-`trace(None)` is a no-op; `trace(dir)` writes a Chrome / TensorBoard trace
-that holds an `annotate` region, one file a data-parallel rank; and the
-CLI's `--profile_dir` traces the scene loop (`evaluate.run_dataset`, here
-through SceneRunner on a stand-in Generator, so that no model runs).  The
-card's kernels in a trace are chip_smoke.py's phase z (z3)."""
+"""The port's profiler (runtime/profiler.py) on the CPU: `trace(None)` is a
+no-op; `trace(dir)` writes a Chrome / TensorBoard trace that holds a `span`
+region (the tracer is on for its body, keeping no span records) and the
+counters of each frame step beside it, one file each a data-parallel rank;
+and the CLI's `--profile_dir` traces the scene loop (`evaluate.run_dataset`,
+here through SceneRunner on a stand-in Generator, so that no model runs).
+The card's kernels in a trace are chip_smoke.py's phase z (z3); the tracer
+itself is tests/test_torch_tracer.py's."""
 
 import glob
 import json
 import os
-import time
 
 import numpy as np
 import pytest
 import torch
 
-from umgen_tpu.runtime import profiler as jprofiler
 from umgen_tpu_torch.config import InferConfig
 from umgen_tpu_torch.layout import SequenceLayout
 from umgen_tpu_torch.runtime import profiler
@@ -29,27 +28,12 @@ def _events(log_dir):
         return path, {e.get("name") for e in json.load(f)["traceEvents"]}
 
 
-def test_frame_timer_matches_jax():
-    rng = np.random.default_rng(0)
-    samples = {"frame": list(rng.uniform(0.1, 2.0, 7)),
-               "oar": list(rng.uniform(1e-3, 5e-3, 12))}
-    port, jax_ = profiler.FrameTimer(), jprofiler.FrameTimer()
-    port.samples = {k: list(v) for k, v in samples.items()}
-    jax_.samples = {k: list(v) for k, v in samples.items()}
-    assert port.summary() == jax_.summary()
-    assert port.report() == jax_.report()
-    with port.measure("sleep"):
-        time.sleep(0.01)
-    assert port.summary()["sleep"]["n"] == 1
-    assert port.summary()["sleep"]["total_s"] >= 0.01
-
-
 @pytest.mark.parametrize("log_dir", [None, ""])
 def test_trace_without_a_directory_is_a_no_op(tmp_path, monkeypatch,
                                              log_dir):
     monkeypatch.chdir(tmp_path)
     with profiler.trace(log_dir) as prof:
-        with profiler.annotate("umgen.nothing"):
+        with profiler.span("umgen.nothing"):
             torch.ones(3).sum()
     assert prof is None
     assert os.listdir(tmp_path) == []
@@ -57,12 +41,21 @@ def test_trace_without_a_directory_is_a_no_op(tmp_path, monkeypatch,
 
 def test_trace_writes_an_annotated_trace_per_rank(tmp_path):
     with profiler.trace(str(tmp_path), device="cpu", rank=1):
-        with profiler.annotate("umgen.test_region"):
+        with profiler.span("umgen.test_region"):
             (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
+        # the trace holds the spans; the tracer keeps no record of them
+        assert profiler.take() == {"spans": [], "counters": {}}
+        with profiler.span("umgen.frame", "cached", 1, 4):
+            profiler.count("oar_steps.eager", 3)
     path, names = _events(tmp_path)
     assert "_rank1." in os.path.basename(path)
     assert "umgen.test_region" in names
     assert any(n and n.startswith("aten::") for n in names)
+    # beside it, the counters of each frame step
+    [counters] = glob.glob(os.path.join(str(tmp_path), "*.counters.json"))
+    assert "_rank1." in os.path.basename(counters)
+    with open(counters) as f:
+        assert json.load(f) == {"0": {"oar_steps.eager": 3}}
 
 
 class _StandIn:

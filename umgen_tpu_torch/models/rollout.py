@@ -49,10 +49,17 @@ from umgen_tpu_torch.models.umgen import UMGen
 from umgen_tpu_torch.ops import decode_kernel as dk
 from umgen_tpu_torch.ops.collision import candidate_collides
 from umgen_tpu_torch.params import torch_dtype
+from umgen_tpu_torch.runtime.profiler import count, span
 
 Params = Dict[str, Any]
 
 MAX_BOXES = 62   # ego + 60 slots + candidate headroom
+
+# the steps `Rollout.oar_step` dispatches to, and the tracer's counters of
+# decode steps (Q = 1) by step
+KERNELS = ("v1", "v2", "v3", "v4", "v5", "v7", "w4", "v5mq", "w4mq", "v5i4",
+           "w4i4", "v5mqi4", "w4mqi4", "eager")
+STEP_COUNTERS = {k: "oar_steps." + k for k in KERNELS}
 
 
 class PackedKV(NamedTuple):
@@ -141,6 +148,28 @@ class Rollout:
         self._ego_box = torch.tensor(
             [0, 0, 0, ego["l"], ego["w"], ego["h"], 0, 0, 0, 0],
             dtype=torch.float32)
+        # called at every served draw with (modality, role, content
+        # position, tokens): role "ego" (the ego action [B, 3]), "ar" (a map
+        # or image position; an agent position's OAR draw), "control" and
+        # "tar" (an agent position's redraws, after its "ar"), or "served"
+        # (a forced ego action, a forced or speculative segment's tokens [B,
+        # n] at its first content position); None: nothing is called
+        self.draw_hook = None
+
+    def _ego(self, generator, ego_logits, pose_override):
+        """The frame's ego action [B, 3]: drawn from `ego_logits`, or
+        `pose_override` served."""
+        p = self.layout.segment("pose").content_start
+        hook = self.draw_hook
+        if pose_override is not None:
+            if hook is not None:
+                hook("pose", "served", p, pose_override)
+            return pose_override
+        with span("umgen.sample", "ego"):
+            tokens = self._samplers["pose"](generator, ego_logits)
+        if hook is not None:
+            hook("pose", "ego", p, tokens)
+        return tokens
 
     def _whole_batch(self, sampler):
         """`sampler` on the logits of every dp rank's rows, with the run's
@@ -207,44 +236,78 @@ class Rollout:
     def oar_step(self, params: Params, x: torch.Tensor, kv_k, kv_v,
                  cache_len: int):
         """Push Q new inputs x [B, Q, D] through the OAR stack; their K/V
-        land in the caches at cache_len.  The dispatch is the reference's,
-        branch for branch (rollout.py:211-272).  PackedKV caches go to
-        `_oar_step_int4`.  With the fused kernels on, packed weights and
-        Q = 1: an int8 cache goes to w4 under W4A8 packing, else a flat one
-        to v7 (`oar_kernel_version` 7 while B·H <= 128, the reference's
-        routing rule) or v5, and a 5-D one to v4 (six-stream packing) or
-        v3; any other cache type to v2.  1 < Q·H <= 128 on a flat int8 cache
-        goes to v5mq / w4mq.  Q = 1 with int8-quantized but unpacked
-        `params["oar"]` on a bf16 / fp8 cache goes to v1 — the reference
-        tells that case by its cache being 5-D, which here any cache may be
-        as a view, so it is told by the dtype.  Anything else runs the
-        eager body.  Returns (ln_oar(h) [B, Q, D], kv_k, kv_v)."""
+        land in the caches at cache_len.  The dispatch (`_kernel`) is the
+        reference's, branch for branch (rollout.py:211-272).  With the fused
+        kernels on, packed weights and Q = 1: an int8 cache goes to w4 under
+        W4A8 packing, else a flat one to v7 (`oar_kernel_version` 7 while
+        B·H <= 128, the reference's routing rule) or v5, and a 5-D one to v4
+        (six-stream packing) or v3; any other cache type to v2.
+        1 < Q·H <= 128 on a flat int8 cache goes to v5mq / w4mq.  Q = 1 with
+        int8-quantized but unpacked `params["oar"]` on a bf16 / fp8 cache
+        goes to v1 — the reference tells that case by its cache being 5-D,
+        which here any cache may be as a view, so it is told by the dtype.
+        PackedKV caches go to the int4 kernels.  Anything else runs the
+        eager body.  Returns (ln_oar(h) [B, Q, D], kv_k, kv_v).  The step is
+        the span `umgen.oar_step`, named by the kernel chosen, and a decode
+        step (Q = 1) is counted under its kernel."""
+        B, Q, H = x.shape[0], x.shape[1], self.config.n_head
+        kernel, fused, packed = self._kernel(params, x, kv_k)
+        if Q == 1:
+            count(STEP_COUNTERS[kernel])
+        with span("umgen.oar_step", kernel, B, Q, cache_len):
+            if fused is None:
+                return self._oar_step_eager(params, x, kv_k, kv_v, cache_len)
+            if isinstance(kv_k, PackedKV):
+                h, kp, vp, ks, vs = fused(packed, x, kv_k.packed,
+                                          kv_v.packed, kv_k.scale,
+                                          kv_v.scale, cache_len, n_head=H)
+                return (nn.layer_norm(params["ln_oar"], h), PackedKV(kp, ks),
+                        PackedKV(vp, vs))
+            h, kv_k, kv_v = fused(packed, x, kv_k, kv_v, cache_len, n_head=H)
+            return nn.layer_norm(params["ln_oar"], h), kv_k, kv_v
+
+    def _kernel(self, params: Params, x: torch.Tensor, kv_k):
+        """`oar_step`'s dispatch → (the kernel's name in KERNELS, its
+        function or None for the eager body, the weights it takes).  On the
+        nibble-packed int4 cache (rollout.py:332-438), with the fused
+        kernels on, Q = 1 goes to v5i4 and 1 < Q·H <= 128 to v5mqi4 (w4i4 /
+        w4mqi4 for W4A8 packing); otherwise the eager body dequantizes the
+        prefix per layer and re-quantizes the new rows per (row, head)."""
         cfg = self.config
         B, Q, H = x.shape[0], x.shape[1], cfg.n_head
         if isinstance(kv_k, PackedKV):
-            return self._oar_step_int4(params, x, kv_k, kv_v, cache_len)
+            if (cfg.fused_oar_kernel and "oar_packed" in params
+                    and Q * H <= 128):
+                packed = params["oar_packed"]
+                if "wqp4" in packed:
+                    return (("w4i4", dk.fused_decode_step_w4i4, packed)
+                            if Q == 1 else
+                            ("w4mqi4", dk.fused_decode_step_w4mqi4, packed))
+                return (("v5i4", dk.fused_decode_step_v5i4, packed)
+                        if Q == 1 else
+                        ("v5mqi4", dk.fused_decode_step_v5mqi4, packed))
+            return "eager", None, None
         packed = params.get("oar_packed") if cfg.fused_oar_kernel else None
         int8 = kv_k.dtype == torch.int8
-        fused = None
         if packed is not None and Q == 1:
             if not int8:
-                fused = dk.fused_decode_step_v2
-            elif "wqp4" in packed:                 # W4A8 packing
-                fused = dk.fused_decode_step_w4
-            elif kv_k.ndim == 4 and cfg.oar_kernel_version == 7 \
+                return "v2", dk.fused_decode_step_v2, packed
+            if "wqp4" in packed:                   # W4A8 packing
+                return "w4", dk.fused_decode_step_w4, packed
+            if kv_k.ndim == 4 and cfg.oar_kernel_version == 7 \
                     and B * H <= 128 and not cfg.oar_batch_block:
-                fused = dk.fused_decode_step_v7
-            elif kv_k.ndim == 4:
-                fused = dk.fused_decode_step_v5
-            elif "wfca" in packed:                 # pack_fused_oar_v4
-                fused = dk.fused_decode_step_v4
-            else:
-                fused = dk.fused_decode_step_v3
-        elif packed is not None and 1 < Q and Q * H <= 128 \
+                return "v7", dk.fused_decode_step_v7, packed
+            if kv_k.ndim == 4:
+                return "v5", dk.fused_decode_step_v5, packed
+            if "wfca" in packed:                   # pack_fused_oar_v4
+                return "v4", dk.fused_decode_step_v4, packed
+            return "v3", dk.fused_decode_step_v3, packed
+        if packed is not None and 1 < Q and Q * H <= 128 \
                 and kv_k.ndim == 4 and int8:
-            fused = (dk.fused_decode_step_w4mq if "wqp4" in packed
-                     else dk.fused_decode_step_v5mq)
-        elif self.runs_v1(params) and Q == 1 \
+            return (("w4mq", dk.fused_decode_step_w4mq, packed)
+                    if "wqp4" in packed else
+                    ("v5mq", dk.fused_decode_step_v5mq, packed))
+        if self.runs_v1(params) and Q == 1 \
                 and kv_k.dtype in dk.DENSE_KV_DTYPES[:2]:
             if self.oar_tp(params) is not None:
                 raise ValueError(
@@ -252,11 +315,8 @@ class Rollout:
                     "kernel runs the whole head set on every rank, as GSPMD "
                     "replicates JAX's custom call; gather the OAR whole "
                     "(Generator(spmd='gspmd') does)")
-            fused, packed = dk.fused_decode_step, params["oar"]
-        if fused is not None:
-            h, kv_k, kv_v = fused(packed, x, kv_k, kv_v, cache_len, n_head=H)
-            return nn.layer_norm(params["ln_oar"], h), kv_k, kv_v
-        return self._oar_step_eager(params, x, kv_k, kv_v, cache_len)
+            return "v1", dk.fused_decode_step, params["oar"]
+        return "eager", None, None
 
     def _oar_step_eager(self, params, x, kv_k, kv_v, cache_len: int):
         """The reference's multi-row XLA body: every layer attends [prefix
@@ -325,30 +385,6 @@ class Rollout:
             store(kv_v, l, v_new)
         return nn.layer_norm(params["ln_oar"], h), kv_k, kv_v
 
-    def _oar_step_int4(self, params: Params, x: torch.Tensor,
-                       kv_k: PackedKV, kv_v: PackedKV, cache_len: int):
-        """oar_step on the nibble-packed int4 cache (rollout.py:332-438).
-        With the fused kernels on, Q = 1 goes to v5i4 and 1 < Q·H <= 128 to
-        v5mqi4 (w4i4 / w4mqi4 for W4A8 packing).  Otherwise the eager body
-        dequantizes the prefix per layer and re-quantizes the new rows per
-        (row, head)."""
-        cfg = self.config
-        Q, H = x.shape[1], cfg.n_head
-        if (cfg.fused_oar_kernel and "oar_packed" in params
-                and Q * H <= 128):
-            if "wqp4" in params["oar_packed"]:
-                fused = (dk.fused_decode_step_w4i4 if Q == 1
-                         else dk.fused_decode_step_w4mqi4)
-            else:
-                fused = (dk.fused_decode_step_v5i4 if Q == 1
-                         else dk.fused_decode_step_v5mqi4)
-            h, kp, vp, ks, vs = fused(params["oar_packed"], x, kv_k.packed,
-                                      kv_v.packed, kv_k.scale, kv_v.scale,
-                                      cache_len, n_head=H)
-            return (nn.layer_norm(params["ln_oar"], h), PackedKV(kp, ks),
-                    PackedKV(vp, vs))
-        return self._oar_step_eager(params, x, kv_k, kv_v, cache_len)
-
     def _embed_token(self, params: Params, mod: str,
                      token: torch.Tensor) -> torch.Tensor:
         """token → next-step OAR input embedding (no positional terms)."""
@@ -415,17 +451,23 @@ class Rollout:
     def _decode_plain_segment(self, params, mod, seg, state: OarState,
                               prior_seq, head_name, generator):
         """Sample a contiguous run of same-modality content positions."""
-        sampler = self._samplers[mod]
+        sampler, hook = self._samplers[mod], self.draw_hook
         tokens = []
         prev = state.prev_emb
         for i in range(seg.content_len):
             p = seg.content_start + i
             h, _, _ = self.oar_step(params, prev, state.kv_k, state.kv_v,
                                     cache_len=p - 1)
-            token = sampler(generator,
-                            self.model.head(params, head_name, h[:, -1]))
-            prev = (self._embed_token(params, mod, token)[:, None, :]
-                    + prior_seq[:, p:p + 1]).to(prev.dtype)
+            with span("umgen.glue", mod):
+                with span("umgen.head"):
+                    logits = self.model.head(params, head_name, h[:, -1])
+                with span("umgen.sample", "ar"):
+                    token = sampler(generator, logits)
+                if hook is not None:
+                    hook(mod, "ar", p, token)
+                with span("umgen.embed"):
+                    prev = (self._embed_token(params, mod, token)[:, None, :]
+                            + prior_seq[:, p:p + 1]).to(prev.dtype)
             tokens.append(token)
         return state._replace(prev_emb=prev), torch.stack(tokens, dim=1)
 
@@ -461,7 +503,7 @@ class Rollout:
           collides, or arrives past 30 boxes, has its 11 tokens rewritten
           to <pad> (already-written KV is not recomputed)."""
         cfg = self.config
-        sampler = self._samplers["bbox3d"]
+        sampler, hook = self._samplers["bbox3d"], self.draw_hook
         pad = cfg.bbox3d_vocab_size - 1
         dev = state.prev_emb.device
         B = state.prev_emb.shape[0]
@@ -481,44 +523,63 @@ class Rollout:
             p = seg.content_start + i
             h, _, _ = self.oar_step(params, prev, state.kv_k, state.kv_v,
                                     cache_len=p - 1)
-            tok_ar = sampler(generator, self.model.head(
-                params, "head_ar_bbox3d", h[:, -1]))
-            prev_tok = prev_frame_bbox[:, i]
-            is_ctrl = control_mask[:, (i + 1) // 11]
-            tar_logits = tar_box_logits[:, i]
-            nopad = tar_logits.clone()
-            nopad[:, -1] = float("-inf")
-            token = torch.where(is_ctrl, sampler(generator, nopad), tok_ar)
-            if cfg.merge_ar_tar and not cfg.only_ar:
-                tok_tar = sampler(generator, tar_logits)
-                merge = (token == pad) & (prev_tok != pad) & ~is_ctrl
-                token = torch.where(merge, tok_tar, token)
-            if cfg.no_born:
-                token = torch.where(prev_tok == pad,
-                                    torch.full_like(token, pad), token)
-            win = torch.cat([win[:, 1:], token[:, None]], dim=1)
-            tokens[:, i] = token
+            with span("umgen.glue", "bbox3d"):
+                with span("umgen.head"):
+                    logits = self.model.head(params, "head_ar_bbox3d",
+                                             h[:, -1])
+                with span("umgen.sample", "ar"):
+                    tok_ar = sampler(generator, logits)
+                if hook is not None:
+                    hook("bbox3d", "ar", p, tok_ar)
+                with span("umgen.rules"):
+                    prev_tok = prev_frame_bbox[:, i]
+                    is_ctrl = control_mask[:, (i + 1) // 11]
+                    tar_logits = tar_box_logits[:, i]
+                    nopad = tar_logits.clone()
+                    nopad[:, -1] = float("-inf")
+                    with span("umgen.sample", "control"):
+                        tok_ctrl = sampler(generator, nopad)
+                    if hook is not None:
+                        hook("bbox3d", "control", p, tok_ctrl)
+                    token = torch.where(is_ctrl, tok_ctrl, tok_ar)
+                    if cfg.merge_ar_tar and not cfg.only_ar:
+                        with span("umgen.sample", "tar"):
+                            tok_tar = sampler(generator, tar_logits)
+                        if hook is not None:
+                            hook("bbox3d", "tar", p, tok_tar)
+                        merge = (token == pad) & (prev_tok != pad) & ~is_ctrl
+                        token = torch.where(merge, tok_tar, token)
+                    if cfg.no_born:
+                        token = torch.where(prev_tok == pad,
+                                            torch.full_like(token, pad), token)
+                    win = torch.cat([win[:, 1:], token[:, None]], dim=1)
+                    tokens[:, i] = token
 
-            if cfg.rule_constrain and i % 11 == 10:
-                attr = torch.clamp(win[:, :10], 0, 1023)
-                cand = buf["agent_bin_mid"][attr] * buf["agent_span"] \
-                    + buf["agent_lo"]
-                collide = candidate_collides(cand, boxes, bvalid)
-                alive = token != pad
-                kill = alive & (prev_tok == pad) & (collide | (nbox + 1 > 30))
-                keep = alive & ~kill
-                put = (slots[None] == nbox[:, None]) & keep[:, None]
-                boxes = torch.where(put[..., None], cand[:, None], boxes)
-                bvalid = bvalid | put
-                nbox = nbox + keep.long()
-                tokens[:, i - 10:i + 1] = torch.where(
-                    kill[:, None], torch.full_like(win, pad),
-                    tokens[:, i - 10:i + 1])
-                token = torch.where(kill, torch.full_like(token, pad), token)
-                win = torch.where(kill[:, None], torch.full_like(win, pad),
-                                  win)
-            prev = (self._embed_token(params, "bbox3d", token)[:, None, :]
-                    + prior_seq[:, p:p + 1]).to(prev.dtype)
+                    if cfg.rule_constrain and i % 11 == 10:
+                        attr = torch.clamp(win[:, :10], 0, 1023)
+                        cand = buf["agent_bin_mid"][attr] \
+                            * buf["agent_span"] + buf["agent_lo"]
+                        collide = candidate_collides(cand, boxes, bvalid)
+                        alive = token != pad
+                        kill = alive & (prev_tok == pad) \
+                            & (collide | (nbox + 1 > 30))
+                        keep = alive & ~kill
+                        put = (slots[None] == nbox[:, None]) & keep[:, None]
+                        boxes = torch.where(put[..., None], cand[:, None],
+                                            boxes)
+                        bvalid = bvalid | put
+                        nbox = nbox + keep.long()
+                        tokens[:, i - 10:i + 1] = torch.where(
+                            kill[:, None], torch.full_like(win, pad),
+                            tokens[:, i - 10:i + 1])
+                        token = torch.where(kill, torch.full_like(token, pad),
+                                            token)
+                        win = torch.where(kill[:, None],
+                                          torch.full_like(win, pad), win)
+                with span("umgen.embed"):
+                    prev = (self._embed_token(params, "bbox3d",
+                                              token)[:, None, :]
+                            + prior_seq[:, p:p + 1]).to(prev.dtype)
         return state._replace(prev_emb=prev), tokens
 
     # ------------------------------------------------------------------
@@ -530,106 +591,116 @@ class Rollout:
                       control_mask: torch.Tensor, generator,
                       forced_tokens: Optional[Dict[str, torch.Tensor]] = None
                       ) -> FrameOutputs:
-        """The OAR decode of one frame given its TAR priors."""
-        cfg, lo = self.config, self.layout
-        B = prior_seq.shape[0]
-        dev = prior_seq.device
-        dt = torch_dtype(cfg.dtype)
-        tar_box_logits = None
-        if any(s.mod == "bbox3d" for s in lo.segments):
-            bseg = lo.segment("bbox3d")
-            tar_box_logits = self.model.tar_bbox_logits(   # [B, 660, V]
-                params, prior_seq[:, bseg.start:bseg.content_end])
+        """The OAR decode of one frame given its TAR priors (the span
+        `umgen.oar`)."""
+        with span("umgen.oar"):
+            cfg, lo = self.config, self.layout
+            B = prior_seq.shape[0]
+            dev = prior_seq.device
+            dt = torch_dtype(cfg.dtype)
+            tar_box_logits = None
+            if any(s.mod == "bbox3d" for s in lo.segments):
+                bseg = lo.segment("bbox3d")
+                tar_box_logits = self.model.tar_bbox_logits(   # [B, 660, V]
+                    params, prior_seq[:, bseg.start:bseg.content_end])
 
-        kv_k, kv_v = self.init_kv(B, device=dev,
-                                  n_head=self.oar_heads(params))
-        # prefill: [task, pose_bos, p1, p2, p3, pose_eos]
-        pseg = lo.segment("pose")
-        task_emb = params["tske"][TASK_NAME_ID[cfg.task]][None, None].expand(
-            B, 1, cfg.n_embd)
-        prefill = torch.cat([task_emb, self._aux_emb(params, pseg.bos, B),
-                             self._embed_token(params, "pose", ego_tokens),
-                             self._aux_emb(params, pseg.eos, B)],
-                            dim=1).to(dt)
-        n_pre = prefill.shape[1]
-        self.oar_step(params, prefill + prior_seq[:, :n_pre], kv_k, kv_v,
-                      cache_len=0)
+            kv_k, kv_v = self.init_kv(B, device=dev,
+                                      n_head=self.oar_heads(params))
+            # prefill: [task, pose_bos, p1, p2, p3, pose_eos]
+            pseg = lo.segment("pose")
+            task_emb = params["tske"][TASK_NAME_ID[cfg.task]][
+                None, None].expand(B, 1, cfg.n_embd)
+            prefill = torch.cat([task_emb, self._aux_emb(params, pseg.bos, B),
+                                 self._embed_token(params, "pose", ego_tokens),
+                                 self._aux_emb(params, pseg.eos, B)],
+                                dim=1).to(dt)
+            n_pre = prefill.shape[1]
+            self.oar_step(params, prefill + prior_seq[:, :n_pre], kv_k, kv_v,
+                          cache_len=0)
 
-        tokens = torch.zeros(B, lo.seq_len + 1, dtype=torch.long, device=dev)
-        tokens[:, pseg.start] = pseg.bos
-        tokens[:, pseg.start + 1:pseg.end] = ego_tokens
-        tokens[:, pseg.end] = pseg.eos
+            tokens = torch.zeros(B, lo.seq_len + 1, dtype=torch.long,
+                                 device=dev)
+            tokens[:, pseg.start] = pseg.bos
+            tokens[:, pseg.start + 1:pseg.end] = ego_tokens
+            tokens[:, pseg.end] = pseg.eos
 
-        segs = [s for s in lo.segments if s.mod != "pose"]
-        state = OarState(kv_k, kv_v,
-                         (self._aux_emb(params, segs[0].bos, B)
-                          + prior_seq[:, segs[0].start:segs[0].start + 1]
-                          ).to(dt))
-        head_for = {"map": "head_ar_map", "image": "head_ar_img",
-                    "bbox3d": "head_ar_bbox3d"}
-        # speculative decoding drafts from the TAR heads (not under top-p)
-        spec_k = cfg.speculative_k if cfg.sample_method in ("topk",
-                                                            "greedy") else 0
-        greedy = cfg.sample_method == "greedy"
-        tar_head_for = {"map": "head_tar_map", "image": "head_tar_img"}
-        sample_k_for = {"map": cfg.top_k_map, "image": cfg.top_k_image}
-        chunks = accepted = 0                 # speculative telemetry
-        forced_tokens = forced_tokens or {}
-        for si, seg in enumerate(segs):
-            tokens[:, seg.start] = seg.bos
-            forced = forced_tokens.get(seg.mod)
-            bbox_spec = (seg.mod == "bbox3d" and spec_k > 0
-                         and cfg.speculative_bbox and forced is None)
-            # the view's rows (and so the S-blocking) are the reference's:
-            # + K slack rows wherever a segment may be speculated
-            kv_len = min(seg.end + (spec_k if seg.mod != "bbox3d"
-                                    or bbox_spec else 0),
-                         _kv_rows(state.kv_k))
-            part = self._sliced(state, kv_len)
-            tel = None
-            if forced is not None:
-                part, seg_tokens = self._decode_forced_segment(
-                    params, seg.mod, seg, part, prior_seq, forced)
-            elif bbox_spec:
-                part, seg_tokens, tel = spec.decode_bbox_segment_speculative(
-                    self, params, seg, part, prior_seq, prev_frame_bbox,
-                    tar_box_logits, control_mask, K=spec_k, greedy=greedy,
-                    generator=generator)
-            elif seg.mod != "bbox3d" and spec_k > 0:
-                part, seg_tokens, tel = spec.decode_segment_speculative(
-                    self, params, seg, part, prior_seq, head_for[seg.mod],
-                    tar_head_for[seg.mod], k=sample_k_for[seg.mod],
-                    temp=cfg.sfmx_temp, K=spec_k, greedy=greedy,
-                    generator=generator)
-            elif seg.mod == "bbox3d":
-                # the merge rule reads the control-OVERWRITTEN last frame
-                part, seg_tokens = self._decode_bbox_segment(
-                    params, seg, part, prior_seq, prev_frame_bbox,
-                    tar_box_logits, control_mask, generator)
-            else:
-                part, seg_tokens = self._decode_plain_segment(
-                    params, seg.mod, seg, part, prior_seq, head_for[seg.mod],
-                    generator)
-            state = self._unsliced(state, part)
-            if tel is not None:
-                chunks, accepted = chunks + tel.chunks, accepted + tel.accepted
-            tokens[:, seg.content_start:seg.content_end + 1] = seg_tokens
-            tokens[:, seg.end] = seg.eos
+            segs = [s for s in lo.segments if s.mod != "pose"]
+            state = OarState(kv_k, kv_v,
+                             (self._aux_emb(params, segs[0].bos, B)
+                              + prior_seq[:, segs[0].start:segs[0].start + 1]
+                              ).to(dt))
+            head_for = {"map": "head_ar_map", "image": "head_ar_img",
+                        "bbox3d": "head_ar_bbox3d"}
+            # speculative decoding drafts from the TAR heads (not under top-p)
+            spec_k = (cfg.speculative_k
+                      if cfg.sample_method in ("topk", "greedy") else 0)
+            greedy = cfg.sample_method == "greedy"
+            tar_head_for = {"map": "head_tar_map", "image": "head_tar_img"}
+            sample_k_for = {"map": cfg.top_k_map, "image": cfg.top_k_image}
+            chunks = accepted = 0                 # speculative telemetry
+            forced_tokens = forced_tokens or {}
+            for si, seg in enumerate(segs):
+                tokens[:, seg.start] = seg.bos
+                forced = forced_tokens.get(seg.mod)
+                bbox_spec = (seg.mod == "bbox3d" and spec_k > 0
+                             and cfg.speculative_bbox and forced is None)
+                # the view's rows (and so the S-blocking) are the reference's:
+                # + K slack rows wherever a segment may be speculated
+                kv_len = min(seg.end + (spec_k if seg.mod != "bbox3d"
+                                        or bbox_spec else 0),
+                             _kv_rows(state.kv_k))
+                part = self._sliced(state, kv_len)
+                tel = None
+                if forced is not None:
+                    part, seg_tokens = self._decode_forced_segment(
+                        params, seg.mod, seg, part, prior_seq, forced)
+                elif bbox_spec:
+                    part, seg_tokens, tel = \
+                        spec.decode_bbox_segment_speculative(
+                            self, params, seg, part, prior_seq,
+                            prev_frame_bbox, tar_box_logits, control_mask,
+                            K=spec_k, greedy=greedy, generator=generator)
+                elif seg.mod != "bbox3d" and spec_k > 0:
+                    part, seg_tokens, tel = spec.decode_segment_speculative(
+                        self, params, seg, part, prior_seq, head_for[seg.mod],
+                        tar_head_for[seg.mod], k=sample_k_for[seg.mod],
+                        temp=cfg.sfmx_temp, K=spec_k, greedy=greedy,
+                        generator=generator)
+                elif seg.mod == "bbox3d":
+                    # the merge rule reads the control-OVERWRITTEN last frame
+                    part, seg_tokens = self._decode_bbox_segment(
+                        params, seg, part, prior_seq, prev_frame_bbox,
+                        tar_box_logits, control_mask, generator)
+                else:
+                    part, seg_tokens = self._decode_plain_segment(
+                        params, seg.mod, seg, part, prior_seq,
+                        head_for[seg.mod], generator)
+                state = self._unsliced(state, part)
+                if (forced is not None or tel is not None) \
+                        and self.draw_hook is not None:
+                    self.draw_hook(seg.mod, "served", seg.content_start,
+                                   seg_tokens)
+                if tel is not None:
+                    chunks += tel.chunks
+                    accepted += tel.accepted
+                tokens[:, seg.content_start:seg.content_end + 1] = seg_tokens
+                tokens[:, seg.end] = seg.eos
 
-            if si + 1 < len(segs):
-                # push [embed(last sampled), EOS] to extend the cache to
-                # input index seg.end, then hand the next segment its BOS
-                nxt = segs[si + 1]
-                eos_emb = (self._aux_emb(params, seg.eos, B)
-                           + prior_seq[:, seg.end:seg.end + 1]).to(dt)
-                self.oar_step(params, torch.cat([state.prev_emb, eos_emb],
-                                                dim=1),
-                              state.kv_k, state.kv_v, cache_len=seg.end - 1)
-                state = state._replace(prev_emb=(
-                    self._aux_emb(params, nxt.bos, B)
-                    + prior_seq[:, nxt.start:nxt.start + 1]).to(dt))
-        return FrameOutputs(tokens=tokens[:, 1:], pose_tokens=ego_tokens,
-                            spec_chunks=chunks, spec_accepted=accepted)
+                if si + 1 < len(segs):
+                    # push [embed(last sampled), EOS] to extend the cache to
+                    # input index seg.end, then hand the next segment its BOS
+                    nxt = segs[si + 1]
+                    eos_emb = (self._aux_emb(params, seg.eos, B)
+                               + prior_seq[:, seg.end:seg.end + 1]).to(dt)
+                    self.oar_step(params,
+                                  torch.cat([state.prev_emb, eos_emb], dim=1),
+                                  state.kv_k, state.kv_v,
+                                  cache_len=seg.end - 1)
+                    state = state._replace(prev_emb=(
+                        self._aux_emb(params, nxt.bos, B)
+                        + prior_seq[:, nxt.start:nxt.start + 1]).to(dt))
+            return FrameOutputs(tokens=tokens[:, 1:], pose_tokens=ego_tokens,
+                                spec_chunks=chunks, spec_accepted=accepted)
 
     def _control_setup(self, inputs, control_bbox):
         """Agent-control overwrite of the window's newest frame: inputs
@@ -661,21 +732,20 @@ class Rollout:
         (`control_bbox` [B, 660], -1 where free), the whole window through
         every TAR stack, and the OAR decode of its last frame's priors."""
         model = self.model
-        ego_logits = None
-        if pose_override is None:
-            ego_logits = model.ego_logits(params, inputs)
-            ego_tokens = self._samplers["pose"](generator, ego_logits)
-        else:
-            ego_tokens = pose_override
-        shifted = dict(inputs)
-        shifted["pose"] = torch.cat([inputs["pose"], ego_tokens[:, None]],
-                                    dim=1)[:, 1:]
-        shifted, last_bbox, control_mask = self._control_setup(shifted,
-                                                               control_bbox)
-        pri = model.tar_priors(params, shifted)
-        out = self._finish_frame(params, pri["prior_seq"], ego_tokens,
-                                 last_bbox, control_mask, generator,
-                                 forced_tokens=forced_tokens)
+        with span("umgen.frame", "recompute", inputs["pose"].shape[0]):
+            ego_logits = None
+            if pose_override is None:
+                ego_logits = model.ego_logits(params, inputs)
+            ego_tokens = self._ego(generator, ego_logits, pose_override)
+            shifted = dict(inputs)
+            shifted["pose"] = torch.cat([inputs["pose"], ego_tokens[:, None]],
+                                        dim=1)[:, 1:]
+            shifted, last_bbox, control_mask = self._control_setup(
+                shifted, control_bbox)
+            pri = model.tar_priors(params, shifted)
+            out = self._finish_frame(params, pri["prior_seq"], ego_tokens,
+                                     last_bbox, control_mask, generator,
+                                     forced_tokens=forced_tokens)
         return out._replace(ego_logits=ego_logits,
                             prior_seq=pri["prior_seq"])
 
@@ -687,23 +757,23 @@ class Rollout:
         (starting at absolute frame 0) into the rings, then decode one
         frame.  Returns (FrameOutputs, cache)."""
         model = self.model
-        T = inputs["pose"].shape[1]
-        # the control overwrite persists into the rings (the reference
-        # mutates its window in place)
-        inputs, last_bbox, control_mask = self._control_setup(inputs,
-                                                              control_bbox)
-        ego_logits, cache = model.prefill_ego_cache(params, inputs, {})
-        ego_tokens = (self._samplers["pose"](generator, ego_logits)
-                      if pose_override is None else pose_override)
-        shifted = dict(inputs)
-        shifted["pose"] = torch.cat([inputs["pose"], ego_tokens[:, None]],
-                                    dim=1)[:, 1:]
-        pri = model.prefill_tar_caches(params, shifted, cache)
-        cache = pri["cache"]
-        cache["frames"] = T
-        out = self._finish_frame(params, pri["prior_seq"], ego_tokens,
-                                 last_bbox, control_mask, generator,
-                                 forced_tokens=forced_tokens)
+        B, T = inputs["pose"].shape[:2]
+        with span("umgen.frame", "prefill", B, T):
+            # the control overwrite persists into the rings (the reference
+            # mutates its window in place)
+            inputs, last_bbox, control_mask = self._control_setup(
+                inputs, control_bbox)
+            ego_logits, cache = model.prefill_ego_cache(params, inputs, {})
+            ego_tokens = self._ego(generator, ego_logits, pose_override)
+            shifted = dict(inputs)
+            shifted["pose"] = torch.cat([inputs["pose"], ego_tokens[:, None]],
+                                        dim=1)[:, 1:]
+            pri = model.prefill_tar_caches(params, shifted, cache)
+            cache = pri["cache"]
+            cache["frames"] = T
+            out = self._finish_frame(params, pri["prior_seq"], ego_tokens,
+                                     last_bbox, control_mask, generator,
+                                     forced_tokens=forced_tokens)
         return out._replace(ego_logits=ego_logits,
                             prior_seq=pri["prior_seq"]), cache
 
@@ -716,11 +786,12 @@ class Rollout:
         shifted window does).  The rings are updated in place."""
         model = self.model
         abs_frame = int(cache["frames"])
-        _, cache = model.ego_logits_cached(params, raw_frame, cache,
-                                           abs_frame)
-        shifted = dict(raw_frame, pose=next_pose[:, None, :])
-        cache = model.tar_priors_cached(params, shifted, cache,
-                                        abs_frame)["cache"]
+        with span("umgen.ingest", next_pose.shape[0], abs_frame):
+            _, cache = model.ego_logits_cached(params, raw_frame, cache,
+                                               abs_frame)
+            shifted = dict(raw_frame, pose=next_pose[:, None, :])
+            cache = model.tar_priors_cached(params, shifted, cache,
+                                            abs_frame)["cache"]
         cache["frames"] = abs_frame + 1
         return cache
 
@@ -755,19 +826,20 @@ class Rollout:
         Returns (FrameOutputs, cache); the rings are updated in place."""
         model = self.model
         abs_frame = int(cache["frames"])
-        newest_frame, last_bbox, control_mask = self._control_setup(
-            newest_frame, control_bbox)
-        ego_logits, cache = model.ego_logits_cached(params, newest_frame,
-                                                    cache, abs_frame)
-        ego_tokens = (self._samplers["pose"](generator, ego_logits)
-                      if pose_override is None else pose_override)
-        shifted = dict(newest_frame)
-        shifted["pose"] = ego_tokens[:, None]
-        pri = model.tar_priors_cached(params, shifted, cache, abs_frame)
-        cache = pri["cache"]
-        cache["frames"] = abs_frame + 1
-        out = self._finish_frame(params, pri["prior_seq"], ego_tokens,
-                                 last_bbox, control_mask, generator,
-                                 forced_tokens=forced_tokens)
+        with span("umgen.frame", "cached", newest_frame["pose"].shape[0],
+                  abs_frame + 1):
+            newest_frame, last_bbox, control_mask = self._control_setup(
+                newest_frame, control_bbox)
+            ego_logits, cache = model.ego_logits_cached(params, newest_frame,
+                                                        cache, abs_frame)
+            ego_tokens = self._ego(generator, ego_logits, pose_override)
+            shifted = dict(newest_frame)
+            shifted["pose"] = ego_tokens[:, None]
+            pri = model.tar_priors_cached(params, shifted, cache, abs_frame)
+            cache = pri["cache"]
+            cache["frames"] = abs_frame + 1
+            out = self._finish_frame(params, pri["prior_seq"], ego_tokens,
+                                     last_bbox, control_mask, generator,
+                                     forced_tokens=forced_tokens)
         return out._replace(ego_logits=ego_logits,
                             prior_seq=pri["prior_seq"]), cache

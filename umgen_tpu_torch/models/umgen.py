@@ -62,6 +62,7 @@ from umgen_tpu_torch.layout import SequenceLayout
 from umgen_tpu_torch.models import modules as nn
 from umgen_tpu_torch.ops.warp import affine_warp_map
 from umgen_tpu_torch.params import torch_dtype
+from umgen_tpu_torch.runtime.profiler import span
 
 Params = Dict[str, Any]
 
@@ -606,14 +607,16 @@ class UMGen:
         """Recompute mode: the window's last-frame ego logits [B, 3, 1024]
         (the reference's forward_ego_net + head; the queries of the
         earlier frames, which it also computes, are never read)."""
-        return self._ego_window(params, inputs, rings=False)[0]
+        with span("umgen.ego"):
+            return self._ego_window(params, inputs, rings=False)[0]
 
     def prefill_ego_cache(self, params, inputs, cache):
         """Ingest the raw window {mod: [B, T, len]} into the ego rings →
         (last-frame ego logits [B, 3, 1024], cache)."""
         cache = dict(cache)
-        logits, cache["ego_tar"] = self._ego_window(params, inputs,
-                                                    rings=True)
+        with span("umgen.ego"):
+            logits, cache["ego_tar"] = self._ego_window(params, inputs,
+                                                        rings=True)
         return logits, cache
 
     def ego_logits_cached(self, params, frame_inputs, cache, abs_frame: int):
@@ -621,16 +624,18 @@ class UMGen:
         through the ego rings → (logits [B, 3, 1024], cache)."""
         slot = abs_frame % self.t_max
         n_valid = min(abs_frame + 1, self.t_max)
-        emb, _ = self._tar_input(params, frame_inputs, self.layout.mod_order,
-                                 map_grid_pe=False, pose_diff=None,
-                                 warp=False, t_offset=abs_frame)
         cache = dict(cache)
-        ctx, cache["ego_tar"] = self._run_tar_stack_cached(
-            params, "ego_tar", "ln_ego_tar", emb[:, 0], cache["ego_tar"],
-            slot, n_valid)
-        q = self._ego_queries(params, ctx, ctx.shape[0], 1,
-                              t_offset=abs_frame)
-        return self.head(params, "head_ego", q[:, 0]), cache
+        with span("umgen.ego"):
+            emb, _ = self._tar_input(params, frame_inputs,
+                                     self.layout.mod_order, map_grid_pe=False,
+                                     pose_diff=None, warp=False,
+                                     t_offset=abs_frame)
+            ctx, cache["ego_tar"] = self._run_tar_stack_cached(
+                params, "ego_tar", "ln_ego_tar", emb[:, 0], cache["ego_tar"],
+                slot, n_valid)
+            q = self._ego_queries(params, ctx, ctx.shape[0], 1,
+                                  t_offset=abs_frame)
+            return self.head(params, "head_ego", q[:, 0]), cache
 
     def _window_priors(self, params, shifted_inputs, cache=None):
         """The shifted window through the trunk / map / box stacks →
@@ -690,14 +695,16 @@ class UMGen:
         pose slot of frame t holding the action out of it, the last one the
         action being generated) through every TAR stack → {"prior_seq" [B,
         2207, D], "pose_diff" [B, T, 3]} of its last frame."""
-        out = self._window_priors(params, shifted_inputs)
+        with span("umgen.tar"):
+            out = self._window_priors(params, shifted_inputs)
         return {"prior_seq": out["prior_seq"], "pose_diff": out["pose_diff"]}
 
     def prefill_tar_caches(self, params, shifted_inputs, cache):
         """Ingest the shifted window into the trunk/map/box rings →
         {"prior_seq" [B, 2207, D], "pose_diff", "cache"} for its last
         frame."""
-        return self._window_priors(params, shifted_inputs, cache)
+        with span("umgen.tar"):
+            return self._window_priors(params, shifted_inputs, cache)
 
     def tar_priors_cached(self, params, frame_inputs, cache, abs_frame: int):
         """One-frame TAR cascade against the rings.  frame_inputs {mod:
@@ -705,7 +712,6 @@ class UMGen:
         {"prior_seq", "pose_diff", "cache"}."""
         slot = abs_frame % self.t_max
         n_valid = min(abs_frame + 1, self.t_max)
-        pose_diff = self.decode_pose(params, frame_inputs["pose"])
         cache = dict(cache)
 
         def frame_emb(mods, grid_pe):
@@ -720,5 +726,7 @@ class UMGen:
                 params, name, ln, emb, cache[name], slot, n_valid)
             return out
 
-        prior = self._priors(params, frame_emb, run_stack)
+        with span("umgen.tar"):
+            pose_diff = self.decode_pose(params, frame_inputs["pose"])
+            prior = self._priors(params, frame_emb, run_stack)
         return {"prior_seq": prior, "pose_diff": pose_diff, "cache": cache}

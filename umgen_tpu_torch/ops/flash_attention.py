@@ -24,6 +24,7 @@ import torch
 
 from umgen_tpu_torch.models.modules import sdpa
 from umgen_tpu_torch.ops import _cuda
+from umgen_tpu_torch.runtime.profiler import span
 
 HEAD_DIM = 48
 # launches of the CUDA kernel (CPU calls do not count); reset by callers
@@ -42,40 +43,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool) -> torch.Tensor:
     """softmax(q·kᵀ/√Dh)·v for q [B, Sq, H, Dh], k/v [B, Sk, H, Dh];
     causal masks bottom-right aligned.  Raises under autograd (no
-    backward)."""
+    backward).  The call is the span `umgen.flash`."""
     _cuda.refuse_autograd("flash_attention", q, k, v)
-    if not q.is_cuda:
-        return flash_attention_plain(q, k, v, causal)
     B, Sq, H, Dh = q.shape
     Sk = k.shape[1]
-    if Dh != HEAD_DIM:
-        raise ValueError(f"flash_attention kernel takes head_dim "
-                         f"{HEAD_DIM}, got {Dh}")
-    if k.shape != (B, Sk, H, Dh) or v.shape != k.shape:
-        raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} "
-                         f"do not match q {tuple(q.shape)}")
-    if B * H > 65535:
-        raise ValueError(f"B*H = {B * H} exceeds the kernel's grid")
-    strides = []
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        # views of a fused qkv projection are taken as they are: heads
-        # Dh apart, dims contiguous, 16-byte aligned rows (the K/V tensor
-        # maps need 16-byte aligned bases and strides)
-        if not t.is_cuda or t.dtype != torch.bfloat16:
-            raise ValueError(f"flash_attention {name}: expected a CUDA "
-                             f"bf16 tensor, got {t.dtype} on {t.device}")
-        sb, ss, sh, sd = t.stride()
-        if sd != 1 or sh != Dh or ss % 8 or sb % 8 or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention {name}: unsupported layout "
-                             f"(strides {t.stride()})")
-        strides += [sb, ss]
-    out = torch.empty(B, Sq, H, Dh, dtype=q.dtype, device=q.device)
-    fn = _cuda.function("umgen_flash_attention",
-                        [_cuda.VOIDP] * 4 + [_cuda.INT] * 5
-                        + [_cuda.FLOAT] + [_cuda.INT64] * 6 + [_cuda.VOIDP])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-             Sq, Sk, int(causal), 1.0 / math.sqrt(Dh), *strides,
-             _cuda.stream_ptr(q))
-    _cuda.check(err, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
-    return out
+    with span("umgen.flash", B, Sq, Sk, causal, H, Dh):
+        if not q.is_cuda:
+            return flash_attention_plain(q, k, v, causal)
+        if Dh != HEAD_DIM:
+            raise ValueError(f"flash_attention kernel takes head_dim "
+                             f"{HEAD_DIM}, got {Dh}")
+        if k.shape != (B, Sk, H, Dh) or v.shape != k.shape:
+            raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} "
+                             f"do not match q {tuple(q.shape)}")
+        if B * H > 65535:
+            raise ValueError(f"B*H = {B * H} exceeds the kernel's grid")
+        strides = []
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            # views of a fused qkv projection are taken as they are: heads
+            # Dh apart, dims contiguous, 16-byte aligned rows (the K/V tensor
+            # maps need 16-byte aligned bases and strides)
+            if not t.is_cuda or t.dtype != torch.bfloat16:
+                raise ValueError(f"flash_attention {name}: expected a CUDA "
+                                 f"bf16 tensor, got {t.dtype} on {t.device}")
+            sb, ss, sh, sd = t.stride()
+            if sd != 1 or sh != Dh or ss % 8 or sb % 8 or t.data_ptr() % 16:
+                raise ValueError(f"flash_attention {name}: unsupported layout "
+                                 f"(strides {t.stride()})")
+            strides += [sb, ss]
+        out = torch.empty(B, Sq, H, Dh, dtype=q.dtype, device=q.device)
+        fn = _cuda.function("umgen_flash_attention",
+                            [_cuda.VOIDP] * 4 + [_cuda.INT] * 5
+                            + [_cuda.FLOAT] + [_cuda.INT64] * 6
+                            + [_cuda.VOIDP])
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, H, Sq, Sk, int(causal), 1.0 / math.sqrt(Dh), *strides,
+                 _cuda.stream_ptr(q))
+        _cuda.check(err, "flash_attention")
+        LAUNCHES["flash_attention"] += 1
+        return out

@@ -64,9 +64,11 @@ serves the video task's temporal-cache rollout through the dp-only
 `spmd="shard_map"` program, as the JAX CLI's does (it has no `--tp`):
 control and recompute under `--dp` are refused with JAX's reasons.
 `--profile_dir DIR` traces the scene loop with `torch.profiler` (CPU, and
-the card's kernels on a card) into a Chrome / TensorBoard trace under DIR,
-one file a rank (runtime/profiler.py).  `--oar_batch_block` (a VMEM
-blocking) is refused by decision.
+the card's kernels on a card) into a Chrome / TensorBoard trace under DIR
+that holds the program's `umgen.` spans, with the decode steps of each
+frame step by OAR kernel beside it, one file each a rank
+(runtime/profiler.py).  `--oar_batch_block` (a VMEM blocking) is refused
+by decision.
 """
 
 from __future__ import annotations

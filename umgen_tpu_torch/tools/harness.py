@@ -36,7 +36,7 @@ from umgen_tpu_torch.data.pipeline import ScenePipeline
 from umgen_tpu_torch.models.generate import Generator
 from umgen_tpu_torch.ops.collision import BoxOverlap
 from umgen_tpu_torch.ops.metrics import MMDMetric
-from umgen_tpu_torch.runtime.profiler import annotate
+from umgen_tpu_torch.runtime.profiler import span
 
 
 def _scene_name(batch: Dict) -> str:
@@ -118,7 +118,7 @@ class SceneRunner:
         scenes (the rest pads), which the timing counts."""
         n0 = len(self.gen.frame_seconds)
         t0 = time.perf_counter()
-        with annotate("umgen.rollout"):
+        with span("umgen.rollout"):
             out = self.gen.generate(cond, new_frames=new_frames,
                                     cond_frames=self.cfg.cond_frames,
                                     input_cond_frames=input_cond, **kw)
@@ -212,7 +212,7 @@ class SceneRunner:
         with open(self._token_path(name), "wb") as f:
             pickle.dump(out, f)
         try:
-            with annotate("umgen.decode"):
+            with span("umgen.decode"):
                 decoded = self.decode_tokens(out)
         except Exception as e:  # noqa: BLE001 — journal it, go on
             # scenes whose decode failed, for an offline re-decode (the
