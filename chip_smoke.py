@@ -21,7 +21,11 @@ PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
       20 w4 and 20 w4i4 steps at B = 10, of 20 v5, v2 and v1 steps at B = 1
       (v2, v1 on a bf16 cache), all at cache_len 1100, and of 20 flash calls
       at B·T = 10; v5 and v2 at B = 1 with the layer norm inside the int8
-      products and by ln_quant_kernel, in turns, h equal bit for bit;
+      products and by ln_quant_kernel, in turns, h equal bit for bit; the
+      GELU kernel (`--phases gelu`) against the plain exact-erf GELU on
+      every bf16 bit pattern and at [22070, 3072] and [44140, 3072] (the
+      cascades' MLP activations of 10 scenes and of a 20-frame window), bit
+      for bit, both timed, and the plain version's launches a call;
   (c) run the UMGen_Large cached video rollout (36-layer stacks, d = 768,
       seeded random weights on the card, one synthetic scene, B = 1, bf16
       rings, int8 decode weights) through the CLI's code path
@@ -370,6 +374,9 @@ H100_BYTES_S = 3.35e12
 H100_BF16_FLOPS = 989e12
 H100_INT8_OPS = 1979e12
 H100_FP32_FLOPS = 67e12
+# float32 instructions a second outside the tensor cores: 132 SMs x 128
+# lanes x 1.98 GHz, the FLOP/s above with a fused multiply-add counted once
+H100_FP32_INSTR_S = H100_FP32_FLOPS / 2
 
 
 def _time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -476,6 +483,29 @@ def decode_work(name, L, d, H, B, Q, cl, kv="int8"):
                          + 2 * keys * d / qk_rate
                          + 2 * keys * d / H100_BF16_FLOPS)
     return nbytes, ops_s
+
+
+# the float32 operations of one GELU element on the erfc branch it takes
+# (modules._erfc_f32): z = -x·c, z², 0.5·x and the product on every branch;
+# |z| < 1 a 7-term Horner in z² (12), z·p, 1 - (14); [1, 2) 1/z², a 9-term
+# Horner (16), exp, 1/|z|, two products, the underflow test, the reflection
+# (23); >= 2 an 8-term Horner (21)
+GELU_OPS = (4 + 14, 4 + 23, 4 + 21)
+# [B·S, 3072]: the MLP activation of one cascade block at 10 scenes, and of
+# the recompute window's 20 frames, at 2207 positions
+GELU_SHAPES = ((22070, 3072), (44140, 3072))
+
+
+def gelu_work(x):
+    """(bytes, seconds of operations at the float32 issue rate) of one GELU
+    of x: 2 bytes read and 2 written an element; the float32 operations of
+    the branch each element of x takes."""
+    az = x.float().abs() * 0.70703125
+    small = int((az < 1).sum())
+    mid = int(((az >= 1) & (az < 2)).sum())
+    ops = (GELU_OPS[0] * small + GELU_OPS[1] * mid
+           + GELU_OPS[2] * (x.numel() - small - mid))
+    return 4 * x.numel(), ops / H100_FP32_INSTR_S
 
 
 def phase_build():
@@ -600,6 +630,63 @@ def phase_flash(dev):
           "fail): " + ", ".join(f"{k} {e[0]:.3g} / {e[1]:.3g}"
                                for k, e in planted.items()))
     return rows, worst, planted, profile
+
+
+def gelu_mismatches(got, ref) -> int:
+    """Elements whose bits differ, a NaN equal to a NaN."""
+    import torch
+    nan = ref.isnan()
+    return int((got.isnan() != nan).sum()) + int(
+        (got.view(torch.int16)[~nan] != ref.view(torch.int16)[~nan]).sum())
+
+
+def gelu_max_err(got, ref) -> float:
+    """The largest |got - ref| where ref is finite (0.0 when bit for
+    bit)."""
+    fin = ref.isfinite()
+    return float((got.float()[fin] - ref.float()[fin]).abs().max())
+
+
+def phase_gelu(dev):
+    """The GELU kernel against the plain version on the card, bit for bit:
+    every bf16 bit pattern, then unit-normal activations at GELU_SHAPES,
+    each timed beside the plain version and `F.gelu` (for the record)."""
+    import torch
+    from umgen_tpu_torch.models import modules as nn
+    from umgen_tpu_torch.ops import gelu as gk
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32,
+                     device=dev).to(torch.int16).view(torch.bfloat16)
+    got, ref = gk.gelu(x), nn._gelu_plain(x)
+    every = gelu_mismatches(got, ref)
+    err = gelu_max_err(got, ref)
+    print(f"(b) gelu on all 65536 bf16 inputs: {every} elements differ from "
+          f"the plain version (max abs err {err})")
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    rows = []
+    for shape in GELU_SHAPES:
+        x = torch.randn(*shape, generator=g, device=dev).bfloat16()
+        got, ref = gk.gelu(x), nn._gelu_plain(x)
+        bad = gelu_mismatches(got, ref)
+        err = max(err, gelu_max_err(got, ref))
+        del got, ref
+        ms = _time_ms(lambda: gk.gelu(x), 50)
+        pms = _time_ms(lambda: nn._gelu_plain(x), 5, warmup=1)
+        lib_ms = _time_ms(lambda: torch.nn.functional.gelu(x), 50)
+        prof = _kernel_profile(lambda: nn._gelu_plain(x), 2)
+        plain_launches = sum(r["launches_per_call"]
+                             for r in prof["kernels"].values())
+        rows.append({"shape": list(shape), "mismatches": bad, "ms": ms,
+                     "plain_ms": pms, "library_ms": lib_ms,
+                     "plain_launches": plain_launches,
+                     **_bound(*gelu_work(x))})
+        print(f"(b) gelu {list(shape)}: {bad} elements differ; kernel "
+              f"{ms:.4f} ms, plain {pms:.3f} ms ({plain_launches:g} "
+              f"launches), F.gelu {lib_ms:.4f} ms, bound "
+              f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})")
+    if every or any(r["mismatches"] for r in rows):
+        raise AssertionError("the GELU kernel differs from the plain version")
+    return {"every_bf16": every, "max_abs_err": err, "rows": rows}
 
 
 def _first_layer(tree):
@@ -2077,7 +2164,8 @@ VOCAB = {"pose": 1024, "map": 8192, "bbox3d": 1028, "image": 8192}
 def _reset_launches():
     from umgen_tpu_torch.ops import decode_kernel as dk
     from umgen_tpu_torch.ops import flash_attention as fa
-    for counts in (fa.LAUNCHES, dk.LAUNCHES):
+    from umgen_tpu_torch.ops import gelu as gk
+    for counts in (fa.LAUNCHES, dk.LAUNCHES, gk.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -2903,6 +2991,7 @@ def phase_serving(dev, out_dir, tag="e", oar_int4=False):
     from umgen_tpu_torch.data.pipeline import ScenePipeline
     from umgen_tpu_torch.models.generate import Generator
     from umgen_tpu_torch.models.umgen import UMGen, build_buffers
+    from umgen_tpu_torch.ops import gelu as gk
     from umgen_tpu_torch.tools import evaluate
     from umgen_tpu_torch.tools.harness import SceneRunner
     args = evaluate.build_parser().parse_args(
@@ -2937,6 +3026,9 @@ def phase_serving(dev, out_dir, tag="e", oar_int4=False):
     evaluate.run_dataset(args, runner, infer_cfg, pipeline)
     secs = time.perf_counter() - t0
     launches = _launches(("w4i4", "w4mqi4") if oar_int4 else ("w4", "w4mq"))
+    gelu_launches = gk.LAUNCHES["gelu"]
+    if gelu_launches <= 0:
+        raise AssertionError("the GELU kernel never launched on the main path")
     peak = torch.cuda.max_memory_allocated()
     _check_tokens(out_dir, scenes=10, frames=21)
     [timing] = runner.timings
@@ -2950,6 +3042,7 @@ def phase_serving(dev, out_dir, tag="e", oar_int4=False):
           f"device memory {peak / 2**30:.2f} GiB; launches {launches}; "
           f"weights {setup_s:.1f} s, rollout {secs:.1f} s")
     return {"frame_seconds": frame_s, "launches": launches,
+            "gelu_launches": gelu_launches,
             "frames_per_sec": timing["frames_per_sec"],
             "max_memory_allocated": peak, "setup_s": setup_s,
             "seconds": secs}
@@ -3649,7 +3742,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", nargs="+", default=None, metavar="KEY",
                     help="run only these phases, by the key of their report "
-                    "(flash decode variants step_loops rollout reference "
+                    "(flash gelu decode variants step_loops rollout reference "
                     "serving serving_reference serving_i4 rollout_i4 "
                     "serving_i4_reference rollout_bf16kv rollout_v7 "
                     "rollout_fp8kv rollout_v1 bf16kv_reference "
@@ -3712,6 +3805,9 @@ def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
     if want("flash"):
         (report["flash"], flash_err, report["flash_planted"],
          report["flash_profile"]) = phase_flash(dev)
+    if want("gelu"):
+        report["gelu"] = phase_gelu(dev)
+        torch.cuda.empty_cache()
     cfg, packs, visible = _decode_params(dev)
     report["decode"] = {}
     if want("decode"):
@@ -3908,6 +4004,17 @@ def _phases(dev, smi, report, t_start, only, pending, work_dir) -> int:
         entry("v6", 1654, loops, cache_len=1100),
         entry("v7", 2293, slice7, B=2, cache_len=1100),
     ]
+    # the exact-erf GELU: an XLA fusion in the JAX package, no pallas_call;
+    # launches over phase e's rollout (19 ingested frames and one generated)
+    g1 = report["gelu"]["rows"][0]
+    kernels.append({
+        "name": "gelu", "route": "cuda",
+        "source": "umgen_tpu_torch/csrc/gelu.cu",
+        "replaces": "XLA's fusion of jax.nn.gelu (no pallas_call)",
+        "launches": report["serving"]["gelu_launches"],
+        "redesigned_in": None, "max_abs_err": report["gelu"]["max_abs_err"],
+        **{k: g1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")}})
     report["kernels"] = kernels
     print(smi)
     print(json.dumps({"kernels": kernels}))

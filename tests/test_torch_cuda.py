@@ -13,8 +13,10 @@ import math
 import pytest
 import torch
 
+from umgen_tpu_torch.models import modules as tnn
 from umgen_tpu_torch.ops import decode_kernel as tdk
 from umgen_tpu_torch.ops import flash_attention as tfa
+from umgen_tpu_torch.ops import gelu as tgelu
 from umgen_tpu_torch.params import _Init
 from umgen_tpu_torch.runtime.quantize import (pack_decode_weights,
                                               pack_fused_w4,
@@ -1110,6 +1112,110 @@ def test_native_collision_helper_matches_numpy(cuda_device, seed):
     got = native.collision_matrix(boxes)
     assert got.any()
     np.testing.assert_array_equal(got, collision_matrix_np(boxes))
+
+
+# ---------------------------------------------------------------------------
+# the exact-erf GELU: bit for bit the plain version run on the card
+# ---------------------------------------------------------------------------
+def _same_bits(got, ref):
+    """Equal bit for bit, a NaN equal to a NaN whatever its payload."""
+    bits = torch.int32 if ref.dtype == torch.float32 else torch.int16
+    nan = torch.isnan(ref)
+    return got.dtype == ref.dtype and torch.equal(torch.isnan(got), nan) \
+        and torch.equal(got.view(bits)[~nan], ref.view(bits)[~nan])
+
+
+def test_gelu_kernel_on_every_bf16_input(cuda_device):
+    """All 65 536 bf16 bit patterns (±0, subnormals, ±inf, NaNs) through
+    the kernel and through the plain version on the card."""
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32,
+                     device=cuda_device).to(torch.int16).view(torch.bfloat16)
+    n0 = tgelu.LAUNCHES["gelu"]
+    got = tgelu.gelu(x)
+    assert tgelu.LAUNCHES["gelu"] == n0 + 1
+    ref = tnn._gelu_plain(x)
+    torch.cuda.synchronize()
+    assert _same_bits(got, ref)
+    # the plain version's NaN at -inf (-inf · erfc(+inf) = -inf · 0)
+    special = torch.tensor([float("-inf"), float("inf"), -0.0, 0.0],
+                           dtype=torch.bfloat16, device=cuda_device)
+    out = tgelu.gelu(special).float().tolist()
+    assert math.isnan(out[0]) and out[1] == float("inf")
+    assert out[2:] == [0.0, 0.0] and math.copysign(1, out[2]) == -1
+
+
+def test_gelu_kernel_on_every_fp16_input(cuda_device):
+    """All 65 536 fp16 bit patterns through the kernel and the plain
+    version on the card."""
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32,
+                     device=cuda_device).to(torch.int16).view(torch.float16)
+    assert _same_bits(tgelu.gelu(x), tnn._gelu_plain(x))
+
+
+def test_gelu_kernel_on_every_float32_input(cuda_device):
+    """All 2^32 float32 bit patterns, in chunks of 2^27, through the kernel
+    and the plain version on the card (no rounding to x's dtype: erfc and
+    0.5·x stay float32)."""
+    chunk = 2 ** 27
+    for lo in range(-2 ** 31, 2 ** 31, chunk):
+        x = torch.arange(lo, lo + chunk, dtype=torch.int64,
+                         device=cuda_device).to(torch.int32)
+        x = x.view(torch.float32)
+        assert _same_bits(tgelu.gelu(x), tnn._gelu_plain(x)), lo
+
+
+@pytest.mark.parametrize("rows", [22070, 44140])
+def test_gelu_kernel_at_the_cells_shapes(cuda_device, rows):
+    """[B·S, 3072] activations of the two cells' cascades (10 scenes and
+    the 20-frame window at 2207 positions), every branch of erfc taken,
+    through `modules.gelu`'s dispatch."""
+    g = torch.Generator(device=cuda_device).manual_seed(rows)
+    x = (torch.randn(rows, 3072, generator=g, device=cuda_device)
+         * 2.5).bfloat16()
+    n0 = tgelu.LAUNCHES["gelu"]
+    got = tnn.gelu(x)
+    assert tgelu.LAUNCHES["gelu"] == n0 + 1
+    assert _same_bits(got, tnn._gelu_plain(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 15, 4099, 30725, 2 ** 20 + 3])
+def test_gelu_kernel_tails(cuda_device, n, dtype):
+    """Lengths that leave elements past the 16-byte vectors (8 bf16, 4
+    float32 a vector), and a grid smaller than the cap, and one at it."""
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    x = (torch.randn(n, generator=g, device=cuda_device) * 3).to(dtype)
+    assert _same_bits(tgelu.gelu(x), tnn._gelu_plain(x))
+
+
+def test_gelu_views_take_the_kernel(cuda_device):
+    """Every CUDA tensor launches the kernel, counted as `gelu.kernel`: a
+    strided view, a transposed one, a contiguous one at an unaligned
+    offset, fp16 and float32 ones; a gradient-requiring input under
+    autograd runs `_GeluFn`, whose forward launches it too, and the kernel
+    alone refuses it."""
+    from umgen_tpu_torch.runtime import profiler
+    x = (torch.randn(64, 3072, device=cuda_device) * 2).bfloat16()
+    views = (x, x[:, ::2], x.t(), x.view(-1)[1:], x[:, 1:].half(),
+             x.float()[:, 3:])
+    n0 = tgelu.LAUNCHES["gelu"]
+    profiler.start()
+    try:
+        for v in views:
+            assert _same_bits(tnn.gelu(v), tnn._gelu_plain(v))
+        counters = profiler.take()["counters"]
+    finally:
+        profiler.stop()
+    assert tgelu.LAUNCHES["gelu"] == n0 + len(views)
+    assert counters == {None: {"gelu.kernel": len(views)}}
+    xg = x.clone().requires_grad_(True)
+    y = tnn.gelu(xg)
+    assert tgelu.LAUNCHES["gelu"] == n0 + len(views) + 1
+    assert type(y.grad_fn).__name__ == "_GeluFnBackward"
+    with pytest.raises(RuntimeError, match="no backward"):
+        tgelu.gelu(xg)
+    with pytest.raises(ValueError, match="float64"):
+        tnn.gelu(x.double())
 
 
 # ---------------------------------------------------------------------------

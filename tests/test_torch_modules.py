@@ -10,6 +10,10 @@ op-by-op results for one TAR block differ in ~25% of the outputs by an
 ulp).
 """
 
+import math
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,8 +31,11 @@ from umgen_tpu_torch import params as tparams
 from umgen_tpu_torch.models import modules as tnn
 from umgen_tpu_torch.models import sampling as tsamp
 from umgen_tpu_torch.models.umgen import NotPortedError, build_buffers
+from umgen_tpu_torch.ops import _cuda
 from umgen_tpu_torch.ops import collision as tcol
+from umgen_tpu_torch.ops import gelu as tgelu
 from umgen_tpu_torch.ops import warp as twarp
+from umgen_tpu_torch.runtime import profiler
 from umgen_tpu_torch.runtime.quantize import (pack_decode_weights,
                                               quantize_params_int8)
 from umgen_tpu_torch.tools import evaluate
@@ -104,6 +111,79 @@ def test_primitives_match_jax(block):
                 "gelu")
     _bf16_close(tnn.mlp(tp["mlp1"], xt), jax.jit(jnn.mlp)(jp["mlp1"], x),
                 "mlp")
+
+
+def test_gelu_keeps_cpu_tensors_off_the_kernel():
+    """CPU tensors of every dtype, views included, run the plain GELU: the
+    kernel's launch counter stays where it was, and the kernel's wrapper
+    refuses a CPU tensor outright (and a dtype it has no instance for)."""
+    rng = np.random.default_rng(5)
+    n0 = tgelu.LAUNCHES["gelu"]
+    for dt in (torch.bfloat16, torch.float32, torch.float16):
+        x = torch.from_numpy(rng.normal(0, 2, (6, 40))).to(dt)
+        for t in (x, x.t(), x[:, 1:]):
+            assert torch.equal(tnn.gelu(t), tnn._gelu_plain(t))
+    assert tgelu.LAUNCHES["gelu"] == n0
+    with pytest.raises(ValueError, match="CUDA"):
+        tgelu.gelu(torch.zeros(8, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="float64"):
+        tgelu.gelu(torch.zeros(8, dtype=torch.float64))
+
+
+def test_gelu_calls_count_as_plain_under_the_tracer():
+    """With the tracer on, each GELU of a tiny MLP counts once, as
+    `gelu.plain` on the CPU; with it off nothing is counted."""
+    rng = np.random.default_rng(6)
+    p = {k: {"w": torch.from_numpy(rng.normal(0, 0.1, shape))
+             .to(torch.bfloat16)}
+         for k, shape in (("fc", (D, 4 * D)), ("proj", (4 * D, D)))}
+    x = torch.from_numpy(rng.normal(0, 1, (2, 3, D))).to(torch.bfloat16)
+    tnn.mlp(p, x)
+    profiler.start()
+    try:
+        for _ in range(3):
+            tnn.mlp(p, x)
+        counters = profiler.take()["counters"]
+    finally:
+        profiler.stop()
+    assert counters == {None: {"gelu.plain": 3}}
+
+
+def test_gelu_under_autograd_keeps_the_erfc_gradient():
+    """`gelu` of a tensor that requires a gradient goes through `_GeluFn`:
+    the plain version's values, and erfc's own derivative rounded once."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(0, 2, 257)).to(torch.bfloat16)
+    x.requires_grad_(True)
+    y = tnn.gelu(x)
+    assert type(y.grad_fn).__name__ == "_GeluFnBackward"
+    assert torch.equal(y.detach(), tnn._gelu_plain(x.detach()))
+    g = torch.from_numpy(rng.normal(0, 1, 257)).to(torch.bfloat16)
+    (dx,) = torch.autograd.grad(y, x, g)
+    xf = x.detach().float()
+    z = -xf * 0.70703125
+    e = tnn._erfc_f32(z).to(torch.bfloat16).float()
+    d = 0.5 * e + (0.5 * xf) * 0.70703125 * (2 / math.sqrt(math.pi)) \
+        * torch.exp(-z * z)
+    assert torch.equal(dx, (g.float() * d).to(torch.bfloat16))
+
+
+def test_gelu_c_entry_takes_the_wrappers_arguments():
+    """The ctypes argument list of `umgen_gelu` is the one csrc/gelu.cu
+    declares, type for type, and its dtype codes the ones the source's
+    switch launches."""
+    src = (Path(tgelu.__file__).resolve().parents[1] / "csrc"
+           / "gelu.cu").read_text()
+    [params] = re.findall(r'extern "C" int umgen_gelu\((.*?)\)\s*\{',
+                          src, re.S)
+    types = {"const void*": _cuda.VOIDP, "void*": _cuda.VOIDP,
+             "long long": _cuda.INT64, "int": _cuda.INT}
+    declared = [types[" ".join(q.split()[:-1])] for q in params.split(",")]
+    assert declared == tgelu.ARGTYPES
+    cases = dict(re.findall(r"case (\d): return launch<(\w+)>", src))
+    names = {torch.bfloat16: "__nv_bfloat16", torch.float16: "__half",
+             torch.float32: "float"}
+    assert cases == {str(c): names[dt] for dt, c in tgelu.DTYPES.items()}
 
 
 @pytest.mark.parametrize("causal,Sq,Sk", [(False, 7, 7), (True, 7, 7),

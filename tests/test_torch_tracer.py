@@ -20,6 +20,7 @@ from torch.profiler import ProfilerActivity, profile
 from benchmark import harness
 from umgen_tpu_torch.config import ModelConfig
 from umgen_tpu_torch.data.synthetic import make_token_batch
+from umgen_tpu_torch.models import modules as nn
 from umgen_tpu_torch.models.rollout import Rollout
 from umgen_tpu_torch.models.umgen import UMGen
 from umgen_tpu_torch.params import init_params
@@ -57,7 +58,7 @@ def frames(params):
     then `frame_step_cached`), top-k with the rule constraint on, traced,
     with the draws hook set and the benchmark's `Recorder` on the samplers.
     {mode: (the tracer's records, the hook's draws, the Recorder's calls,
-    the frame's tokens)}."""
+    the frame's tokens, the plain GELU's calls)}."""
     n = torch.get_num_threads()
     torch.set_num_threads(2)
     cfg = CFG
@@ -67,6 +68,10 @@ def frames(params):
         mp.setattr(Rollout, "_oar_step_eager",
                    lambda self, params, x, kv_k, kv_v, cache_len:
                    (x, kv_k, kv_v))
+        gelus = []
+        plain = nn._gelu_plain
+        mp.setattr(nn, "_gelu_plain",
+                   lambda x: gelus.append(1) or plain(x))
         for mode in ("recompute", "cached"):
             c = cfg if mode == "recompute" else cfg.replace(
                 tar_mode="temporal_cache", tar_cache_window=2,
@@ -77,12 +82,14 @@ def frames(params):
             hooked = []
             ro.draw_hook = lambda *a: hooked.append(a)
             g = torch.Generator().manual_seed(5)
+            gelus.clear()
             profiler.start()
             if mode == "recompute":
                 res = ro.frame_step(params, window, g)
             else:
                 res, _ = ro.frame_step_chunked(params, window, g)
-            out[mode] = (profiler.stop(), hooked, rec.take(), res.tokens)
+            out[mode] = (profiler.stop(), hooked, rec.take(), res.tokens,
+                         len(gelus))
     torch.set_num_threads(n)
     return out
 
@@ -122,10 +129,12 @@ def test_tracer_off_records_nothing_and_allocates_nothing(monkeypatch):
 @pytest.mark.parametrize("mode", ["recompute", "cached"])
 def test_spans_and_counters_of_a_frame(frames, mode):
     """frame > ego / tar / oar > oar_step and glue > head / sample / rules /
-    embed, one frame id across the frame step, the ingest outside it, and
-    the step counter equal to the layout's (the draws are the hook's, in
-    the test below)."""
-    took, _, _, _ = frames[mode]
+    embed, one frame id across the frame step, the ingest outside it, the
+    step counter equal to the layout's, and every GELU counted on its
+    path: a frame step's = its cascade's + one a map or image step, an
+    ingest's = the same cascade's (the draws are the hook's, in the test
+    below)."""
+    took, _, _, _, gelus = frames[mode]
     spans = took["spans"]
     by_id = {s["id"]: s for s in spans}
 
@@ -160,11 +169,30 @@ def test_spans_and_counters_of_a_frame(frames, mode):
     layout = Rollout(UMGen(CFG)).layout
     n = {seg.mod: seg.content_len for seg in layout.segments}
     steps = sum(v for m, v in n.items() if m != "pose")
-    assert took["counters"] == {0: {"oar_steps.eager": steps}}
+    embeds = n["map"] + n["image"]
+    cascade = _cascade_gelus(CFG)
+    want = {0: {"oar_steps.eager": steps, "gelu.plain": cascade + embeds}}
+    if mode == "cached":
+        want[None] = {"gelu.plain": cascade}
+    assert took["counters"] == want
+    assert gelus == sum(c["gelu.plain"] for c in want.values())
     glue = [s for s in spans if s["name"] == "umgen.glue"]
     assert len(glue) == steps
     assert sum(s["attrs"]["kernel"] == "eager" and s["attrs"]["Q"] == 1
                for s in spans if s["name"] == "umgen.oar_step") == steps
+
+
+def _cascade_gelus(cfg):
+    """GELU calls of one frame's ego + TAR cascade, counted from the
+    configuration: three MLPs a TAR-family block (ego, trunk, map, box),
+    one an ego cross-attention block, and one a map or image embedding —
+    the ego net's and the trunk's inputs embed both, the map and box
+    stacks' the map alone."""
+    assert cfg.task == "pose_map_bbox3d_image"
+    assert cfg.split_map_tar and cfg.split_box_tar
+    blocks = (cfg.n_ego_tar_layer + cfg.n_tar_layer + cfg.n_map_tar_layer
+              + cfg.n_box_tar_layer)
+    return 3 * blocks + cfg.n_ego_ca_layer + 2 + 2 + 1 + 1
 
 
 def _ancestors(s, by_id):
@@ -178,7 +206,7 @@ def test_draw_hook_gives_what_the_benchmark_reads(frames, mode):
     """The hook's draws, in call order, are the draws the benchmark's
     Recorder and `frame_draws` read for the same frame, one a role at each
     content position of the layout, and the served stream's positions."""
-    _, hooked, calls, tokens = frames[mode]
+    _, hooked, calls, tokens, _ = frames[mode]
     layout = Rollout(UMGen(CFG)).layout
     rows = np.arange(B)
     bench = harness.frame_draws(

@@ -37,6 +37,9 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from umgen_tpu_torch.ops.gelu import gelu as gelu_cuda
+from umgen_tpu_torch.runtime.profiler import count
+
 Params = Dict[str, Any]
 
 
@@ -181,13 +184,24 @@ def _erfc_f32(z: torch.Tensor) -> torch.Tensor:
     return torch.where(az < 1.0, small, tail)
 
 
-def _gelu(x: torch.Tensor) -> torch.Tensor:
+def _gelu_plain(x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     xf = x.float()
     c = float(torch.tensor(math.sqrt(0.5), dtype=dt))
     e = _erfc_f32((-xf) * c).to(dt).float()
     half = (0.5 * xf).to(dt).float()
     return (half * e).to(dt)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """`_gelu_plain`: on the card by the CUDA kernel (ops/gelu.py, bit for
+    bit), on the CPU in eager ops; the tracer counts each call as
+    `gelu.kernel` or `gelu.plain`."""
+    if x.is_cuda:
+        count("gelu.kernel")
+        return gelu_cuda(x)
+    count("gelu.plain")
+    return _gelu_plain(x)
 
 
 class _GeluFn(torch.autograd.Function):

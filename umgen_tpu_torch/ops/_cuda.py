@@ -31,13 +31,14 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
-# each source with the flags it adds to NVCC_FLAGS.  decode_step.cu:
-# --fmad=false keeps the epilogue arithmetic in the order it is written (the
+# each source with the flags it adds to NVCC_FLAGS.  decode_step.cu and
+# gelu.cu: --fmad=false keeps the arithmetic in the order it is written (the
 # plain versions round after every multiply and add).  flash_attention.cu
 # rounds where no plain version can follow a contraction anyway (bf16
 # products in the tensor cores), so it lets the compiler fuse.
 SOURCES = {"flash_attention.cu": (),
-           "decode_step.cu": ("--fmad=false",)}
+           "decode_step.cu": ("--fmad=false",),
+           "gelu.cu": ("--fmad=false",)}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
