@@ -5,13 +5,13 @@
 
 runs the cell once a seed in this one process, as the benchmark's own runs
 do, and prints one JSON line a seed with its compared numbers: with
-`--control 1` the configuration's "control" stands in: the program on its
-own lower-precision path ("flags", e.g. int4 TAR weights where the
-configuration states int8), or, where the program has no such path, the
-reference computed in the precision below the stated one ("act", e.g. fp8
-activations for bf16), judged against the float32 reference on the
-program's frames.  It must come out not correct.  The benchmark's own runs
-never run it.
+`--control n` the configuration's n-th "control" (one, or a list) stands
+in: the program on its own lower-precision path ("flags", e.g. int4 TAR
+weights where the configuration states int8, fp8 rings where it states
+bf16), or the reference computed in the precision below the stated one
+("act", e.g. fp8 activations for bf16), judged against the float32
+reference on the program's frames.  Each must come out not correct.  The
+benchmark's own runs never run them.
 """
 
 import argparse
@@ -29,7 +29,7 @@ def main(argv=None) -> int:
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", type=int, nargs="+", required=True)
     p.add_argument("--seconds", type=float, default=10)
-    p.add_argument("--control", type=int, choices=(0, 1), default=0)
+    p.add_argument("--control", type=int, default=0)
     a = p.parse_args(argv)
     import torch
 
@@ -40,7 +40,12 @@ def main(argv=None) -> int:
     manifest = harness.load_json(ROOT / "BENCHMARK.json")
     _, entry = harness.cell_of(manifest, a.workload)
     conf = harness.load_json(ROOT / entry["file"])
-    ctl = conf["control"] if a.control else {}
+    controls = conf["control"]
+    if isinstance(controls, dict):
+        controls = [controls]
+    if not 0 <= a.control <= len(controls):
+        p.error(f"--control: 0 to {len(controls)} for {a.workload}")
+    ctl = controls[a.control - 1] if a.control else {}
     flags, act = ctl.get("flags", []), ctl.get("act")
     for seed in a.seeds:
         t = time.perf_counter()

@@ -26,7 +26,7 @@ import json
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -185,57 +185,140 @@ def stored_mismatch(conf: Dict, raw: Dict, params: Dict) -> int:
     return bad
 
 
+RING_FORMATS = {"bfloat16": torch.bfloat16}
+
+
+def ring_mismatch(conf: Dict, cache: Dict) -> int:
+    """Stacks named in the configuration's "ring_check" whose TAR rings, as
+    the window leaves them in the program's cache, are not stored in the
+    stated float format: a tensor of another type or fewer bytes a value
+    (an fp8 or integer ring), no K or V at all, or K / V values on a grid
+    coarser than the format's (over half of the nonzero bf16 values with
+    their 4 lowest mantissa bits clear, as fp8 e4m3 values are; a sound
+    bf16 ring has about 1 in 16 so).  It reads the state the window
+    leaves, not what a kernel does with it."""
+    spec = conf["ring_check"]
+    want = RING_FORMATS[spec["format"]]
+    bad = 0
+    for name in spec["stacks"]:
+        ring = (cache or {}).get(name)
+        if not isinstance(ring, (tuple, list)) or len(ring) < 2 or any(
+                not isinstance(t, torch.Tensor) or t.dtype != want
+                for t in ring):
+            bad += 1
+            continue
+        coarse, empty = False, True
+        for t in ring[:2]:
+            for layer_kv in t:                       # a layer at a time
+                bits = layer_kv.contiguous().view(torch.int16)
+                nonzero = (bits & 0x7FFF) != 0
+                n = int(nonzero.sum())
+                empty &= n == 0
+                coarse |= n > 0 and int(
+                    (((bits & 0xF) == 0) & nonzero).sum()) * 2 > n
+        bad += int(coarse or empty)
+    return bad
+
+
+class Draws(dict):
+    """One take of a `Recorder`: {modality: [tokens, ...]} in report order
+    (every role), and `reports`, [(modality, role, content position,
+    tokens)]."""
+
+    def __init__(self, reports: List[Tuple]):
+        super().__init__()
+        for mod, _, _, tok in reports:
+            self.setdefault(mod, []).append(tok)
+        self.reports = reports
+
+
 class Recorder:
-    """The program's token draws, sampler by sampler, in call order."""
+    """The program's token draws, as it reports them through its public
+    hook `Rollout.draw_hook` (modality, role, content position, tokens),
+    in the order reported.  The device tensors are kept as they come: no
+    synchronization inside the window.  The recorder stays under whatever
+    hook is set on the rollout afterwards: each report reaches both."""
 
     def __init__(self, rollout):
-        self.calls: Dict[str, List[torch.Tensor]] = {}
-        for mod, fn in list(rollout._samplers.items()):
-            self.calls[mod] = []
-            rollout._samplers[mod] = self._wrap(mod, fn)
+        self.calls: List[Tuple] = []
+        record = self.calls.append
 
-    def _wrap(self, mod, fn):
-        def draw(generator, logits):
-            out = fn(generator, logits)
-            self.calls[mod].append(out)
-            return out
-        return draw
+        def chain(other):
+            if other is None:
+                return lambda *a: record(a)
 
-    def take(self) -> Dict[str, List[torch.Tensor]]:
-        out = self.calls
-        self.calls = {m: [] for m in out}
+            def both(*a):
+                record(a)
+                other(*a)
+            return both
+
+        def set_hook(ro, fn):
+            ro.__dict__["_recorded_hook"] = chain(fn)
+
+        rollout.__class__ = type(
+            "Recorded" + type(rollout).__name__, (type(rollout),),
+            {"draw_hook": property(lambda ro: ro.__dict__["_recorded_hook"],
+                                   set_hook)})
+        rollout.draw_hook = rollout.__dict__.pop("draw_hook", None)
+
+    def take(self) -> Draws:
+        out = Draws(self.calls[:])
+        self.calls.clear()
         return out
 
 
-# sampler calls a frame per content token of each modality: the ego action
-# is one draw of three tokens; an agent position draws three times (the OAR
-# head, the control redraw, the TAR head)
-DRAWS_PER_TOKEN = {"pose": None, "map": 1, "image": 1, "bbox3d": 3}
+# the draws the judge reads, by modality: (the hook's role, the judge's
+# name).  A "served" segment [B, n] at its first content position, or the
+# ego action [B, 3], stands for the first role of each position it covers;
+# an agent position's "control" redraw is reported but not judged.
+JUDGED_ROLES = {"pose": (("ego", "pose"),), "map": (("ar", "map"),),
+                "image": (("ar", "image"),),
+                "bbox3d": (("ar", "bbox_ar"), ("tar", "bbox_tar"))}
 
 
-def frame_draws(calls: Dict[str, List[torch.Tensor]], rows,
-                layout) -> Dict:
-    """One frame's draws of scenes `rows` → {pose [k, 3], map, bbox_ar,
-    bbox_tar, image [k, n]}.  The draws are read through the program's
-    `Rollout._samplers`, one call a content position in decode order: a
-    program that draws otherwise fails here by name, not as a wrong
-    token."""
+def content_positions(layout) -> Dict[str, range]:
+    """Each modality's content positions in the program's frame sequence
+    (the task token first, then each segment's <bos>, content, <eos>)."""
+    out, pos = {}, 0
     for mod, n, _, _ in layout:
-        want = 1 if DRAWS_PER_TOKEN[mod] is None else DRAWS_PER_TOKEN[mod] * n
-        got = len(calls.get(mod, ()))
-        if got != want:
-            raise RuntimeError(
-                f"the program's {mod!r} sampler was called {got} times in a "
-                f"frame, the benchmark reads {want} (Rollout._samplers, one "
-                f"call a position in decode order, three an agent "
-                f"position): the decode loop changed under the check; give "
-                f"the benchmark a draws hook before changing it")
-    def st(xs):
-        return torch.stack(xs, 1)[rows].cpu().numpy()
-    bbox = calls["bbox3d"]
-    return {"pose": calls["pose"][0][rows].cpu().numpy(),
-            "map": st(calls["map"]), "image": st(calls["image"]),
-            "bbox_ar": st(bbox[0::3]), "bbox_tar": st(bbox[2::3])}
+        out[mod] = range(pos + 2, pos + 2 + n)
+        pos += n + 2
+    return out
+
+
+def frame_draws(calls: Draws, rows, layout) -> Dict:
+    """One frame's draws of scenes `rows` → {pose [k, 3], map, bbox_ar,
+    bbox_tar, image [k, n]}, from a `Recorder`'s take of the reports of
+    `Rollout.draw_hook`.  Every content position must have exactly one
+    draw of each role the judge reads there: a program that reports
+    otherwise fails here by name, not as a wrong token."""
+    at: Dict[Tuple, List] = {}
+    for mod, role, pos, tok in calls.reports:
+        if role == "control" or mod not in JUDGED_ROLES:
+            continue
+        if role in ("served", "ego"):
+            role = JUDGED_ROLES[mod][0][0]
+        cols = tok.shape[1] if tok.dim() == 2 else None
+        for c in range(cols or 1):
+            at.setdefault((mod, role, pos + c), []).append(
+                tok[:, c] if cols else tok)
+    out = {}
+    for mod, places in content_positions(layout).items():
+        for role, name in JUDGED_ROLES[mod]:
+            got = [at.get((mod, role, p), ()) for p in places]
+            bad = [p for p, g in zip(places, got) if len(g) != 1]
+            if bad:
+                n = len(got[places.index(bad[0])])
+                raise RuntimeError(
+                    f"Rollout.draw_hook reported {n} {role!r} draws of "
+                    f"{mod!r} at content position {bad[0]} ({len(bad)} of "
+                    f"the frame's {len(places)} positions without exactly "
+                    f"one): the benchmark judges one draw a position, "
+                    f"reported once a position or once a segment (role "
+                    f"'served')")
+            out[name] = torch.stack([g[0] for g in got], 1)[rows] \
+                .cpu().numpy()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +347,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     if cuda:                       # the peak of this run alone
         torch.empty(0, device=dev)
         torch.cuda.reset_peak_memory_stats(dev)
+    tracer = None
+    if trace and cuda:
+        # the program's own tracer over set-up (its device-timed spans)
+        from umgen_tpu_torch.runtime import profiler as tracer
+        tracer.start(dev)
 
     raw = make_weights(m, sd["weights"], dev)
     prog = Program(conf, raw, dev, extra_flags)
@@ -324,6 +412,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     if cuda:
         torch.cuda.synchronize()
     rec.take()
+    # the window runs without the program's tracer
+    setup_rec = tracer.stop() if tracer is not None else None
     spans.on = bool(trace and cuda)
 
     # ---- the measured window ------------------------------------------
@@ -355,6 +445,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     window_s = t_end - t0
     spans.on = False
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    rings = (ring_mismatch(conf, prog.cache) if "ring_check" in conf
+             else None)
     for jf in judged:
         jf["draws"] = frame_draws(jf["draws"], rows, m["layout"])
 
@@ -364,7 +456,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     units = {e["name"]: e["unit"] for e in manifest["end_to_end"]}
     metrics = {}
     if trace and cuda:
-        data = traced(prog, spans, step, n_frames, window_s, B, conf, m, ws)
+        data = traced(prog, spans, step, n_frames, window_s, B, conf, m, ws,
+                      tracer, dev)
+        data["setup"] = setup_rec
         for p in per_layer_of(manifest, cell):
             v = reader(p["name"], root / "benchmark")(data)
             if v is not None:
@@ -386,6 +480,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     numbers = judge(conf, m, ws, sd, dev, stream, judged, rows, first_timed,
                     control_act)
     numbers["stored_mismatch"] = stored
+    if rings is not None:
+        numbers["ring_mismatch"] = rings
     log(f"check: {len(judged)} frames of {len(rows)} scenes judged in "
         f"{time.perf_counter() - t_check:.3f} s")
     limits = conf["limits"]
@@ -464,9 +560,13 @@ def device_info(dev, peak: int) -> Dict:
 DECODE_SLICE = (925, 1125)     # OAR calls of the frame the profiler sees
 
 
-def traced(prog, spans, step, n_frames, window_s, B, conf, m, ws) -> Dict:
+def traced(prog, spans, step, n_frames, window_s, B, conf, m, ws, tracer,
+           dev) -> Dict:
     """The spans of the window's frames, then one more frame whose cascade
-    and a slice of whose decode steps run under torch.profiler."""
+    and a slice of whose decode steps run under torch.profiler, with the
+    program's tracer on: its spans' `record_function` ranges tag the
+    profiled operations, and its records of the frame (host spans, decode
+    steps counted by kernel) are kept."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from umgen_tpu_torch.ops import attention as attn_mod
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -520,6 +620,7 @@ def traced(prog, spans, step, n_frames, window_s, B, conf, m, ws) -> Dict:
     attn_mod.flash_attention = flash_traced
     prog.rollout._finish_frame = finish_traced
     prog.rollout.oar_step = oar_traced
+    tracer.start(dev)
     try:
         torch.cuda.synchronize()
         begin("bench.cascade")
@@ -528,6 +629,7 @@ def traced(prog, spans, step, n_frames, window_s, B, conf, m, ws) -> Dict:
             end("bench.decode")
     finally:
         attn_mod.flash_attention = flash
+        program = tracer.stop()
     by_name = {n: tr.reduce_session(p, n) for n, p in profs.items()}
     segs = {mod: n for mod, n, _, _ in m["layout"]}
     return {"frames": n_frames, "scenes": B, "window_s": window_s,
@@ -539,5 +641,6 @@ def traced(prog, spans, step, n_frames, window_s, B, conf, m, ws) -> Dict:
             "decode_steps": DECODE_SLICE[1] - DECODE_SLICE[0],
             "decode_calls": state["calls"],
             "decode_work": conf["decode_work"], "model": m,
+            "program": program,
             "frame_flops": work.frame_flops(m, segs, ws["mode"],
                                             ws["window"])}

@@ -20,9 +20,10 @@ TINY_LIMITS = {"prior_err": 0.05, "ego_err": 0.04, "token_gap": 0.05,
 
 
 def write_root(tmp: Path) -> Path:
-    """A checkout root holding BENCHMARK.json with two tiny cells (cached
-    serving-style and recompute), their configuration and traffic files,
-    and the benchmark's metric readers."""
+    """A checkout root holding BENCHMARK.json with three tiny cells (cached
+    serving-style, recompute, and cached after a full-window prefill),
+    their configuration and traffic files, and the benchmark's metric
+    readers."""
     (tmp / "benchmark" / "configs").mkdir(parents=True)
     (tmp / "benchmark" / "traffic").mkdir(parents=True)
     os.symlink(BENCH / "metrics", tmp / "benchmark" / "metrics")
@@ -33,7 +34,11 @@ def write_root(tmp: Path) -> Path:
               ["--tar_cache_window", "3"], {"tar_cache_window": 3}, 3),
              ("tiny-recompute", "umgen_stander_int8", "tiny_recompute",
               {"scenes": 1, "history_frames": 20, "warm_frames": 1,
-               "check_scenes": 1}, [], {}, 20)]
+               "check_scenes": 1}, [], {}, 20),
+             ("tiny-prefill", "umgen_stander_cached", "tiny_prefill",
+              {"scenes": 1, "history_frames": 3, "warm_frames": 2,
+               "check_scenes": 1},
+              ["--tar_cache_window", "3"], {"tar_cache_window": 3}, 3)]
     manifest["configs"], manifest["workloads"] = [], []
     for cell, base, name, mix, flags, extra, window in cells:
         conf = json.loads((BENCH / "configs" / f"{base}.json").read_text())
@@ -49,7 +54,8 @@ def write_root(tmp: Path) -> Path:
         conf["program_weights"] = "cli"
         conf["reference_weights"] = conf["reference_weights"][:1]
         conf["window"]["window"] = window
-        conf["limits"] = dict(TINY_LIMITS)
+        conf["limits"] = {k: TINY_LIMITS.get(k, v)
+                          for k, v in conf["limits"].items()}
         (tmp / "benchmark" / "configs" / f"{name}.json").write_text(
             json.dumps(conf))
         (tmp / "benchmark" / "traffic" / f"{name}.json").write_text(

@@ -53,10 +53,11 @@ def half_batch(prog):
 
 @pytest.mark.parametrize("cell,fault", [
     ("tiny-cached", altered_token), ("tiny-cached", rings_unchanged),
-    ("tiny-cached", half_batch), ("tiny-recompute", altered_token)])
+    ("tiny-cached", half_batch), ("tiny-recompute", altered_token),
+    ("tiny-prefill", altered_token), ("tiny-prefill", rings_unchanged)])
 def test_fault_is_not_correct(root, cell, fault):
     """Every fault the cell can have: the recompute cell carries no state
-    across frames and runs one scene."""
+    across frames, and it and the prefill cell run one scene."""
     out = harness.run_cell(cell, 777, 0.5, False, device="cpu", root=root,
                            patch=fault, log=lambda s: None)
     assert out["correct"] is False, out["checks"]

@@ -31,18 +31,47 @@ def test_cell_written_as_data_runs_and_is_correct(root, cell):
     json.dumps(out)
 
 
-@pytest.mark.parametrize("cell,control", [
-    ("tiny-cached", {"extra_flags": ["--tar_w4"]}),
-    ("tiny-recompute", {"control_act": "float8_e4m3fn"})])
-def test_control_is_not_correct(root, cell, control):
+@pytest.mark.parametrize("cell,control,number", [
+    ("tiny-cached", {"extra_flags": ["--tar_w4"]}, "prior_err"),
+    ("tiny-recompute", {"control_act": "float8_e4m3fn"}, "prior_err"),
+    ("tiny-prefill", {"extra_flags": ["--kv_dtype", "float8_e4m3fn"]},
+     "ring_mismatch"),
+    ("tiny-prefill", {"control_act": "float8_e4m3fn"}, "prior_err")])
+def test_control_is_not_correct(root, cell, control, number):
     """Each configuration's control fails a compared number: the program on
-    its int4 path for int8 TAR weights; the reference in fp8 activations
-    in the program's place."""
+    its int4 path for int8 TAR weights; the program's fp8 rings for the
+    stated bf16 ones, caught by the rings' stored format (their priors
+    read as the bf16 rings' do); the reference in fp8 activations in the
+    program's place (both stander cells)."""
     out = harness.run_cell(cell, 4242, 0.5, False, device="cpu", root=root,
                            log=lambda s: None, **control)
     assert out["correct"] is False
-    assert out["checks"]["prior_err"]["value"] > \
-        out["checks"]["prior_err"]["limit"]
+    assert out["checks"][number]["value"] > out["checks"][number]["limit"]
+
+
+def test_rings_below_their_stated_format_are_counted():
+    """`ring_mismatch` on rings made by hand: sound bf16 rings count
+    nothing; a stack whose rings are fp8, fp8 values held in bf16, all
+    zeros, float32 or missing counts once."""
+    conf = {"ring_check": {"format": "bfloat16",
+                           "stacks": ["tar", "ego_tar", "map_tar"]}}
+    g = torch.Generator().manual_seed(3)
+
+    def ring(dtype=torch.bfloat16):
+        return tuple(torch.randn(2, 6, 3, 4, 8, generator=g).to(dtype)
+                     for _ in range(2))
+    sound = {"frames": 5, "tar": ring(), "ego_tar": ring(), "map_tar": ring()}
+    assert harness.ring_mismatch(conf, sound) == 0
+    fp8_in_bf16 = tuple(t.to(torch.float8_e4m3fn).to(torch.bfloat16)
+                        for t in ring())
+    for bad in (ring(torch.float8_e4m3fn), fp8_in_bf16,
+                tuple(torch.zeros_like(t) for t in ring()),
+                ring(torch.float32), None):
+        rings = dict(sound, ego_tar=bad)
+        if bad is None:
+            del rings["ego_tar"]
+        assert harness.ring_mismatch(conf, rings) == 1
+    assert harness.ring_mismatch(conf, None) == 3
 
 
 def test_readers_on_a_traced_run():
@@ -93,16 +122,30 @@ def test_a_lower_stored_format_is_not_correct(root):
 
 
 def test_draws_read_otherwise_fail_by_name():
-    """A frame whose samplers were called otherwise than the check reads
-    them stops the run with the coupling named."""
+    """A frame whose draws were reported otherwise than one of each judged
+    role a content position (or one served segment covering it) stops the
+    run with the hook named."""
     layout = [["pose", 3, 0, 1], ["map", 4, 2, 3], ["bbox3d", 2, 4, 5],
               ["image", 1, 6, 7]]
-    one = torch.zeros(2, 3, dtype=torch.long)
-    tok = torch.zeros(2, dtype=torch.long)
-    calls = {"pose": [one], "map": [tok] * 4, "bbox3d": [tok] * 6,
-             "image": [tok]}
-    got = harness.frame_draws(calls, [0], layout)
-    assert got["bbox_ar"].shape == (1, 2) and got["map"].shape == (1, 4)
-    calls["bbox3d"] = [tok] * 4
-    with pytest.raises(RuntimeError, match="_samplers"):
-        harness.frame_draws(calls, [0], layout)
+    assert harness.content_positions(layout) == {
+        "pose": range(2, 5), "map": range(7, 11), "bbox3d": range(13, 15),
+        "image": range(17, 18)}
+    ego = torch.arange(6).view(2, 3)
+    tok = torch.tensor([5, 6])
+    calls = [("pose", "ego", 2, ego), ("map", "served", 7,
+                                       torch.arange(8).view(2, 4))]
+    for p in (13, 14):
+        calls += [("bbox3d", r, p, tok + i)
+                  for i, r in enumerate(("ar", "control", "tar"))]
+    calls.append(("image", "ar", 17, tok))
+    got = harness.frame_draws(harness.Draws(calls), [1], layout)
+    assert got["pose"].tolist() == [[3, 4, 5]]
+    assert got["map"].tolist() == [[4, 5, 6, 7]]
+    assert got["bbox_ar"].tolist() == [[6, 6]]
+    assert got["bbox_tar"].tolist() == [[8, 8]]
+    assert got["image"].tolist() == [[6]]
+    for bad in ([c for c in calls if c[:3] != ("bbox3d", "tar", 14)],
+                calls + [("map", "ar", 9, tok)],
+                calls[:1] + calls[2:]):
+        with pytest.raises(RuntimeError, match="Rollout.draw_hook"):
+            harness.frame_draws(harness.Draws(bad), [0], layout)

@@ -62,7 +62,8 @@ def test_cells_and_configs():
         assert len(c["reduced"]) <= 16
         assert not any(WIDTH.search(k) for k in c["reduced"])
         assert set(conf["limits"]) == {"prior_err", "ego_err", "token_gap",
-                                       "rule_mismatch", "stored_mismatch"}
+                                       "rule_mismatch", "stored_mismatch"} \
+            | ({"ring_mismatch"} if "ring_check" in conf else set())
 
 
 def test_metrics():

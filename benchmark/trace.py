@@ -5,9 +5,12 @@ Spans (`Spans.wrap`) put a pair of CUDA events around each call of a bound
 method while they are on: no synchronization inside the window, the
 elapsed device time read once the window has closed.  The profiler slice
 is kept in memory and reduced here to what the per-layer readers and the
-result's breakdown read: every device operation with its duration and the
-benchmark span its launch fell in, the busy and wall seconds of the slice,
-and the longest idle gaps by what the host was doing meanwhile.
+result's breakdown read: every device operation with its duration, the
+benchmark span its launch fell in and the program's spans open at its
+launch (`umgen.*`, umgen_tpu_torch/runtime/profiler.py: each opens a
+`record_function` range while a profiler runs), the busy and wall seconds
+of the slice, and the longest idle gaps by what the host was doing
+meanwhile.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 SPAN_PREFIX = "bench."
+PROGRAM_PREFIX = "umgen."
 
 
 class Spans:
@@ -61,18 +65,40 @@ def _union(intervals: List[Tuple[float, float]]):
     return out
 
 
+def open_at(ranges: List[Tuple[float, float, str]], times: List[float]
+            ) -> List[Tuple[str, ...]]:
+    """For each of `times`, the names of the `ranges` (start, end, name;
+    nested as one thread's ranges are) that hold it, outermost first."""
+    ranges = sorted(ranges, key=lambda r: (r[0], -r[1]))
+    out: List[Tuple[str, ...]] = [()] * len(times)
+    stack, j = [], 0
+    for i in sorted(range(len(times)), key=times.__getitem__):
+        t = times[i]
+        while j < len(ranges) and ranges[j][0] <= t:
+            while stack and stack[-1][1] < ranges[j][0]:
+                stack.pop()
+            stack.append(ranges[j])
+            j += 1
+        while stack and stack[-1][1] < t:
+            stack.pop()
+        out[i] = tuple(r[2] for r in stack)
+    return out
+
+
 def reduce_session(prof, session: str) -> Optional[Dict]:
     """One profiled session (its CPU range named `session`) → {"busy_s",
     "window_s", "ops": [(device op name, µs, benchmark span of its launch
-    or None)], "gaps": {host op: idle µs}}; None when the trace holds no
-    device operation (a profiler that cannot see the card)."""
+    or None)], "program": [the program's spans open at each op's launch,
+    outermost first, in the order of "ops"], "gaps": {host op: idle µs}};
+    None when the trace holds no device operation (a profiler that cannot
+    see the card)."""
     from torch.autograd import DeviceType
     evs = prof.events()
     # device operations: kernels, copies and sets, not the device-side
-    # copies of the benchmark's own annotations
+    # copies of the benchmark's or the program's annotations
     dev = [e for e in evs if e.device_type == DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)
-           and not e.name.startswith(SPAN_PREFIX)]
+           and not e.name.startswith((SPAN_PREFIX, PROGRAM_PREFIX))]
     cpu = [e for e in evs if e.device_type == DeviceType.CPU]
     rng = [e for e in cpu if e.name == session]
     if not dev or not rng:
@@ -84,7 +110,7 @@ def reduce_session(prof, session: str) -> Optional[Dict]:
                    for e in cpu if e.name.startswith(SPAN_PREFIX)
                    and e.name != session)
     starts = [s[0] for s in spans]
-    ops, iv = [], []
+    ops, iv, at = [], [], []
     for k in dev:
         launch = launches.get(k.id)
         t = launch.time_range.start if launch is not None else \
@@ -95,13 +121,17 @@ def reduce_session(prof, session: str) -> Optional[Dict]:
         span = spans[i][2] if i >= 0 and spans[i][1] >= t else None
         ops.append((k.name, k.time_range.end - k.time_range.start, span))
         iv.append((k.time_range.start, k.time_range.end))
+        at.append(t)
     if not ops:
         return None
+    thread = rng[0].thread
+    program = open_at([(e.time_range.start, e.time_range.end, e.name)
+                       for e in cpu if e.thread == thread
+                       and e.name.startswith(PROGRAM_PREFIX)], at)
     end = max(s1, max(e for _, e in iv))
     busy = _union(iv)
     # idle gaps inside the session, each named by the innermost host op
     # running at its middle (the thread that ran the session)
-    thread = rng[0].thread
     host = sorted(((e.time_range.start, e.time_range.end, e.name)
                    for e in cpu if e.thread == thread and e.name != session),
                   key=lambda h: (h[0], -h[1]))
@@ -122,7 +152,8 @@ def reduce_session(prof, session: str) -> Optional[Dict]:
             stack.pop()
         named[stack[-1][2] if stack else "(no host op)"] += b - a
     return {"busy_s": sum(e - s for s, e in busy) / 1e6,
-            "window_s": (end - s0) / 1e6, "ops": ops, "gaps": dict(named)}
+            "window_s": (end - s0) / 1e6, "ops": ops, "program": program,
+            "gaps": dict(named)}
 
 
 def breakdown(sessions: List[Dict], top: int = 10) -> Dict:
